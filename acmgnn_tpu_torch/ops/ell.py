@@ -1,0 +1,243 @@
+"""Row-gather sparse operator for Hopper, and its SpMM kernel (K1).
+
+Counterpart of ``acmgnn_tpu/ops/ell.py``.  The JAX package packs each
+matrix into degree buckets of rows-minor, pre-chunked ELL planes because
+of the TPU's gather engine.  On Hopper a warp per row walking plain CSR
+keeps the index stream coalesced, so a half here is degree-sorted CSR:
+``indptr``/``indices`` over rows in descending-degree order, and
+``row_ids`` mapping each sorted row to the output row it writes (the
+inverse permutation folded into the store).
+
+The semantics carry over unchanged:
+
+- value-free halves: a row-uniform matrix (``D^-1(A+I)``: every nonzero
+  of row r is ``1/deg_r``) keeps only its binary structure and applies
+  ``row_scale`` once per row after the sum;
+- its transpose is column-uniform and pre-scales the operand instead
+  (``Âᵀg = Bᵀ(s⊙g)``), sharing the forward half's structure arrays when
+  the binary structure is symmetric;
+- matrices that are neither keep per-nonzero values (``vals``, f32 — the
+  JAX package stores them in the gather dtype and rounds each product
+  there; no operator of the ported paths is valued);
+- the operand is cast to the gather dtype (bf16 on the headline path),
+  the sum accumulates in f32, zero-degree rows give zero.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from acmgnn_tpu_torch.ops import kernels
+
+
+@dataclasses.dataclass
+class EllHalf:
+    """One matrix (A or Aᵀ) as degree-sorted CSR."""
+
+    indptr: torch.Tensor        # [N + 1] int64, sorted-row order
+    indices: torch.Tensor       # [nnz] int32 column ids
+    row_ids: torch.Tensor       # [N] int32: sorted row i writes row_ids[i]
+    vals: Optional[torch.Tensor] = None       # [nnz] f32; None = value-free
+    row_scale: Optional[torch.Tensor] = None  # [N] f32, output-row order
+    pre_scale: Optional[torch.Tensor] = None  # [N] f32, operand-row order
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.row_ids.shape[0])
+
+    def to(self, device, memo: Optional[dict] = None) -> "EllHalf":
+        """Copy to ``device``; arrays shared between halves through
+        ``memo`` stay shared."""
+        memo = {} if memo is None else memo
+
+        def move(t):
+            if t is None:
+                return None
+            if id(t) not in memo:
+                memo[id(t)] = t.to(device)
+            return memo[id(t)]
+
+        return EllHalf(**{f.name: move(getattr(self, f.name))
+                          for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass
+class EllOp:
+    """Row-gather operator with its precomputed transpose half."""
+
+    fwd: EllHalf
+    bwd: EllHalf
+    num_nodes: int
+    nnz: int
+    gather_dtype: torch.dtype = torch.float32
+
+    def to(self, device) -> "EllOp":
+        memo: dict = {}
+        fwd = self.fwd.to(device, memo)
+        bwd = fwd if self.bwd is self.fwd else self.bwd.to(device, memo)
+        return dataclasses.replace(self, fwd=fwd, bwd=bwd)
+
+
+def _row_uniform_values(csr: sp.csr_matrix):
+    """Per-row value vector if every nonzero within each row has the same
+    value (exact float equality), else None."""
+    deg = np.diff(csr.indptr)
+    firsts = np.zeros(csr.shape[0], csr.data.dtype)
+    nz = deg > 0
+    firsts[nz] = csr.data[csr.indptr[:-1][nz]]
+    if np.array_equal(csr.data, np.repeat(firsts, deg)):
+        return firsts
+    return None
+
+
+def _build_half(csr: sp.csr_matrix, uniform_scale=None,
+                scale_mode: str = "post") -> EllHalf:
+    deg = np.diff(csr.indptr)
+    order = np.argsort(-deg, kind="stable")
+    srt = csr[order]
+    half = EllHalf(
+        indptr=torch.from_numpy(srt.indptr.astype(np.int64)),
+        indices=torch.from_numpy(srt.indices.astype(np.int32)),
+        row_ids=torch.from_numpy(order.astype(np.int32)),
+    )
+    if uniform_scale is None:
+        half.vals = torch.from_numpy(srt.data.astype(np.float32))
+    elif scale_mode == "post":
+        half.row_scale = torch.from_numpy(
+            np.asarray(uniform_scale, np.float32))
+    else:
+        half.pre_scale = torch.from_numpy(
+            np.asarray(uniform_scale, np.float32))
+    return half
+
+
+def make_ell_op(mat: sp.spmatrix, *, gather_dtype=torch.float32) -> EllOp:
+    """Host build of both halves (same half-selection rules as
+    ``acmgnn_tpu.ops.ell.make_ell_op`` without its TPU layout knobs)."""
+    csr = sp.csr_matrix(mat)
+    csr.sort_indices()
+    csr_t = csr.T.tocsr()
+    csr_t.sort_indices()
+    scale_fwd = _row_uniform_values(csr)
+    scale_bwd = _row_uniform_values(csr_t)
+    fwd = _build_half(csr, scale_fwd, "post")
+    sym_struct = (np.array_equal(csr.indptr, csr_t.indptr)
+                  and np.array_equal(csr.indices, csr_t.indices))
+    if sym_struct and np.array_equal(csr.data, csr_t.data):
+        bwd = fwd                               # Aᵀ == A
+    elif sym_struct and scale_fwd is not None and scale_bwd is None:
+        # same structure: share it, pre-scale the operand instead
+        bwd = EllHalf(
+            indptr=fwd.indptr, indices=fwd.indices, row_ids=fwd.row_ids,
+            pre_scale=torch.from_numpy(np.asarray(scale_fwd, np.float32)),
+        )
+    elif scale_bwd is not None:
+        bwd = _build_half(csr_t, scale_bwd, "post")
+    elif scale_fwd is not None:
+        bwd = _build_half(csr_t, scale_fwd, "pre")
+    else:
+        bwd = _build_half(csr_t)
+    return EllOp(fwd=fwd, bwd=bwd, num_nodes=csr.shape[0],
+                 nnz=int(csr.nnz), gather_dtype=gather_dtype)
+
+
+# ---------------------------------------------------------------------------
+# K1: row-gather SpMM with a per-column epilogue
+# ---------------------------------------------------------------------------
+
+
+def _columns(values, d: int, default: float):
+    out = tuple(float(v) for v in values) if values is not None \
+        else (default,) * d
+    if len(out) != d:
+        raise ValueError(f"expected {d} per-column constants, got {len(out)}")
+    return out
+
+
+def row_gather_spmm_plain(half: EllHalf, x: torch.Tensor,
+                          z: Optional[torch.Tensor], alpha, beta):
+    """Plain PyTorch version of K1 (same arithmetic, another sum order)."""
+    n, d = half.num_rows, x.shape[1]
+    dev = x.device
+    deg = half.indptr[1:] - half.indptr[:-1]
+    rows = torch.repeat_interleave(half.row_ids.long(), deg)
+    g = x.float()[half.indices.long()]
+    if half.vals is not None:
+        g = g * half.vals[:, None]
+    acc = torch.zeros(n, d, dtype=torch.float32, device=dev)
+    acc.index_add_(0, rows, g)
+    if half.row_scale is not None:
+        acc = acc * half.row_scale[:, None]
+    out = column_constants(beta, dev) * acc
+    if z is not None:
+        out = column_constants(alpha, dev) * z + out
+    return out
+
+
+_column_consts: dict = {}
+
+
+def column_constants(values, device) -> torch.Tensor:
+    """A small f32 vector of per-column constants on ``device``, made once
+    per distinct value tuple (no host-to-device copy per launch)."""
+    key = (tuple(float(v) for v in values), torch.device(device))
+    t = _column_consts.get(key)
+    if t is None:
+        t = torch.tensor(key[0], dtype=torch.float32, device=device)
+        _column_consts[key] = t
+    return t
+
+
+def _row_gather_spmm_cuda(half: EllHalf, x, z, alpha, beta):
+    n, d = half.num_rows, x.shape[1]
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K1 takes a bf16 or f32 operand, got {x.dtype}")
+    if x.shape[0] != n:
+        raise ValueError(f"operand has {x.shape[0]} rows, operator {n}")
+    arrays = [half.indptr, half.indices, half.row_ids, x]
+    arrays += [t for t in (z, half.vals, half.row_scale) if t is not None]
+    kernels.require_cuda(*arrays)
+    if z is not None and (z.dtype != torch.float32 or z.shape != x.shape):
+        raise ValueError("epilogue operand z must be f32 and match x")
+    out = torch.empty(n, d, dtype=torch.float32, device=x.device)
+    alpha_t = column_constants(alpha, x.device)
+    beta_t = column_constants(beta, x.device)
+    lib = kernels.library("spmm")
+    rc = lib.acm_k1_spmm(
+        kernels.ptr(half.indptr), kernels.ptr(half.indices),
+        kernels.ptr(half.vals), kernels.ptr(half.row_ids), kernels.ptr(x),
+        int(x.dtype == torch.bfloat16), kernels.ptr(z),
+        kernels.ptr(alpha_t), kernels.ptr(beta_t),
+        kernels.ptr(half.row_scale), kernels.ptr(out), n, d,
+        kernels.stream(),
+    )
+    kernels.check(lib, rc, "K1 spmm")
+    kernels.count(f"k1_spmm_w{d}")
+    return out
+
+
+def row_gather_spmm(half: EllHalf, x: torch.Tensor,
+                    z: Optional[torch.Tensor] = None, alpha=None, beta=None):
+    """``out[r, j] = alpha[j]·z[r, j] + beta[j]·rs[r]·Σ_{c ∈ row r} x[c, j]``.
+
+    ``x``: [N, d] gather operand (bf16 or f32; a transpose half's operand
+    is already pre-scaled).  ``z``: optional f32 [N, d] residual; ``alpha``
+    (default 0) and ``beta`` (default 1) are per-column constants.  Returns
+    f32 [N, d].  A CPU operand runs the plain version; a CUDA operand
+    launches K1.
+    """
+    d = x.shape[1]
+    alpha = _columns(alpha, d, 0.0)
+    beta = _columns(beta, d, 1.0)
+    if z is not None and not any(alpha):
+        z = None
+    if x.device.type == "cpu":
+        return row_gather_spmm_plain(half, x, z, alpha, beta)
+    return _row_gather_spmm_cuda(half, x.contiguous(),
+                                 None if z is None else z.contiguous(),
+                                 alpha, beta)

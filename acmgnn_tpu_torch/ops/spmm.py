@@ -1,0 +1,101 @@
+"""SpMM front end: ``spmm``, ``spmm_high``, ``spmm_transpose``, ``spmm_multi``.
+
+Counterpart of ``acmgnn_tpu/ops/spmm.py``.  Every product is one launch
+of K1 (``ops/ell.py``).  ``spmm_multi`` fuses any number of operands that
+share the operator into one traversal; its per-column epilogue writes the
+high-pass ``z - Âz`` directly (subtracting from the f32 ``z``, not its
+gather-dtype copy), and its backward transposes only the differentiable
+prefix of the operands in one more traversal, adding the high-pass
+identity path ``g`` in the same epilogue.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from acmgnn_tpu_torch.ops.ell import EllOp, column_constants, row_gather_spmm
+
+
+def spmm_transpose(op: EllOp, g: torch.Tensor, sign=None,
+                   residual: Optional[torch.Tensor] = None,
+                   residual_cols=None) -> torch.Tensor:
+    """``Âᵀ (sign ⊙ g)`` [+ ``residual`` on ``residual_cols``].
+
+    The operand is cast to the gather dtype, then pre-scaled in f32 and
+    rounded once more (the JAX package's rounding order).  ``sign`` (±1
+    per column) is exact in any float format.
+    """
+    x = g if sign is None else g * column_constants(sign, g.device)
+    x = x.to(op.gather_dtype)
+    half = op.bwd
+    if half.pre_scale is not None:
+        x = (x.float() * half.pre_scale[:, None]).to(op.gather_dtype)
+    return row_gather_spmm(half, x, z=residual, alpha=residual_cols)
+
+
+class _FusedGather(torch.autograd.Function):
+    """``[Âz_1 | z_2 - Âz_2 | ...]`` in one traversal; gradient only for
+    the first ``grad_width`` columns."""
+
+    @staticmethod
+    def forward(ctx, op, hp_cols, grad_width, *zs):
+        z_cat = zs[0] if len(zs) == 1 else torch.cat(zs, dim=1)
+        z_cat = z_cat.float()
+        alpha = tuple(1.0 if hp else 0.0 for hp in hp_cols)
+        beta = tuple(-1.0 if hp else 1.0 for hp in hp_cols)
+        out = row_gather_spmm(op.fwd, z_cat.to(op.gather_dtype), z=z_cat,
+                              alpha=alpha, beta=beta)
+        ctx.op = op
+        ctx.hp_cols = hp_cols
+        ctx.grad_width = grad_width
+        ctx.dims = [z.shape[1] for z in zs]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        gw = ctx.grad_width
+        hp = ctx.hp_cols[:gw]
+        g_pre = g[:, :gw].contiguous()
+        dz_pre = spmm_transpose(
+            ctx.op, g_pre, sign=[-1.0 if h else 1.0 for h in hp],
+            residual=g_pre, residual_cols=[1.0 if h else 0.0 for h in hp],
+        )
+        grads, off = [], 0
+        for i, d in enumerate(ctx.dims):
+            if off + d <= gw:
+                grads.append(dz_pre[:, off:off + d])
+            elif ctx.needs_input_grad[3 + i] and ctx.hp_cols[off]:
+                # outside the prefix only the identity path of z - Âz
+                grads.append(g[:, off:off + d])
+            else:
+                grads.append(None)
+            off += d
+        return (None, None, None, *grads)
+
+
+def spmm_multi(op_low: EllOp, zs: Sequence[torch.Tensor],
+               high_pass_flags: Sequence[bool],
+               grad_prefix: Optional[int] = None):
+    """One traversal serves every ``z_i``: ``Â z_i``, or ``z_i - Â z_i``
+    where ``high_pass_flags[i]``.  With ``grad_prefix``, only the first
+    ``grad_prefix`` operands are differentiable (the paired eval branch
+    feeds metrics only), so the backward transposes just that prefix."""
+    dims = [z.shape[1] for z in zs]
+    hp_cols = tuple(h for z, h in zip(zs, high_pass_flags)
+                    for _ in range(z.shape[1]))
+    n_grad = len(zs) if grad_prefix is None else grad_prefix
+    grad_width = sum(dims[:n_grad])
+    both = _FusedGather.apply(op_low, hp_cols, grad_width, *zs)
+    return list(torch.split(both, dims, dim=1))
+
+
+def spmm(op: EllOp, x: torch.Tensor) -> torch.Tensor:
+    """``Â @ x`` (f32 result; the operand is gathered in the op's dtype)."""
+    return spmm_multi(op, [x], [False])[0]
+
+
+def spmm_high(op_low: EllOp, x: torch.Tensor) -> torch.Tensor:
+    """``(I - Â) @ x`` computed as ``x - Â x``."""
+    return spmm_multi(op_low, [x], [True])[0]

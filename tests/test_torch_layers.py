@@ -1,0 +1,216 @@
+"""The port's ACM layer and model against acmgnn_tpu's flax modules.
+
+The same numpy inputs and the same flax parameters (copied over with
+``params_from_flax``) go through both; outputs and ``jax.grad`` gradients
+are compared.  Tolerance: ``1e-5·sqrt(reduction length)``, relative and
+absolute (tests/test_torch_oracle_parity.py's scale): the longest f32
+reduction is over the graph's nodes for parameter gradients, over the
+input width or a row's degree otherwise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from acmgnn_tpu.models.layers import ACMConv as JaxACMConv
+from acmgnn_tpu.models.models import ACMGNN as JaxACMGNN
+from acmgnn_tpu.ops.graph import precompute_operators as jax_precompute
+from acmgnn_tpu.ops.spmm import spmm as jax_spmm
+from acmgnn_tpu_torch.models.convert import params_from_flax
+from acmgnn_tpu_torch.models.layers import (
+    ACMConv,
+    attention_mix_backward_plain,
+    attention_mix_forward_plain,
+)
+from acmgnn_tpu_torch.models.models import ACMGNN
+from acmgnn_tpu_torch.ops.graph import precompute_operators
+from acmgnn_tpu_torch.ops.spmm import spmm
+
+
+def assert_close(ours, theirs, n_terms, msg=""):
+    tol = 1e-5 * max(1.0, float(n_terms) ** 0.5)
+    np.testing.assert_allclose(
+        ours.detach().cpu().numpy(), np.asarray(theirs, np.float32),
+        rtol=tol, atol=tol, err_msg=msg)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        out.update(_flat(v, name) if isinstance(v, dict) else {name: v})
+    return out
+
+
+def _randomize_layernorms(params, rng):
+    """Non-trivial LN scale/bias so the LayerNorm path is really tested."""
+    params = jax.tree_util.tree_map(np.asarray, params)
+
+    def walk(tree):
+        for key, val in tree.items():
+            if isinstance(val, dict) and {"scale", "bias"} <= set(val):
+                val["scale"] = rng.uniform(0.5, 1.5, val["scale"].shape) \
+                    .astype(np.float32)
+                val["bias"] = (rng.normal(size=val["bias"].shape) * 0.1) \
+                    .astype(np.float32)
+            elif isinstance(val, dict):
+                walk(val)
+
+    walk(params)
+    return params
+
+
+@pytest.fixture(scope="module")
+def both_ops(small_graph):
+    adj, feats, _ = small_graph
+    x = np.random.default_rng(0).normal(size=(adj.shape[0], 12)) \
+        .astype(np.float32)
+    jops = jax_precompute(adj, fmt="ell")
+    ops = precompute_operators(adj, fmt="ell")
+    jops = jops.replace(x_agg=jax_spmm(jops.adj_low, jnp.asarray(x)))
+    ops.x_agg = spmm(ops.adj_low, torch.from_numpy(x))
+    return jops, ops, x
+
+
+MODES = ("proj", "proj_paired", "hoist_gather", "hoist_agg", "hoist_paired")
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("model_type", ("acmgcn", "acmgcnp"))
+def test_acmconv_matches_flax(model_type, mode, both_ops):
+    jops, ops, x = both_ops
+    n, f_in = x.shape
+    f_out = 8
+    rng = np.random.default_rng(1)
+    hoist = mode.startswith("hoist")
+    x_eval = None
+    if mode == "proj_paired":
+        x_eval = rng.normal(size=x.shape).astype(np.float32)
+    elif mode == "hoist_paired":
+        x_eval = x
+    use_agg = mode == "hoist_agg"
+    use_ln = model_type == "acmgcnp"
+    jconv = JaxACMConv(f_out, model_type=model_type, use_layernorm=use_ln,
+                       input_hoist=hoist)
+
+    def jkw():
+        kw = {}
+        if x_eval is not None:
+            kw["x_eval"] = jnp.asarray(x_eval)
+            if mode == "hoist_paired":
+                kw["x_eval_agg"] = jops.x_agg
+        if use_agg:
+            kw["x_agg"] = jops.x_agg
+        return kw
+
+    params = jconv.init(jax.random.key(0), jnp.asarray(x), jops,
+                        **jkw())["params"]
+    params = _randomize_layernorms(params, rng)
+    conv = ACMConv(f_in, f_out, model_type=model_type, use_layernorm=use_ln,
+                   input_hoist=hoist)
+    conv.load_state_dict(params_from_flax(params))
+
+    g = rng.normal(size=(n, f_out)).astype(np.float32)
+
+    def jloss(p, xx):
+        out = jconv.apply({"params": p}, xx, jops, **jkw())
+        train = out[0] if x_eval is not None else out
+        return jnp.sum(train * g), out
+
+    (_, jout), (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                               has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x))
+
+    tx = torch.from_numpy(x).requires_grad_(True)
+    kw = {}
+    if x_eval is not None:
+        kw["x_eval"] = torch.from_numpy(x_eval)
+        if mode == "hoist_paired":
+            kw["x_eval_agg"] = ops.x_agg
+    if use_agg:
+        kw["x_agg"] = ops.x_agg
+    out = conv(tx, ops, **kw)
+    train = out[0] if x_eval is not None else out
+    (train * torch.from_numpy(g)).sum().backward()
+
+    if x_eval is not None:
+        assert_close(out[0], jout[0], f_in, "train out")
+        assert_close(out[1], jout[1], f_in, "eval out")
+    else:
+        assert_close(out, jout, f_in, "out")
+    assert_close(tx.grad, jgx, n, "d x")
+    grads = dict(conv.named_parameters())
+    jflat = _flat(jax.tree_util.tree_map(np.asarray, jgp))
+    assert set(jflat) == set(grads)
+    for name, jg in jflat.items():
+        assert_close(grads[name].grad, jg, n, f"d {name}")
+
+
+@pytest.mark.parametrize("hoist", (False, True))
+@pytest.mark.parametrize("model_type", ("acmgcn", "acmgcnp"))
+def test_acmgnn_logits_match_flax(model_type, hoist, both_ops):
+    """Eval-mode logits, and the paired (train, eval) logits at dropout 0."""
+    jops, ops, x = both_ops
+    n, f_in = x.shape
+    use_ln = model_type == "acmgcnp"
+    rng = np.random.default_rng(2)
+    for dropout, paired in ((0.5, False), (0.0, True)):
+        jmodel = JaxACMGNN(nhid=16, nclass=4, model_type=model_type,
+                           dropout=dropout, use_layernorm=use_ln,
+                           hoist_first=hoist)
+        params = jmodel.init(jax.random.key(1), jnp.asarray(x), jops)
+        params = _randomize_layernorms(params["params"], rng)
+        model = ACMGNN(f_in, 16, 4, model_type=model_type, dropout=dropout,
+                       use_layernorm=use_ln, hoist_first=hoist)
+        model.load_state_dict(params_from_flax(params))
+        jout = jmodel.apply({"params": jax.tree_util.tree_map(
+            jnp.asarray, params)}, jnp.asarray(x), jops, training=paired,
+            paired_eval=paired)
+        with torch.no_grad():
+            out = model(torch.from_numpy(x), ops, training=paired,
+                        paired_eval=paired)
+        if paired:
+            assert_close(out[0], jout[0], f_in, "paired train logits")
+            assert_close(out[1], jout[1], f_in, "paired eval logits")
+        else:
+            assert_close(out, jout, f_in, "eval logits")
+
+
+def _attention_inputs(n, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    hs = [torch.relu(torch.randn(n, d, generator=gen)) for _ in range(3)]
+    hs[2][:3] = 0.0                   # all-zero rows: var == 0 exactly
+    v = torch.randn(3, d, generator=gen)
+    c = torch.randn(3, generator=gen)
+    W = torch.rand(3, 3, generator=gen) * 2 - 1
+    gout = torch.randn(n, d, generator=gen)
+    return [*hs, v, c, W, gout]
+
+
+@pytest.mark.parametrize("use_ln", (False, True))
+@pytest.mark.parametrize("d", (2, 7, 64))
+def test_attention_backward_plain_matches_autograd(d, use_ln):
+    """K3's plain version (the kernel's formulas) against autograd of K2's
+    plain version; the parameter-gradient row reductions as
+    ``_AttentionMix.backward`` does them."""
+    h0, h1, h2, v, c, W, gout = _attention_inputs(300, d, seed=d)
+    leaves = [t.clone().requires_grad_(True) for t in (h0, h1, h2, v, c, W)]
+    attention_mix_forward_plain(*leaves, use_ln, 3.0).backward(gout)
+    dh0, dh1, dh2, aux = attention_mix_backward_plain(
+        h0, h1, h2, gout, v, c, W, use_ln, 3.0)
+    dp, dS, dscore, g, dl = aux.split(3, dim=1)
+    n_terms = 300
+    for i, dh in enumerate((dh0, dh1, dh2)):
+        assert_close(dh, leaves[i].grad.numpy(), d, f"dh{i}")
+    hs = (h0, h1, h2)
+    dv = torch.stack([hs[i].T @ dp[:, i] for i in range(3)]) \
+        + dS.sum(0)[:, None]
+    assert_close(dv, leaves[3].grad.numpy(), n_terms, "dv")
+    if use_ln:
+        assert_close(dscore.sum(0), leaves[4].grad.numpy(), n_terms, "dc")
+    assert_close(g.T @ dl / 3, leaves[5].grad.numpy(), n_terms, "dW")
