@@ -9,13 +9,18 @@ as ``z - Â z`` (``spmm_high``/``spmm_multi``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from acmgnn_tpu_torch.ops.coo import CooHalf, make_coo_half
 from acmgnn_tpu_torch.ops.ell import EllOp, make_ell_op
+
+# Above this node count the "auto" operator format is ELL, at or below it
+# dense (the JAX package's threshold; the dense format is not ported yet).
+DEFAULT_DENSE_THRESHOLD = 4096
 
 
 @dataclasses.dataclass
@@ -25,7 +30,7 @@ class GraphData:
     name: str
     adj: sp.spmatrix                 # [N, N] raw (unnormalized) adjacency
     features: np.ndarray             # [N, F] float32
-    labels: np.ndarray               # [N] int labels
+    labels: np.ndarray               # [N] int labels, or [N, C] multilabel
 
     @property
     def num_nodes(self) -> int:
@@ -33,7 +38,41 @@ class GraphData:
 
     @property
     def num_classes(self) -> int:
+        if self.labels.ndim > 1 and self.labels.shape[1] > 1:
+            return int(self.labels.shape[1])
         return int(self.labels.max()) + 1
+
+
+@dataclasses.dataclass
+class CooOp:
+    """Row-sorted COO operator with its transpose triplets (the backward's
+    operator), both unpadded.  Values, operand and sums are f32: the JAX
+    package's COO path has no gather dtype either."""
+
+    fwd: CooHalf                 # A: row / col / val
+    bwd: CooHalf                 # Aᵀ sorted by its own rows
+    num_nodes: int
+    nnz: int
+
+    def to(self, device) -> "CooOp":
+        return dataclasses.replace(self, fwd=self.fwd.to(device),
+                                   bwd=self.bwd.to(device))
+
+
+def _coo_sorted_triplets(mat: sp.spmatrix):
+    coo = sp.coo_matrix(mat)
+    order = np.lexsort((coo.col, coo.row))
+    return (coo.row[order].astype(np.int32), coo.col[order].astype(np.int32),
+            coo.data[order].astype(np.float32))
+
+
+def make_coo_op(mat: sp.spmatrix) -> CooOp:
+    """Host build of both halves, in ``acmgnn_tpu.ops.graph.make_coo_op``'s
+    lexsort order, without its padding."""
+    n = mat.shape[0]
+    fwd = make_coo_half(*_coo_sorted_triplets(mat), n)
+    bwd = make_coo_half(*_coo_sorted_triplets(mat.T), n)
+    return CooOp(fwd=fwd, bwd=bwd, num_nodes=n, nnz=fwd.nnz)
 
 
 def row_normalize(mat: sp.spmatrix) -> sp.csr_matrix:
@@ -61,7 +100,7 @@ class Operators:
     is off.
     """
 
-    adj_low: EllOp
+    adj_low: Union[EllOp, CooOp]
     x_agg: Optional[torch.Tensor] = None
 
     def to(self, device) -> "Operators":
@@ -75,20 +114,31 @@ def precompute_operators(
     adj: sp.spmatrix,
     *,
     normalization: str = "row",
-    fmt: str = "ell",
+    fmt: str = "auto",
     spmm_dtype: torch.dtype = torch.float32,
 ) -> Operators:
     """Build the host operator bundle from a raw adjacency matrix.
 
-    Only the row-normalized ELL operator is ported so far; the dense and
-    COO formats, symmetric normalization, k-hop operators and the raw
-    structure operator are queued in ROADMAP.md.
+    ``fmt``: "ell", "coo", or "auto" (dense at or below
+    ``DEFAULT_DENSE_THRESHOLD`` nodes, else ELL, as in the JAX package).
+    The COO operator ignores ``spmm_dtype``.  The dense format, symmetric
+    normalization, k-hop operators and the raw structure operator are
+    queued in ROADMAP.md.
     """
     if normalization != "row":
         raise NotImplementedError(f"normalization {normalization!r} is not "
                                   "ported yet")
-    if fmt != "ell":
-        raise NotImplementedError(f"operator format {fmt!r} is not ported "
-                                  "yet")
+    n = adj.shape[0]
+    if fmt == "auto":
+        fmt = "dense" if n <= DEFAULT_DENSE_THRESHOLD else "ell"
+    if fmt == "dense":
+        raise NotImplementedError(
+            f"the dense operator format is not ported yet (fmt='auto' picks "
+            f"it for graphs of at most {DEFAULT_DENSE_THRESHOLD} nodes; this "
+            f"one has {n}): pass operator_format='ell' or 'coo'")
     adj_low = row_normalized_adjacency(sp.csr_matrix(adj))
-    return Operators(adj_low=make_ell_op(adj_low, gather_dtype=spmm_dtype))
+    if fmt == "ell":
+        return Operators(adj_low=make_ell_op(adj_low, gather_dtype=spmm_dtype))
+    if fmt == "coo":
+        return Operators(adj_low=make_coo_op(adj_low))
+    raise ValueError(f"unknown operator format: {fmt!r}")

@@ -28,7 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("spmm", "attention")
+SOURCES = ("spmm", "attention", "coo", "rocauc")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,6 +41,7 @@ build_log: dict[str, str] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 # argtypes of every C entry point, by library
 _SIGNATURES = {
@@ -57,6 +58,19 @@ _SIGNATURES = {
         # scale, stream
         "acm_k3_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _F, _P],
+    },
+    "coo": {
+        # row, col, val, nnz, slice_nnz, span_rows, span_first, span_last,
+        # n_span, empty_rows, n_empty, x, z, alpha, beta, carry, out,
+        # n_rows, d, stream
+        "acm_k5_coo_spmm": [_P, _P, _P, _L, _I, _P, _P, _P, _I, _P, _I, _P,
+                            _P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "rocauc": {
+        "acm_k4_tile_size": [],
+        # s_sorted, order, packed, n, n_cols, n_masks, n_tiles, scratch,
+        # out, stream
+        "acm_k4_auc_rank_pass": [_P, _P, _P, _L, _I, _I, _L, _P, _P, _P],
     },
 }
 

@@ -1,33 +1,42 @@
 """SpMM front end: ``spmm``, ``spmm_high``, ``spmm_transpose``, ``spmm_multi``.
 
-Counterpart of ``acmgnn_tpu/ops/spmm.py``.  Every product is one launch
-of K1 (``ops/ell.py``).  ``spmm_multi`` fuses any number of operands that
-share the operator into one traversal; its per-column epilogue writes the
-high-pass ``z - Âz`` directly (subtracting from the f32 ``z``, not its
-gather-dtype copy), and its backward transposes only the differentiable
-prefix of the operands in one more traversal, adding the high-pass
-identity path ``g`` in the same epilogue.
+Counterpart of ``acmgnn_tpu/ops/spmm.py``.  Every product is one call
+of K1 on an ``EllOp`` (``ops/ell.py``) or of K5 on a ``CooOp``
+(``ops/coo.py``); both kernels share one per-column epilogue.
+``spmm_multi`` fuses any number of operands that share the operator into
+one traversal; its epilogue writes the high-pass ``z - Âz`` directly
+(subtracting from the f32 ``z``, not its gather-dtype copy), and its
+backward transposes only the differentiable prefix of the operands in one
+more traversal (the COO transpose triplets, or the ELL transpose half),
+adding the high-pass identity path ``g`` in the same epilogue.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 
-from acmgnn_tpu_torch.ops.ell import EllOp, column_constants, row_gather_spmm
+from acmgnn_tpu_torch.ops.coo import coo_spmm
+from acmgnn_tpu_torch.ops.ell import column_constants, row_gather_spmm
+from acmgnn_tpu_torch.ops.graph import CooOp, EllOp
+
+SparseOp = Union[EllOp, CooOp]
 
 
-def spmm_transpose(op: EllOp, g: torch.Tensor, sign=None,
+def spmm_transpose(op: SparseOp, g: torch.Tensor, sign=None,
                    residual: Optional[torch.Tensor] = None,
                    residual_cols=None) -> torch.Tensor:
     """``Âᵀ (sign ⊙ g)`` [+ ``residual`` on ``residual_cols``].
 
-    The operand is cast to the gather dtype, then pre-scaled in f32 and
-    rounded once more (the JAX package's rounding order).  ``sign`` (±1
-    per column) is exact in any float format.
+    On an ``EllOp`` the operand is cast to the gather dtype, then
+    pre-scaled in f32 and rounded once more (the JAX package's rounding
+    order); a ``CooOp`` gathers f32 over its transpose triplets.  ``sign``
+    (±1 per column) is exact in any float format.
     """
     x = g if sign is None else g * column_constants(sign, g.device)
+    if isinstance(op, CooOp):
+        return coo_spmm(op.bwd, x.float(), z=residual, alpha=residual_cols)
     x = x.to(op.gather_dtype)
     half = op.bwd
     if half.pre_scale is not None:
@@ -45,8 +54,11 @@ class _FusedGather(torch.autograd.Function):
         z_cat = z_cat.float()
         alpha = tuple(1.0 if hp else 0.0 for hp in hp_cols)
         beta = tuple(-1.0 if hp else 1.0 for hp in hp_cols)
-        out = row_gather_spmm(op.fwd, z_cat.to(op.gather_dtype), z=z_cat,
-                              alpha=alpha, beta=beta)
+        if isinstance(op, CooOp):
+            out = coo_spmm(op.fwd, z_cat, z=z_cat, alpha=alpha, beta=beta)
+        else:
+            out = row_gather_spmm(op.fwd, z_cat.to(op.gather_dtype), z=z_cat,
+                                  alpha=alpha, beta=beta)
         ctx.op = op
         ctx.hp_cols = hp_cols
         ctx.grad_width = grad_width
@@ -75,7 +87,7 @@ class _FusedGather(torch.autograd.Function):
         return (None, None, None, *grads)
 
 
-def spmm_multi(op_low: EllOp, zs: Sequence[torch.Tensor],
+def spmm_multi(op_low: SparseOp, zs: Sequence[torch.Tensor],
                high_pass_flags: Sequence[bool],
                grad_prefix: Optional[int] = None):
     """One traversal serves every ``z_i``: ``Â z_i``, or ``z_i - Â z_i``
@@ -91,11 +103,11 @@ def spmm_multi(op_low: EllOp, zs: Sequence[torch.Tensor],
     return list(torch.split(both, dims, dim=1))
 
 
-def spmm(op: EllOp, x: torch.Tensor) -> torch.Tensor:
+def spmm(op: SparseOp, x: torch.Tensor) -> torch.Tensor:
     """``Â @ x`` (f32 result; the operand is gathered in the op's dtype)."""
     return spmm_multi(op, [x], [False])[0]
 
 
-def spmm_high(op_low: EllOp, x: torch.Tensor) -> torch.Tensor:
+def spmm_high(op_low: SparseOp, x: torch.Tensor) -> torch.Tensor:
     """``(I - Â) @ x`` computed as ``x - Â x``."""
     return spmm_multi(op_low, [x], [True])[0]

@@ -13,6 +13,10 @@ Phases (any failure exits non-zero and prints no result):
    widths 7, 8 (high-pass epilogue) and 4 (transpose half), K2/K3 at
    d=64 and d=2; max error against the stated tolerance, kernel ms, plain
    ms, one PyTorch library call's ms where one computes the same product.
+   Sparse products are held per element to ``1e-5·sqrt(row terms)·max(1,
+   Σ|terms|)``; the input gather is checked on the path's features and on
+   a randn operand; K1 must also equal its own summation order replayed
+   in PyTorch (``k1_order_replay``) bit for bit.
 3. The main path: ``prepare_data``, ``build_model`` and ``run_joint`` of
    the headline ACM-GCN+ configuration at full width (hidden 64, bf16
    gathers), warm-up then timed epochs; steady ms/epoch, finite losses,
@@ -21,6 +25,23 @@ Phases (any failure exits non-zero and prints no result):
    the device's busy share.
 4. Card against CPU on a small graph (dropout 0, f32 gathers, 20 epochs):
    final parameters and split results agree.
+5. The genius-shaped ROC-AUC path (bench.py's genius scenario: Chung-Lu
+   stand-in N=421,961, nnz(A+I)=2,385,307, F=12, ACM-GCN without
+   LayerNorm, BCE loss, ROC-AUC selection):
+   a. each kernel against its plain version on the genius operator, as in
+      phase 2: K1 at widths 12, 8 and 4; K2/K3 without LayerNorm at d=64
+      and d=2; K5 (COO) forward at widths 12 and 8 and transpose at width
+      4; K4 (ROC-AUC rank pass) with 2 masks, also against an exact host
+      reference (scipy rankdata, f64) on random scores and on a saturated
+      tie group;
+   b. the joint loop on the ELL operator, then on the COO operator, then
+      the sequential loop (without and with early stopping): steady
+      ms/epoch, finite losses, best val/test ROC-AUC, launch counts
+      against the counts each path implies, and a profiler window for the
+      joint paths; then the cost of the per-epoch stop-flag read, timed
+      over alternating pairs of full-length sequential runs;
+   c. card against CPU on a small genius stand-in (joint ELL and joint
+      COO over 40 epochs, sequential with an early stop that fires).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -39,6 +60,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32, outside the tensor cores
 WARM_EPOCHS, TIMED_EPOCHS, PROFILE_EPOCHS = 2, 10, 4
+GENIUS_TIMED_EPOCHS, GENIUS_SEQ_EPOCHS, GENIUS_ES = 20, 40, 5
 
 
 def fail(msg: str):
@@ -81,6 +103,63 @@ def max_err(got, want, scale_terms: int, what: str):
     return err
 
 
+def spmm_err(got, want, absref, row_terms, what: str):
+    """Max |got - want| of a sparse product against a per-element bound,
+    ``1e-5·sqrt(terms of the row)·max(1, absref)``, where ``absref`` is
+    the same product over absolute values (``Σ|terms|``, the scale of the
+    rounding error): rows of small values get a bound below their values,
+    whatever the largest output is."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = 1e-5 * row_terms.float().clamp_min(1).sqrt()[:, None] \
+        * absref.clamp_min(1.0)
+    ratio = float((err / tol).max())
+    ok = ratio <= 1.0 and bool(torch.isfinite(got).all())
+    print(f"  {what}: max_abs_err {float(err.max()):.3e}, worst "
+          f"err/tolerance {ratio:.3e} (per element 1e-5·sqrt(row terms)·"
+          f"max(1, Σ|terms|)) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{what} disagrees with its plain version")
+    return float(err.max())
+
+
+def k1_order_replay(half, x, z, alpha, beta):
+    """K1's arithmetic in its own order, in plain PyTorch: lane l of a
+    row's warp sums the row's entries l, l+32, ... in turn, a butterfly
+    over lane offsets 16, 8, 4, 2, 1 adds the 32 partials, then the row
+    scale and the epilogue.  For a value-free half with epilogue constants
+    in {0, ±1} every step rounds as the kernel's does, so K1 must equal
+    this bit for bit."""
+    import torch
+
+    if half.vals is not None:
+        raise ValueError("the replay covers value-free halves")
+    dev = x.device
+    n, d = half.num_rows, x.shape[1]
+    deg = half.indptr[1:] - half.indptr[:-1]
+    xf = torch.cat([x.float(), torch.zeros(1, d, device=dev)])
+    lane = torch.arange(32, device=dev)
+    beg, end = half.indptr[:-1, None], half.indptr[1:, None]
+    acc = torch.zeros(n, 32, d, device=dev)
+    for k in range(-(-int(deg.max()) // 32)):
+        e = beg + 32 * k + lane[None]
+        idx = torch.where(e < end, half.indices[
+            e.clamp(max=half.indices.numel() - 1)].long(), n)
+        acc = acc + xf[idx]
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    s = torch.empty(n, d, device=dev)
+    s[half.row_ids.long()] = acc[:, 0]
+    if half.row_scale is not None:
+        s = s * half.row_scale[:, None]
+    out = torch.tensor(beta, device=dev) * s
+    if z is not None:
+        out = torch.tensor(alpha, device=dev) * z + out
+    return out
+
+
 def phase_environment():
     import torch
 
@@ -105,79 +184,280 @@ def phase_environment():
         kernels.library(name)
 
 
-def phase_kernels(adj, feats):
-    """Each kernel against its plain version at the main path's shapes."""
+def _csr_on_card(mat):
+    """f32 ``torch.sparse_csr_tensor`` of ``mat`` on the card (the library
+    yardstick, never used by the port)."""
     import scipy.sparse as sp
     import torch
 
+    csr = sp.csr_matrix(mat, dtype=np.float32)
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr.astype(np.int64)),
+        torch.from_numpy(csr.indices.astype(np.int64)),
+        torch.from_numpy(csr.data), size=csr.shape,
+        check_invariants=False).cuda()
+
+
+def _spmm_cases(n, gen, x_in, hp8=(0, 0, 1, 1, 0, 0, 1, 1)):
+    """The three products of a joint epoch: the layer-1 input gather (no
+    epilogue), the paired layer-2 gather [zL_tr, zH_tr, zL_ev, zH_ev] with
+    the high-pass epilogue, and its prefix transpose with the identity
+    path.  Returns (name width, operand, z, alpha, beta, transposed)."""
+    import torch
+
+    hp4 = hp8[:4]
+    z8 = torch.randn(n, 8, generator=gen, device="cuda")
+    g4 = torch.randn(n, 4, generator=gen, device="cuda")
+    sign4 = torch.tensor([-1.0 if h else 1.0 for h in hp4], device="cuda")
+    return [
+        (x_in, None, None, None, False),
+        (z8, z8, [float(h) for h in hp8], [-1.0 if h else 1.0 for h in hp8],
+         False),
+        (g4 * sign4, g4, [float(h) for h in hp4], [1.0] * 4, True),
+    ]
+
+
+def _abs(v):
+    """|v| of a tensor or of per-column constants (None stays None)."""
+    if v is None:
+        return None
+    return tuple(abs(c) for c in v) if isinstance(v, tuple) else v.abs()
+
+
+def _ell_row_terms(half):
+    """Terms each output row of an ELL half sums (its degree)."""
+    deg = half.indptr[1:] - half.indptr[:-1]
+    out = deg.new_empty(deg.shape)
+    out[half.row_ids.long()] = deg
+    return out
+
+
+def _coo_row_terms(half):
+    import torch
+
+    return torch.bincount(half.row.long(), minlength=half.num_rows)
+
+
+K1_REPLACES = ("acmgnn_tpu/ops/ell.py:693", "acmgnn_tpu/ops/spmm.py:153",
+               "acmgnn_tpu/ops/spmm.py:143")
+K5_REPLACES = ("acmgnn_tpu/ops/spmm.py:45", "acmgnn_tpu/ops/spmm.py:34",
+               "acmgnn_tpu/ops/spmm.py:54")
+
+
+def phase_kernels(adj, feats, tag="[2]", suffix="", use_ln=True,
+                  with_coo=False):
+    """Each SpMM and attention kernel against its plain version at a
+    path's shapes: K1 (and K5 with ``with_coo``) for the three products of
+    a joint epoch, then K2/K3."""
+    import torch
+
     from acmgnn_tpu_torch.data.registry import row_normalize_features
-    from acmgnn_tpu_torch.models import layers
+    from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain
     from acmgnn_tpu_torch.ops.ell import row_gather_spmm, \
         row_gather_spmm_plain
     from acmgnn_tpu_torch.ops.graph import (
+        make_coo_op,
         precompute_operators,
         row_normalized_adjacency,
     )
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    op = precompute_operators(adj, spmm_dtype=torch.bfloat16).adj_low.to(dev)
+    op = precompute_operators(adj, fmt="ell",
+                              spmm_dtype=torch.bfloat16).adj_low.to(dev)
     n, nnz = op.num_nodes, op.nnz
-    max_deg = int((op.fwd.indptr[1:] - op.fwd.indptr[:-1]).max())
-    print(f"[2] operator N={n} nnz={nnz} max row {max_deg} "
-          f"(host build {time.perf_counter() - t0:.1f} s)")
-    a_hat = sp.csr_matrix(row_normalized_adjacency(adj), dtype=np.float32)
-    a_lib = torch.sparse_csr_tensor(
-        torch.from_numpy(a_hat.indptr.astype(np.int64)),
-        torch.from_numpy(a_hat.indices.astype(np.int64)),
-        torch.from_numpy(a_hat.data), size=a_hat.shape,
-        check_invariants=False).to(dev)
+    deg = op.fwd.indptr[1:] - op.fwd.indptr[:-1]
+    print(f"{tag} operator N={n} nnz={nnz} max row {int(deg.max())} median "
+          f"row {int(deg.median())} (host build "
+          f"{time.perf_counter() - t0:.1f} s)")
+    a_hat = row_normalized_adjacency(adj)
+    a_lib, a_lib_t = _csr_on_card(a_hat), _csr_on_card(a_hat.T)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-
-    x7 = torch.from_numpy(row_normalize_features(feats)).to(dev)
-    hp8 = (0, 0, 1, 1, 0, 0, 1, 1)   # [zL_tr, zH_tr, zL_ev, zH_ev]
-    hp4 = hp8[:4]
-    z8 = torch.randn(n, 8, generator=gen, device=dev)
-    g4 = torch.randn(n, 4, generator=gen, device=dev)
-    sign4 = torch.tensor([-1.0 if h else 1.0 for h in hp4], device=dev)
-    x4 = ((g4 * sign4).to(torch.bfloat16).float()
-          * op.bwd.pre_scale[:, None]).to(torch.bfloat16)
-    cases = [
-        # name, half, operand, z, alpha, beta, replaces
-        ("k1_spmm_w7", op.fwd, x7.to(torch.bfloat16), None, None, None,
-         "acmgnn_tpu/ops/ell.py:693"),
-        ("k1_spmm_w8", op.fwd, z8.to(torch.bfloat16), z8,
-         [float(h) for h in hp8], [-1.0 if h else 1.0 for h in hp8],
-         "acmgnn_tpu/ops/spmm.py:153"),
-        ("k1_spmm_w4", op.bwd, x4, g4, [float(h) for h in hp4],
-         [1.0] * 4, "acmgnn_tpu/ops/spmm.py:143"),
-    ]
-    for name, half, x, z, alpha, beta, replaces in cases:
+    x_in = torch.from_numpy(row_normalize_features(feats)).to(dev)
+    for (x, z, alpha, beta, tr), replaces in zip(_spmm_cases(n, gen, x_in),
+                                                 K1_REPLACES):
         d = x.shape[1]
+        name = f"k1_spmm_w{d}"
+        half = op.bwd if tr else op.fwd
         a = tuple(alpha or (0.0,) * d)
         b = tuple(beta or (1.0,) * d)
-        got = row_gather_spmm(half, x, z=z, alpha=alpha, beta=beta)
-        want = row_gather_spmm_plain(half, x, z, a, b)
-        err = max_err(got, want, max_deg, name)
-        ms = time_ms(lambda: row_gather_spmm(half, x, z=z, alpha=alpha,
+        terms = _ell_row_terms(half) + int(z is not None)
+        # the path's operand, and for the input gather (whose row-normalized
+        # features reach ~6e4) also a randn one of the same width
+        operands = [(x, "")]
+        if z is None:
+            operands.append((torch.randn(n, d, generator=gen, device=dev),
+                             "_randn"))
+        checked = {}
+        for xo, tag_x in operands:
+            xg = xo.to(torch.bfloat16)
+            if half.pre_scale is not None:     # the transpose's rounding order
+                xg = (xg.float() * half.pre_scale[:, None]).to(torch.bfloat16)
+            got = row_gather_spmm(half, xg, z=z, alpha=alpha, beta=beta)
+            err = spmm_err(
+                got, row_gather_spmm_plain(half, xg, z, a, b),
+                row_gather_spmm_plain(half, xg.abs(), _abs(z), _abs(a),
+                                      _abs(b)),
+                terms, name + tag_x + suffix)
+            replay = k1_order_replay(half, xg, z if any(a) else None, a, b)
+            if not torch.equal(got, replay):
+                fail(f"{name + tag_x + suffix}: K1 differs from its own "
+                     f"summation order replayed")
+            print(f"  {name + tag_x + suffix}: equal bit for bit to K1's "
+                  f"summation order replayed in PyTorch")
+            checked[tag_x] = (xg, err)
+        xg, err = checked[""]
+        ms = time_ms(lambda: row_gather_spmm(half, xg, z=z, alpha=alpha,
                                              beta=beta), 50)
         plain_ms = time_ms(
-            lambda: row_gather_spmm_plain(half, x, z, a, b), 5)
-        xf = x.float()
-        lib_ms = time_ms(lambda: torch.sparse.mm(a_lib, xf), 20)
+            lambda: row_gather_spmm_plain(half, xg, z, a, b), 5)
+        xf = xg.float()
+        lib = a_lib_t if tr else a_lib
+        lib_ms = time_ms(lambda: torch.sparse.mm(lib, xf), 20)
         nbytes = (8 * (n + 1) + 4 * nnz + 4 * n + 2 * n * d + 4 * n * d
                   + (4 * n * d if z is not None else 0)
                   + (4 * n if half.row_scale is not None else 0))
         b_ms, b_by = bound(nbytes, nnz * d + 2 * n * d)
-        rows.append(dict(name=name, route="cuda",
+        rows.append(dict(name=name + suffix, counter=name, route="cuda",
                          source="acmgnn_tpu_torch/csrc/spmm.cu",
                          replaces=replaces, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
-        print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.3f}, "
+        print(f"  {name + suffix}: {ms:.4f} ms (plain {plain_ms:.3f}, "
               f"torch.sparse.mm f32 {lib_ms:.4f}, bound {b_ms:.4f} {b_by})")
 
+    if with_coo:
+        t0 = time.perf_counter()
+        coo = make_coo_op(a_hat).to(dev)
+        print(f"{tag} COO operator nnz={coo.nnz}, {coo.fwd.span_rows.numel()}"
+              f" rows span slices of {coo.fwd.slice_nnz} (host build "
+              f"{time.perf_counter() - t0:.1f} s)")
+        for (x, z, alpha, beta, tr), replaces in zip(
+                _spmm_cases(n, gen, x_in), K5_REPLACES):
+            d = x.shape[1]
+            name = f"k5_coo_w{d}"
+            half = coo.bwd if tr else coo.fwd
+            a = tuple(alpha or (0.0,) * d)
+            b = tuple(beta or (1.0,) * d)
+            terms = _coo_row_terms(half) + int(z is not None)
+            half_abs = dataclasses.replace(half, val=half.val.abs())
+            operands = [(x, "")]
+            if z is None:
+                operands.append((torch.randn(n, d, generator=gen, device=dev),
+                                 "_randn"))
+            checked = {}
+            for xo, tag_x in operands:
+                got = coo_spmm(half, xo, z=z, alpha=alpha, beta=beta)
+                checked[tag_x] = spmm_err(
+                    got, coo_spmm_plain(half, xo, z, a, b),
+                    coo_spmm_plain(half_abs, xo.abs(), _abs(z), _abs(a),
+                                   _abs(b)),
+                    terms, name + tag_x + suffix)
+                again = coo_spmm(half, xo, z=z, alpha=alpha, beta=beta)
+                if not torch.equal(got, again):
+                    fail(f"{name}: two launches differ (K5 must be "
+                         f"deterministic)")
+            err = checked[""]
+            ms = time_ms(lambda: coo_spmm(half, x, z=z, alpha=alpha,
+                                          beta=beta), 50)
+            plain_ms = time_ms(lambda: coo_spmm_plain(half, x, z, a, b), 5)
+            lib = a_lib_t if tr else a_lib
+            lib_ms = time_ms(lambda: torch.sparse.mm(lib, x), 20)
+            extra = 4 * (3 * half.span_rows.numel() + half.empty_rows.numel())
+            nbytes = (12 * nnz + extra + 4 * n * d + 4 * n * d
+                      + (4 * n * d if z is not None else 0))
+            b_ms, b_by = bound(nbytes, 2 * nnz * d + 2 * n * d)
+            rows.append(dict(name=name + suffix, counter=name, route="cuda",
+                             source="acmgnn_tpu_torch/csrc/coo.cu",
+                             replaces=replaces, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms))
+            print(f"  {name + suffix}: {ms:.4f} ms (plain {plain_ms:.3f}, "
+                  f"torch.sparse.mm f32 {lib_ms:.4f}, bound {b_ms:.4f} "
+                  f"{b_by}); bit-identical reruns")
+
+    rows += attention_rows(n, gen, use_ln=use_ln,
+                           suffix=suffix + ("" if use_ln else "_noln"))
+    return rows
+
+
+def _host_auc(scores: np.ndarray, labels: np.ndarray, mask: np.ndarray):
+    """Exact f64 Mann-Whitney AUC on the mask's subset (scipy ranks)."""
+    from scipy.stats import rankdata
+
+    s, y = scores[mask].astype(np.float64), labels[mask]
+    ranks = rankdata(s, method="average")
+    n_pos = int((y == 1).sum())
+    n_neg = s.size - n_pos
+    return (ranks[y == 1].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
+
+
+def phase_rocauc_kernel(labels, masks_np, suffix="@genius"):
+    """K4 against its plain version (exactly) and against the exact host
+    reference (to 1e-9), on random scores and on scores holding a
+    saturated tie group of >= 50,000 nodes; timed with 2 masks."""
+    import torch
+
+    from acmgnn_tpu_torch.train.metrics import (
+        auc_from_counts,
+        auc_rank_pass,
+        auc_rank_pass_plain,
+        pack_labels_and_masks,
+        sort_scores,
+    )
+
+    dev = torch.device("cuda")
+    n = labels.shape[0]
+    y = torch.from_numpy(labels).to(dev)
+    masks = tuple(torch.from_numpy(m).to(dev) for m in masks_np[1:])
+    packed = pack_labels_and_masks(y, masks)
+    rng = np.random.default_rng(7)
+    random_scores = rng.random(n).astype(np.float32)
+    saturated = random_scores.copy()
+    saturated[rng.random(n) < 0.3] = 1.0
+    err = 0.0
+    for what, sc in (("random", random_scores), ("saturated", saturated)):
+        scores = torch.from_numpy(sc).to(dev)[None]
+        order, s_sorted = sort_scores(scores)
+        got = auc_rank_pass(s_sorted, order, packed, 2)
+        want = auc_rank_pass_plain(s_sorted, order, packed, 2)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"K4 ({what}) disagrees with its plain version: "
+                 f"{got.tolist()} != {want.tolist()}")
+        aucs = auc_from_counts(got)[0].tolist()
+        ref = [_host_auc(sc, labels, m) for m in masks_np[1:]]
+        diff = max(abs(a - b) for a, b in zip(aucs, ref))
+        group = int((sc == 1.0).sum())
+        print(f"  k4_auc_m2{suffix} {what} scores (largest tie group "
+              f"{group}): AUC {aucs} vs host f64 {ref}, |diff| {diff:.2e} "
+              f"(tolerance 1e-9); counts equal the plain version's")
+        if diff > 1e-9:
+            fail(f"K4 ({what}) disagrees with the host reference")
+        err = max(err, diff)
+    ms = time_ms(lambda: auc_rank_pass(s_sorted, order, packed, 2), 50)
+    plain_ms = time_ms(
+        lambda: auc_rank_pass_plain(s_sorted, order, packed, 2), 5)
+    lib_ms = time_ms(lambda: torch.sort(scores, dim=-1), 50)
+    b_ms, b_by = bound(n * (4 + 8 + 1) + 2 * 3 * 8, 0)
+    print(f"  k4_auc_m2{suffix}: {ms:.4f} ms (plain {plain_ms:.3f}, "
+          f"torch.sort of the scores {lib_ms:.4f}, bound {b_ms:.4f} {b_by})")
+    return [dict(name="k4_auc_m2" + suffix, counter="k4_auc_m2",
+                 route="cuda", source="acmgnn_tpu_torch/csrc/rocauc.cu",
+                 replaces="acmgnn_tpu/train/metrics.py:68", max_abs_err=err,
+                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=lib_ms)]
+
+
+def attention_rows(n: int, gen, use_ln: bool, suffix: str = ""):
+    """K2/K3 against their plain versions at d=64 and d=2 on n rows."""
+    import torch
+
+    from acmgnn_tpu_torch.models import layers
+
+    dev = torch.device("cuda")
+    rows = []
     for d in (64, 2):
         hs = [torch.relu(torch.randn(n, d, generator=gen, device=dev))
               for _ in range(3)]
@@ -185,43 +465,43 @@ def phase_kernels(adj, feats):
         c = torch.randn(3, generator=gen, device=dev)
         W = torch.rand(3, 3, generator=gen, device=dev) * 2 - 1
         gout = torch.randn(n, d, generator=gen, device=dev)
-        args = (*hs, v, c, W, True, 3.0)
-        bargs = (*hs, gout, v, c, W, True, 3.0)
+        args = (*hs, v, c, W, use_ln, 3.0)
+        bargs = (*hs, gout, v, c, W, use_ln, 3.0)
         got = layers.attention_mix_forward(*args)
         err = max_err(got, layers.attention_mix_forward_plain(*args), d,
-                      f"k2_attn_fwd_d{d}")
+                      f"k2_attn_fwd_d{d}{suffix}")
         fwd = dict(
-            name=f"k2_attn_fwd_d{d}", err=err,
+            counter=f"k2_attn_fwd_d{d}", err=err,
             ms=time_ms(lambda: layers.attention_mix_forward(*args), 50),
             plain_ms=time_ms(
                 lambda: layers.attention_mix_forward_plain(*args), 10),
             bound=bound(16 * n * d, 23 * n * d))
         got = layers.attention_mix_backward(*bargs)
         want = layers.attention_mix_backward_plain(*bargs)
-        err = max(max_err(g_, w_, d, f"k3_attn_bwd_d{d}[{i}]")
+        err = max(max_err(g_, w_, d, f"k3_attn_bwd_d{d}{suffix}[{i}]")
                   for i, (g_, w_) in enumerate(zip(got, want)))
         bwd = dict(
-            name=f"k3_attn_bwd_d{d}", err=err,
+            counter=f"k3_attn_bwd_d{d}", err=err,
             ms=time_ms(lambda: layers.attention_mix_backward(*bargs), 50),
             plain_ms=time_ms(
                 lambda: layers.attention_mix_backward_plain(*bargs), 10),
             bound=bound(28 * n * d + 60 * n, 50 * n * d))
         for k in (fwd, bwd):
             rows.append(dict(
-                name=k["name"], route="cuda",
-                source="acmgnn_tpu_torch/csrc/attention.cu",
+                name=k["counter"] + suffix, counter=k["counter"],
+                route="cuda", source="acmgnn_tpu_torch/csrc/attention.cu",
                 replaces="acmgnn_tpu/models/layers.py:191",
                 max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"],
                 bound_ms=k["bound"][0], bound_by=k["bound"][1],
                 library_ms=None))
-            print(f"  {k['name']}: {k['ms']:.4f} ms (plain "
+            print(f"  {rows[-1]['name']}: {k['ms']:.4f} ms (plain "
                   f"{k['plain_ms']:.3f}, bound {k['bound'][0]:.4f} "
                   f"{k['bound'][1]})")
     return rows
 
 
-def _masks(n: int):
-    perm = np.random.default_rng(0).permutation(n)
+def _masks(n: int, seed: int = 0):
+    perm = np.random.default_rng(seed).permutation(n)
     m = np.zeros((3, n), bool)
     m[0, perm[: n // 2]] = True
     m[1, perm[n // 2: 3 * n // 4]] = True
@@ -240,84 +520,222 @@ def headline_config(**over):
         joint=True, hoist_first=True), **over))
 
 
-def phase_main_path(adj, feats, labels):
+def genius_config(**over):
+    """bench.py's genius scenario (``bench.py:621-662``)."""
+    from acmgnn_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(**dict(dict(
+        model_type="acmgcn", hidden=64, dropout=0.5, lr=0.01,
+        weight_decay=1e-3, epochs=WARM_EPOCHS, early_stopping=0,
+        selection="val_metric", metric="rocauc", loss="bce",
+        operator_format="ell", spmm_dtype="bfloat16", gemm_dtype="float32",
+        joint=True, hoist_first=True), **over))
+
+
+def joint_counts(bodies, gather, input_width, k4=False):
+    """Launches a joint run of ``bodies`` iterations implies: one input
+    gather (train branch; the eval branch reads x_agg, +1 at set-up), the
+    paired layer-2 gather and its prefix transpose, K2 per branch and
+    layer, K3 for the train branch, K4 once per iteration."""
+    out = {f"{gather}_w{input_width}": bodies + 1, f"{gather}_w8": bodies,
+           f"{gather}_w4": bodies,
+           "k2_attn_fwd_d64": 2 * bodies, "k2_attn_fwd_d2": 2 * bodies,
+           "k3_attn_bwd_d64": bodies, "k3_attn_bwd_d2": bodies}
+    if k4:
+        out["k4_auc_m2"] = bodies
+    return out
+
+
+def sequential_counts(bodies, gather, input_width):
+    """Launches a sequential ROC-AUC run implies: per epoch the train
+    forward's input gather and layer-2 gather, the layer-2 transpose, the
+    eval forward's layer-2 gather (its layer 1 reads x_agg), K2 per
+    forward and layer, K3 once per layer, K4 once."""
+    return {f"{gather}_w{input_width}": bodies + 1, f"{gather}_w4": 3 * bodies,
+            "k2_attn_fwd_d64": 2 * bodies, "k2_attn_fwd_d2": 2 * bodies,
+            "k3_attn_bwd_d64": bodies, "k3_attn_bwd_d2": bodies,
+            "k4_auc_m2": bodies}
+
+
+def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
+               profile=True):
+    """One path through the user's entry points: ``prepare_data``,
+    ``build_model``, a warm-up run (``cfg.epochs``), then a timed run of
+    ``timed_epochs``; steady ms per loop body, finite losses, the best
+    split result, every launch count against ``expected(bodies)``, and a
+    profiler window.  Returns (counts, ms per body, timed result)."""
     import torch
 
     from acmgnn_tpu_torch.ops import kernels
-    from acmgnn_tpu_torch.ops.graph import GraphData
     from acmgnn_tpu_torch.train.trainer import (
         build_model,
         make_split_runner,
         prepare_data,
     )
 
-    cfg = headline_config()
-    data = GraphData("twitch-gamers-scale-uniform", adj, feats, labels)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    data, ops, x, y, _, nclass = prepare_data(data, cfg)
+    data, ops, x, y, y1h, nclass = prepare_data(data, cfg)
     torch.cuda.synchronize()
     t_prep = time.perf_counter() - t0
     model = build_model(cfg, x.shape[1], nclass)
-    masks = tuple(torch.from_numpy(m).cuda() for m in _masks(data.num_nodes))
+    masks = tuple(torch.from_numpy(m).cuda() for m in masks_np)
     warm = make_split_runner(model, cfg)
-    _, warm_state = warm(ops, x, y, masks, seed=1, return_state=True)
+    _, warm_state = warm(ops, x, y, masks, seed=1, return_state=True,
+                         labels_onehot=y1h)
     torch.cuda.synchronize()
     timed = make_split_runner(model, dataclasses.replace(
-        cfg, epochs=TIMED_EPOCHS))
+        cfg, epochs=timed_epochs))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res, state = timed(ops, x, y, masks, seed=2, return_state=True)
+    res, state = timed(ops, x, y, masks, seed=2, return_state=True,
+                       labels_onehot=y1h)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(kernels.launches)
-    iters = warm_state.epoch + state.epoch
+    bodies = warm_state.epoch + state.epoch
     ms_epoch = 1e3 * dt / state.epoch
     losses = torch.cat([warm_state.train_losses, state.train_losses]).cpu()
-    print(f"[3] prepare_data {t_prep:.1f} s; {iters} joint iterations; "
-          f"steady {ms_epoch:.3f} ms/epoch over {state.epoch} iterations; "
-          f"peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    print(f"[3] train loss first {float(losses[0]):.5f} last "
-          f"{float(losses[-1]):.5f}; best val acc {float(res.val_metric):.4f}"
-          f" test acc {float(res.test_metric):.4f}")
+    loop = "joint iterations" if cfg.joint else "sequential epochs"
+    print(f"{tag} prepare_data {t_prep:.1f} s; {bodies} {loop}; steady "
+          f"{ms_epoch:.3f} ms/epoch over {state.epoch}; epochs_run "
+          f"{res.epochs_run} of {timed_epochs} (early_stopping "
+          f"{cfg.early_stopping}); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    print(f"{tag} train loss first {float(losses[0]):.5f} last "
+          f"{float(losses[-1]):.5f}; best val {cfg.metric} "
+          f"{float(res.val_metric):.4f} test {cfg.metric} "
+          f"{float(res.test_metric):.4f}")
     if not torch.isfinite(losses).all():
-        fail("non-finite training loss on the main path")
-    expected = {
-        "k1_spmm_w7": iters + 1,     # + the x_agg precompute
-        "k1_spmm_w8": iters, "k1_spmm_w4": iters,
-        "k2_attn_fwd_d64": 2 * iters, "k2_attn_fwd_d2": 2 * iters,
-        "k3_attn_bwd_d64": iters, "k3_attn_bwd_d2": iters,
-    }
-    print(f"[3] launches {json.dumps(counts, sort_keys=True)}")
-    per_epoch = {k: (counts.get(k, 0) - (1 if k == 'k1_spmm_w7' else 0))
-                 / iters for k in expected}
-    print(f"[3] launches per epoch {json.dumps(per_epoch, sort_keys=True)}")
-    if counts != expected:
-        fail(f"launch counts {counts} != expected {expected}")
-    phase_profile(make_split_runner(model, dataclasses.replace(
-        cfg, epochs=PROFILE_EPOCHS)), ops, x, y, masks)
+        fail(f"{tag} non-finite training loss")
+    want = expected(bodies)
+    print(f"{tag} launches {json.dumps(counts, sort_keys=True)}")
+    if counts != want:
+        fail(f"{tag} launch counts {counts} != expected {want}")
+    if profile:
+        prof_cfg = dataclasses.replace(cfg, epochs=PROFILE_EPOCHS)
+        phase_profile(tag, lambda: make_split_runner(model, prof_cfg)(
+            ops, x, y, masks, seed=3, labels_onehot=y1h),
+            PROFILE_EPOCHS + (1 if cfg.joint else 0))
+    return counts, ms_epoch, res
+
+
+def phase_main_path(adj, feats, labels):
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    data = GraphData("twitch-gamers-scale-uniform", adj, feats, labels)
+    counts, ms_epoch, _ = drive_path(
+        "[3]", data, headline_config(), _masks(adj.shape[0]), TIMED_EPOCHS,
+        lambda it: joint_counts(it, "k1_spmm", 7))
     return counts, ms_epoch
 
 
+def phase_genius_paths(adj, feats, labels, masks_np):
+    """The genius ROC-AUC configuration through the joint loop on ELL and
+    on COO, then the sequential loop without and with early stopping."""
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    data = GraphData("genius-scale", adj, feats, labels)
+    out = {}
+    out["ell"] = drive_path(
+        "[5b ell]", data, genius_config(), masks_np, GENIUS_TIMED_EPOCHS,
+        lambda it: joint_counts(it, "k1_spmm", 12, k4=True))
+    out["coo"] = drive_path(
+        "[5b coo]", data, genius_config(operator_format="coo"), masks_np,
+        GENIUS_TIMED_EPOCHS,
+        lambda it: joint_counts(it, "k5_coo", 12, k4=True))
+    out["seq"] = drive_path(
+        "[5b seq]", data, genius_config(joint=False), masks_np,
+        GENIUS_SEQ_EPOCHS, lambda b: sequential_counts(b, "k1_spmm", 12))
+    out["seq_es"] = drive_path(
+        "[5b seq+es]", data, genius_config(joint=False,
+                                           early_stopping=GENIUS_ES),
+        masks_np, GENIUS_SEQ_EPOCHS,
+        lambda b: sequential_counts(b, "k1_spmm", 12), profile=False)
+    out["stop_flag_ms"] = phase_stop_flag_cost(data, masks_np)
+    return out
+
+
+def phase_stop_flag_cost(data, masks_np, pairs: int = 10):
+    """What the sequential loop pays for reading the early-stopping flag
+    on the host once per epoch: runs of ``GENIUS_SEQ_EPOCHS`` epochs
+    without early stopping and with it (window ``GENIUS_ES``), in
+    alternating pairs.  Both arms get an empty val mask, so the val loss
+    is 0 every epoch: the rule is read after each epoch past the window
+    and never fires, and both arms do the same device work."""
+    import torch
+
+    from acmgnn_tpu_torch.train.trainer import (
+        build_model,
+        make_split_runner,
+        prepare_data,
+    )
+
+    cfg = genius_config(joint=False, epochs=GENIUS_SEQ_EPOCHS)
+    _, ops, x, y, y1h, nclass = prepare_data(data, cfg)
+    model = build_model(cfg, x.shape[1], nclass)
+    m = masks_np.copy()
+    m[1] = False
+    masks = tuple(torch.from_numpy(t).cuda() for t in m)
+    make_split_runner(model, dataclasses.replace(cfg, epochs=WARM_EPOCHS))(
+        ops, x, y, masks, labels_onehot=y1h)
+    ms = {0: [], GENIUS_ES: []}
+    for i in range(pairs):
+        for es in ((0, GENIUS_ES) if i % 2 == 0 else (GENIUS_ES, 0)):
+            run = make_split_runner(model, dataclasses.replace(
+                cfg, early_stopping=es))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(ops, x, y, masks, seed=i, labels_onehot=y1h)
+            torch.cuda.synchronize()
+            if res.epochs_run != GENIUS_SEQ_EPOCHS:
+                fail(f"[5d] early_stopping={es} stopped at {res.epochs_run}")
+            ms[es].append(1e3 * (time.perf_counter() - t0) / GENIUS_SEQ_EPOCHS)
+    diffs = sorted(b - a for a, b in zip(ms[0], ms[GENIUS_ES]))
+    median = float(np.median(diffs))
+    # the host's contention only ever adds time, so each arm's fastest run
+    # is its least disturbed one
+    low = min(ms[GENIUS_ES]) - min(ms[0])
+    print(f"[5d] stop-flag read, sequential loop, {GENIUS_SEQ_EPOCHS} epochs "
+          f"per run, {pairs} alternating pairs: ms/epoch without "
+          f"{[round(v, 3) for v in ms[0]]}, with early_stopping={GENIUS_ES} "
+          f"{[round(v, 3) for v in ms[GENIUS_ES]]}; paired differences "
+          f"{[round(v, 3) for v in diffs]}, median {median:.3f}; fastest "
+          f"with minus fastest without {low:.3f} ms/epoch")
+    return median
+
+
 def _kernel_group(name: str) -> str:
+    low = name.lower()
     if "spmm_rows_kernel" in name:
         return "K1 spmm"
     if "attn_fwd_kernel" in name:
         return "K2 attention fwd"
     if "attn_bwd_kernel" in name:
         return "K3 attention bwd"
-    if any(k in name.lower() for k in ("gemm", "gemv", "cutlass", "xmma",
-                                        "sm90_", "splitk")):
+    if "auc_tiles_kernel" in name or "auc_scan_kernel" in name \
+            or "auc_ranks_kernel" in name:
+        return "K4 auc"
+    if "coo_slices_kernel" in name or "coo_spans_kernel" in name:
+        return "K5 coo"
+    if "sort" in low:
+        return "torch.sort"
+    if any(k in low for k in ("cusparse", "csrmm", "spmm", "csr2")):
+        return "torch.sparse (cuSPARSE)"
+    if "index" in low or "scatter" in low:
+        return "indexing (index_add/gather/scatter)"
+    if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
+                              "splitk")):
         return "cuBLAS GEMM"
-    if "memcpy" in name.lower() or "memset" in name.lower():
+    if "memcpy" in low or "memset" in low:
         return "memcpy/memset"
     return "other (ATen elementwise, reductions, Adam)"
 
 
-def phase_profile(run, ops, x, y, masks):
-    """Device time by kernel group over a few steady joint iterations,
-    and the device's busy share of that window (torch.profiler)."""
+def phase_profile(tag, run, bodies):
+    """Device time by kernel group over a few steady loop bodies, and the
+    device's busy share of that window (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -325,10 +743,9 @@ def phase_profile(run, ops, x, y, masks):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(ops, x, y, masks, seed=3)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    iters = PROFILE_EPOCHS + 1
     groups: dict = {}
     launches = 0
     top = []
@@ -348,63 +765,96 @@ def phase_profile(run, ops, x, y, masks):
         top.append((us, e.count, e.key))
     busy = sum(groups.values())
     if busy == 0:
-        print("[3] profile: no device time recorded (not measured)")
+        print(f"{tag} profile: no device time recorded (not measured)")
         return
-    print(f"[3] profile over {iters} iterations (profiler on): wall "
-          f"{1e3 * wall / iters:.3f} ms/epoch, device busy "
-          f"{busy / 1e3 / iters:.3f} ms/epoch, busy share "
-          f"{busy / 1e6 / wall:.3f}, {launches / iters:.0f} device "
+    print(f"{tag} profile over {bodies} loop bodies (profiler on): wall "
+          f"{1e3 * wall / bodies:.3f} ms/epoch, device busy "
+          f"{busy / 1e3 / bodies:.3f} ms/epoch, busy share "
+          f"{busy / 1e6 / wall:.3f}, {launches / bodies:.0f} device "
           f"operations/epoch")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {g}: {us / 1e3 / iters:.4f} ms/epoch "
+        print(f"  {g}: {us / 1e3 / bodies:.4f} ms/epoch "
               f"({us / busy:.3f} of device time)")
     for us, cnt, key in sorted(top, reverse=True)[:10]:
-        print(f"    {us / 1e3 / iters:.4f} ms/epoch x{cnt / iters:.0f} "
+        print(f"    {us / 1e3 / bodies:.4f} ms/epoch x{cnt / bodies:.1f} "
               f"{key[:90]}")
 
 
-def phase_card_vs_cpu():
-    """Small graph, dropout 0, f32 gathers: the card's kernels against the
-    CPU's plain versions from the same initial parameters.  Features are
-    made non-negative: with near-zero row sums the row normalization makes
-    the fast LayerNorm variance cancel and summation order alone moves two
-    runs apart (tests/test_torch_trainer.py)."""
+def card_vs_cpu(tag, data, cfg, masks_np):
+    """One configuration trained on the card (kernels) and on the CPU
+    (plain versions) from the same initial parameters: final parameters
+    within 1e-4, split results within 1e-4 relative, equal epochs_run."""
     import torch
 
-    from acmgnn_tpu_torch.data.synthetic_scale import \
-        twitch_gamers_scale_graph
-    from acmgnn_tpu_torch.ops.graph import GraphData
     from acmgnn_tpu_torch.train.trainer import (
         build_model,
         make_split_runner,
         prepare_data,
     )
 
-    adj, feats, labels = twitch_gamers_scale_graph(0, n=2000, pairs=40_000)
-    data = GraphData("small", adj, np.abs(feats), labels)
-    cfg = headline_config(hidden=16, dropout=0.0, spmm_dtype="float32",
-                          epochs=20)
     out = {}
     for device in ("cuda", "cpu"):
-        _, ops, x, y, _, nclass = prepare_data(data, cfg, device=device)
+        _, ops, x, y, y1h, nclass = prepare_data(data, cfg, device=device)
         model = build_model(cfg, x.shape[1], nclass, device=device, seed=3)
-        masks = tuple(torch.from_numpy(m).to(device)
-                      for m in _masks(data.num_nodes))
-        res = make_split_runner(model, cfg)(ops, x, y, masks)
+        masks = tuple(torch.from_numpy(m).to(device) for m in masks_np)
+        res = make_split_runner(model, cfg)(ops, x, y, masks,
+                                            labels_onehot=y1h)
         out[device] = (res, {k: p.detach().cpu()
                              for k, p in model.named_parameters()})
     (rg, pg), (rc, pc) = out["cuda"], out["cpu"]
     worst = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
-    print(f"[4] card vs CPU after {cfg.epochs} epochs: max |Δparam| "
-          f"{worst:.3e} (tolerance 1e-4); epochs_run {rg.epochs_run}/"
-          f"{rc.epochs_run}")
+    print(f"{tag} card vs CPU, {cfg.epochs} epochs (early_stopping "
+          f"{cfg.early_stopping}): max |Δparam| {worst:.3e} (tolerance "
+          f"1e-4); epochs_run {rg.epochs_run}/{rc.epochs_run}")
     for f in ("test_metric", "val_metric", "val_loss", "train_loss"):
         a, b = float(getattr(rg, f)), float(getattr(rc, f))
         print(f"  {f}: card {a:.6f} cpu {b:.6f}")
         if not abs(a - b) <= 1e-4 * max(1.0, abs(b)):
-            fail(f"card and CPU disagree on {f}")
+            fail(f"{tag} card and CPU disagree on {f}")
     if worst > 1e-4 or rg.epochs_run != rc.epochs_run:
-        fail("card and CPU parameters disagree")
+        fail(f"{tag} card and CPU parameters disagree")
+    return rg
+
+
+def phase_card_vs_cpu():
+    """Small graph, dropout 0, f32 gathers: the card's kernels against the
+    CPU's plain versions.  Features are made non-negative (here and in
+    phase 5c): with near-zero row sums the row normalization makes the
+    fast LayerNorm variance cancel and summation order alone moves two
+    runs apart (tests/test_torch_trainer.py)."""
+    from acmgnn_tpu_torch.data.synthetic_scale import \
+        twitch_gamers_scale_graph
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    adj, feats, labels = twitch_gamers_scale_graph(0, n=2000, pairs=40_000)
+    card_vs_cpu("[4]", GraphData("small", adj, np.abs(feats), labels),
+                headline_config(hidden=16, dropout=0.0, spmm_dtype="float32",
+                                epochs=20), _masks(2000))
+
+
+def phase_genius_card_vs_cpu():
+    """The genius configuration on a small stand-in (dropout 0, f32): the
+    joint loop on ELL and on COO over 40 epochs, and the sequential loop
+    with an early stop (window 5) that fires before its 60 epochs.  Card
+    and CPU sum in other orders; phase 5a shows K1 equal to its own order
+    replayed, so what is left between them is rounding, which this
+    configuration does not amplify
+    (tests/test_torch_rocauc_trainer.py)."""
+    from acmgnn_tpu_torch.data.synthetic_scale import linkx_scale_graph
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    adj, feats, labels = linkx_scale_graph("genius", n=2000, e=5000,
+                                           max_deg=150)
+    data = GraphData("small-genius", adj, np.abs(feats), labels)
+    small = dict(hidden=16, dropout=0.0, spmm_dtype="float32", epochs=40)
+    masks = _masks(2000, seed=1)
+    card_vs_cpu("[5c ell]", data, genius_config(**small), masks)
+    card_vs_cpu("[5c coo]", data, genius_config(operator_format="coo",
+                                                **small), masks)
+    res = card_vs_cpu("[5c seq+es]", data, genius_config(
+        joint=False, **dict(small, epochs=60, early_stopping=5)), masks)
+    if res.epochs_run >= 60:
+        fail("[5c seq+es] the early stop did not fire")
 
 
 def main() -> int:
@@ -414,8 +864,10 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import acmgnn_tpu_torch  # noqa: F401  (fails outside the repo)
-    from acmgnn_tpu_torch.data.synthetic_scale import \
-        twitch_gamers_scale_graph
+    from acmgnn_tpu_torch.data.synthetic_scale import (
+        linkx_scale_graph,
+        twitch_gamers_scale_graph,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -428,14 +880,36 @@ def main() -> int:
     rows = phase_kernels(adj, feats)
     counts, ms_epoch = phase_main_path(adj, feats, labels)
     for row in rows:
-        row["launches"] = counts.get(row["name"], 0)
+        row.update(path="headline (twitch-gamers, joint, ELL)",
+                   launches=counts.get(row["counter"], 0))
     phase_card_vs_cpu()
+
+    t0 = time.perf_counter()
+    g_adj, g_feats, g_labels = linkx_scale_graph("genius")
+    g_masks = _masks(g_adj.shape[0], seed=1)
+    print(f"[5a] genius-shaped graph N={g_adj.shape[0]} edges={g_adj.nnz} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    g_rows = phase_kernels(g_adj, g_feats, tag="[5a]", suffix="@genius",
+                           use_ln=False, with_coo=True)
+    g_rows += phase_rocauc_kernel(g_labels, g_masks)
+    paths = phase_genius_paths(g_adj, g_feats, g_labels, g_masks)
+    phase_genius_card_vs_cpu()
+    for row in g_rows:
+        key = "coo" if row["counter"].startswith("k5") else "ell"
+        row.update(path=f"genius ({key}, joint)",
+                   launches=paths[key][0].get(row["counter"], 0))
+        if row["launches"] == 0:
+            fail(f"{row['name']} was not launched on its path")
     print(f"[done] {time.perf_counter() - t_start:.1f} s; main path "
-          f"{ms_epoch:.3f} ms/epoch")
+          f"{ms_epoch:.3f} ms/epoch; genius joint ell "
+          f"{paths['ell'][1]:.3f}, coo {paths['coo'][1]:.3f}, sequential "
+          f"{paths['seq'][1]:.3f} ms/epoch; the stop-flag read "
+          f"{paths['stop_flag_ms']:+.3f} ms/epoch")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            "library_ms", "path")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in rows + g_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,11 @@ them there with
 
 Tolerance: ``1e-5·sqrt(reduction length)·max(1, max|plain|)``: kernel
 and plain version sum the same f32 (or bf16-rounded) terms in different
-orders.
+orders.  K4 counts integers, so it must agree exactly.
+
+Without a card, the tests below check what K5 and K4 rely on: K5's host
+partition of the triplets into slices, and the exact counts of K4's plain
+version; the card tests hold the compiled kernels to those.
 """
 
 from __future__ import annotations
@@ -32,13 +36,24 @@ from acmgnn_tpu_torch.models.layers import (
     attention_mix_forward_plain,
 )
 from acmgnn_tpu_torch.ops import kernels
+from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain, make_coo_half
 from acmgnn_tpu_torch.ops.ell import (
     make_ell_op,
     row_gather_spmm,
     row_gather_spmm_plain,
 )
-from acmgnn_tpu_torch.ops.graph import GraphData, row_normalized_adjacency
+from acmgnn_tpu_torch.ops.graph import (
+    GraphData,
+    make_coo_op,
+    row_normalized_adjacency,
+)
 from acmgnn_tpu_torch.ops.spmm import spmm_multi
+from acmgnn_tpu_torch.train.metrics import (
+    auc_rank_pass,
+    auc_rank_pass_plain,
+    pack_labels_and_masks,
+    sort_scores,
+)
 from acmgnn_tpu_torch.train.config import TrainConfig
 from acmgnn_tpu_torch.train.trainer import (
     build_model,
@@ -97,6 +112,35 @@ def test_wrappers_refuse_a_device_without_kernel():
         attention_mix_forward(h0, h1, h2, v, c, W, True, 3.0)
     with pytest.raises(ValueError, match="CUDA"):
         attention_mix_backward(h0, h1, h2, gout, v, c, W, True, 3.0)
+    coo = make_coo_op(_matrices()["lowpass_sym"]).to("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        coo_spmm(coo.fwd, x)
+    s = torch.empty(1, 50, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        auc_rank_pass(s, torch.empty(1, 50, dtype=torch.int64, device="meta"),
+                      torch.empty(1, 50, dtype=torch.uint8, device="meta"), 2)
+
+
+def test_port_imports_no_jax():
+    """The package and chip_smoke.py import nothing of JAX, acmgnn_tpu or
+    bench.py: every module imports with those names blocked."""
+    code = """
+import importlib, pkgutil, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                  "acmgnn_tpu", "bench"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import acmgnn_tpu_torch
+for m in pkgutil.walk_packages(acmgnn_tpu_torch.__path__, "acmgnn_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+print("imported", len(sys.modules))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -215,3 +259,142 @@ def test_run_joint_card_matches_cpu_and_counts_launches(cuda):
     for k, ref in params["cpu"].items():
         np.testing.assert_allclose(params["cuda"][k].numpy(), ref.numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# What K5 and K4 rely on, checked without a card
+# ---------------------------------------------------------------------------
+
+
+def _hub_matrix(n=120, seed=0):
+    """A hub row of degree n-1, rows without triplets, uneven values."""
+    rng = np.random.default_rng(seed)
+    dense = (rng.random((n, n)) < 0.05) * rng.uniform(0.1, 2.0, (n, n))
+    dense[3, :] = rng.uniform(0.1, 2.0, n)
+    dense[[7, 8, 50, n - 1], :] = 0.0
+    return sp.csr_matrix(dense)
+
+
+@pytest.mark.parametrize("kind", ("lowpass_sym", "lowpass_directed",
+                                  "weighted", "hub"))
+@pytest.mark.parametrize("slice_nnz", (1, 4, 16))
+def test_coo_half_partition_matches_its_definition(kind, slice_nnz):
+    """K5's host partition against a row-by-row definition: a row whose
+    triplets lie in more than one slice is a spanning row with its first
+    and last slice, a row without one is listed as empty, and no slice
+    starts or ends more than one spanning row (the carry buffer holds one
+    head and one tail partial per slice)."""
+    mat = _hub_matrix() if kind == "hub" else _matrices()[kind]
+    half = make_coo_op(mat).fwd
+    half = make_coo_half(half.row.numpy(), half.col.numpy(),
+                         half.val.numpy(), half.num_rows, slice_nnz=slice_nnz)
+    slices = np.arange(half.nnz) // slice_nnz
+    row = half.row.numpy()
+    spans, empty = {}, []
+    for r in range(half.num_rows):
+        own = slices[row == r]
+        if own.size == 0:
+            empty.append(r)
+        elif own.min() != own.max():
+            spans[r] = (int(own.min()), int(own.max()))
+    assert half.empty_rows.tolist() == empty
+    got = dict(zip(half.span_rows.tolist(),
+                   zip(half.span_first.tolist(), half.span_last.tolist())))
+    assert got == spans
+    firsts = [f for f, _ in spans.values()]
+    lasts = [last for _, last in spans.values()]
+    assert len(set(firsts)) == len(firsts) and len(set(lasts)) == len(lasts)
+    if kind == "hub":
+        assert max(last - f for f, last in spans.values()) >= 2
+
+
+def _auc_inputs(kind: str, n: int, seed: int = 0):
+    """``(scores [B, N], labels, masks)``; "saturated" holds one tie group
+    of 70% of the nodes (spanning many tiles), "quantised" many groups."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 2, n)
+    masks = (rng.random(n) < 0.25, rng.random(n) < 0.25)
+    scores = rng.random(n).astype(np.float32)
+    if kind == "saturated":
+        scores[rng.random(n) < 0.7] = 1.0
+    elif kind == "quantised":
+        scores = np.round(scores * 20) / 20
+    elif kind == "multilabel":
+        labels = (rng.random((n, 3)) < 0.3).astype(np.int64)
+        scores = np.round(rng.normal(size=(3, n)), 1).astype(np.float32)
+        return scores, labels, masks
+    return scores[None], labels, masks
+
+
+@pytest.mark.parametrize("kind", ("random", "saturated", "quantised",
+                                  "multilabel"))
+def test_rank_pass_counts_are_exact(kind):
+    """The ``[B, M, 3]`` counts K4 is held to, from its plain version: each
+    score column's and mask's positives, negatives and twice the positives'
+    average-rank sum, exactly as scipy ranks the masked subset."""
+    from scipy.stats import rankdata
+
+    scores, labels, masks = _auc_inputs(kind, 700)
+    packed = pack_labels_and_masks(torch.from_numpy(labels),
+                                   tuple(torch.from_numpy(m) for m in masks))
+    order, s_sorted = sort_scores(torch.from_numpy(scores))
+    got = auc_rank_pass_plain(s_sorted, order, packed, 2).numpy()
+    lab = labels.reshape(700, -1).T
+    for b in range(scores.shape[0]):
+        for m, mask in enumerate(masks):
+            pos = lab[b][mask] == 1
+            rank2 = 2 * rankdata(scores[b][mask], method="average")
+            assert got[b, m].tolist() == [int(pos.sum()), int((~pos).sum()),
+                                          int(rank2[pos].sum())]
+
+
+# ---------------------------------------------------------------------------
+# K5 and K4 on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("lowpass_sym", "binary_sym",
+                                  "lowpass_directed", "weighted", "hub"))
+@pytest.mark.parametrize("width,hp", [(12, None), (8, (0, 0, 1, 1, 0, 0, 1, 1)),
+                                      (4, (0, 0, 1, 1)), (3, None)])
+def test_k5_matches_plain(cuda, kind, width, hp):
+    """Both halves (forward and transpose triplets), with hub rows that
+    span many slices and rows without a triplet; two launches agree bit
+    for bit (no atomics)."""
+    mat = _hub_matrix(3000) if kind == "hub" else _matrices()[kind]
+    op = make_coo_op(mat).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    z = torch.randn(op.num_nodes, width, generator=gen, device=cuda)
+    alpha = beta = None
+    if hp is not None:
+        alpha = [float(h) for h in hp]
+        beta = [-1.0 if h else 1.0 for h in hp]
+    csr = sp.csr_matrix(mat)
+    n_terms = int(max(np.diff(csr.indptr).max(),
+                      np.diff(csr.T.tocsr().indptr).max()))
+    for half in (op.fwd, op.bwd):
+        got = coo_spmm(half, z, z=z, alpha=alpha, beta=beta)
+        again = coo_spmm(half, z, z=z, alpha=alpha, beta=beta)
+        want = coo_spmm_plain(half, z, z if hp else None,
+                              tuple(alpha or (0.0,) * width),
+                              tuple(beta or (1.0,) * width))
+        torch.cuda.synchronize()
+        assert_close(got, want, n_terms, f"{kind} w{width}")
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("random", "saturated", "quantised",
+                                  "multilabel"))
+@pytest.mark.parametrize("n", (1, 1000, 50_000))
+def test_k4_matches_plain(cuda, kind, n):
+    scores, labels, masks = _auc_inputs(kind, n, seed=n)
+    packed = pack_labels_and_masks(
+        torch.from_numpy(labels).to(cuda),
+        tuple(torch.from_numpy(m).to(cuda) for m in masks))
+    order, s_sorted = sort_scores(torch.from_numpy(scores).to(cuda))
+    got = auc_rank_pass(s_sorted, order, packed, 2)
+    want = auc_rank_pass_plain(s_sorted, order, packed, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
