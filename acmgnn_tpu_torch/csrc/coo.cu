@@ -28,6 +28,12 @@
 //     the rows that have no triplet (alpha * z).
 // No atomics, so two runs agree bit for bit.  Every row of `out` is
 // written exactly once.
+//
+// `slice_offset` shifts the slice grid: slice s holds triplets
+// [s * slice_nnz - slice_offset, (s + 1) * slice_nnz - slice_offset), the
+// first one cut short.  A rank's block of a sharded matrix passes its
+// first triplet's position in the whole matrix modulo slice_nnz, so each
+// of its rows is split, and summed, as in the whole matrix's half.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,7 +94,8 @@ __global__ void __launch_bounds__(kThreads)
 coo_slices_kernel(const int32_t* __restrict__ row,
                   const int32_t* __restrict__ col,
                   const float* __restrict__ val, int64_t nnz, int slice_nnz,
-                  int64_t n_slices, const float* __restrict__ x,
+                  int slice_offset, int64_t n_slices,
+                  const float* __restrict__ x,
                   const float* __restrict__ z, const float* __restrict__ alpha,
                   const float* __restrict__ beta, float* __restrict__ carry,
                   float* __restrict__ out, int d) {
@@ -96,8 +103,9 @@ coo_slices_kernel(const int32_t* __restrict__ row,
   if (s >= n_slices) return;
   const int c0 = blockIdx.y * kTile;
   const int nvalid = min(kTile, d - c0);
-  const int64_t a = s * slice_nnz;
-  const int64_t b = a + slice_nnz < nnz ? a + slice_nnz : nnz;
+  const int64_t end = (s + 1) * slice_nnz - slice_offset;
+  const int64_t a = s > 0 ? end - slice_nnz : 0;
+  const int64_t b = end < nnz ? end : nnz;
   const bool head_open = a > 0 && row[a - 1] == row[a];
   const bool tail_open = b < nnz && row[b] == row[b - 1];
 
@@ -188,7 +196,8 @@ coo_spans_kernel(const int32_t* __restrict__ span_rows,
 
 extern "C" int acm_k5_coo_spmm(const void* row, const void* col,
                                const void* val, int64_t nnz, int slice_nnz,
-                               const void* span_rows, const void* span_first,
+                               int slice_offset, const void* span_rows,
+                               const void* span_first,
                                const void* span_last, int n_span,
                                const void* empty_rows, int n_empty,
                                const void* x, const void* z,
@@ -204,7 +213,8 @@ extern "C" int acm_k5_coo_spmm(const void* row, const void* col,
   auto* cy = static_cast<float*>(carry);
   auto* o = static_cast<float*>(out);
   const unsigned tiles = (d + kTile - 1) / kTile;
-  const int64_t n_slices = (nnz + slice_nnz - 1) / slice_nnz;
+  const int64_t n_slices =
+      nnz > 0 ? (nnz + slice_offset + slice_nnz - 1) / slice_nnz : 0;
   if (n_slices > 0) {
     const dim3 grid(static_cast<unsigned>((n_slices + kThreads - 1) / kThreads),
                     tiles);
@@ -213,10 +223,12 @@ extern "C" int acm_k5_coo_spmm(const void* row, const void* col,
     const auto* vl = static_cast<const float*>(val);
     if (d % 4 == 0) {
       coo_slices_kernel<true><<<grid, kThreads, 0, s>>>(
-          rw, cl, vl, nnz, slice_nnz, n_slices, xx, zz, al, be, cy, o, d);
+          rw, cl, vl, nnz, slice_nnz, slice_offset, n_slices, xx, zz, al, be,
+          cy, o, d);
     } else {
       coo_slices_kernel<false><<<grid, kThreads, 0, s>>>(
-          rw, cl, vl, nnz, slice_nnz, n_slices, xx, zz, al, be, cy, o, d);
+          rw, cl, vl, nnz, slice_nnz, slice_offset, n_slices, xx, zz, al, be,
+          cy, o, d);
     }
   }
   const int rows2 = n_span + n_empty;

@@ -13,6 +13,12 @@ partial sum per slice in a carry buffer, and a second launch adds those
 in slice order and stores the row.  Which rows cross a boundary (and from
 which slice to which), and which rows hold no triplet at all, depends
 only on the structure, so the host finds them once per operator.
+
+A half that is a block of rows of a larger matrix (a rank's share of a
+sharded operator) can keep the larger matrix's slice grid: with
+``nnz_offset``, the position of its first triplet there, the first slice
+is cut short so that every row is split, and so summed, exactly as in
+the whole matrix's half.
 """
 
 from __future__ import annotations
@@ -44,10 +50,24 @@ class CooHalf:
     span_first: torch.Tensor    # [S] int32: slice holding the row's first nz
     span_last: torch.Tensor     # [S] int32: slice holding the row's last nz
     empty_rows: torch.Tensor    # [E] int32: rows without a triplet
+    num_cols: Optional[int] = None  # operand rows; None: square, num_rows
+    # the slice grid's phase: slice s holds triplets
+    # [s * slice_nnz - slice_offset, (s + 1) * slice_nnz - slice_offset)
+    slice_offset: int = 0
+
+    def __post_init__(self):
+        if self.num_cols is None:
+            self.num_cols = self.num_rows
 
     @property
     def nnz(self) -> int:
         return int(self.row.shape[0])
+
+    @property
+    def n_slices(self) -> int:
+        if self.nnz == 0:
+            return 0
+        return -(-(self.nnz + self.slice_offset) // self.slice_nnz)
 
     def to(self, device) -> "CooHalf":
         return dataclasses.replace(self, **{
@@ -57,12 +77,18 @@ class CooHalf:
 
 
 def make_coo_half(row: np.ndarray, col: np.ndarray, val: np.ndarray,
-                  num_rows: int, slice_nnz: int = SLICE_NNZ) -> CooHalf:
-    """A half from row-sorted triplets, with K5's slice partition."""
+                  num_rows: int, slice_nnz: int = SLICE_NNZ,
+                  num_cols: Optional[int] = None,
+                  nnz_offset: int = 0) -> CooHalf:
+    """A half from row-sorted triplets, with K5's slice partition;
+    ``num_cols`` (default ``num_rows``) is the operand's row count, and
+    ``nnz_offset`` the first triplet's position in a larger matrix whose
+    slice grid the half keeps."""
     if row.size and np.any(np.diff(row) < 0):
         raise ValueError("COO triplets must be sorted by row")
+    offset = nnz_offset % slice_nnz
     counts = np.bincount(row, minlength=num_rows)
-    indptr = np.concatenate([[0], np.cumsum(counts)])
+    indptr = np.concatenate([[0], np.cumsum(counts)]) + offset
     first = indptr[:-1] // slice_nnz
     last = (indptr[1:] - 1) // slice_nnz
     spans = (counts > 0) & (first != last)
@@ -76,6 +102,7 @@ def make_coo_half(row: np.ndarray, col: np.ndarray, val: np.ndarray,
         num_rows=num_rows, slice_nnz=slice_nnz,
         span_rows=i32(np.flatnonzero(spans)), span_first=i32(first[spans]),
         span_last=i32(last[spans]), empty_rows=i32(np.flatnonzero(counts == 0)),
+        num_cols=num_cols, slice_offset=offset,
     )
 
 
@@ -102,21 +129,24 @@ def _coo_spmm_cuda(half: CooHalf, x, z, alpha, beta):
     n, d = half.num_rows, x.shape[1]
     if x.dtype != torch.float32:
         raise TypeError(f"K5 takes an f32 operand, got {x.dtype}")
-    if x.shape[0] != n:
-        raise ValueError(f"operand has {x.shape[0]} rows, operator {n}")
+    if x.shape[0] != half.num_cols:
+        raise ValueError(f"operand has {x.shape[0]} rows, operator "
+                         f"{half.num_cols} columns")
     kernels.require_cuda(half.row, half.col, half.val, half.span_rows,
                          half.span_first, half.span_last, half.empty_rows, x,
                          *(() if z is None else (z,)))
-    if z is not None and (z.dtype != torch.float32 or z.shape != x.shape):
-        raise ValueError("epilogue operand z must be f32 and match x")
-    n_slices = -(-half.nnz // half.slice_nnz)
+    # K5 reads the operand only through ``col`` and indexes z and out by
+    # output row, so z is [num_rows, d] also for a rectangular half
+    if z is not None and (z.dtype != torch.float32 or z.shape != (n, d)):
+        raise ValueError(f"epilogue operand z must be f32 [{n}, {d}]")
     out = torch.empty(n, d, dtype=torch.float32, device=x.device)
-    carry = torch.empty(2 * n_slices, d, dtype=torch.float32,
+    carry = torch.empty(2 * half.n_slices, d, dtype=torch.float32,
                         device=x.device)
     lib = kernels.library("coo")
     rc = lib.acm_k5_coo_spmm(
         kernels.ptr(half.row), kernels.ptr(half.col), kernels.ptr(half.val),
-        half.nnz, half.slice_nnz, kernels.ptr(half.span_rows),
+        half.nnz, half.slice_nnz, half.slice_offset,
+        kernels.ptr(half.span_rows),
         kernels.ptr(half.span_first), kernels.ptr(half.span_last),
         int(half.span_rows.shape[0]), kernels.ptr(half.empty_rows),
         int(half.empty_rows.shape[0]), kernels.ptr(x), kernels.ptr(z),
@@ -133,8 +163,8 @@ def coo_spmm(half: CooHalf, x: torch.Tensor,
              z: Optional[torch.Tensor] = None, alpha=None, beta=None):
     """``out[r, j] = alpha[j]·z[r, j] + beta[j]·Σ_{k: row[k]=r} val[k]·x[col[k], j]``.
 
-    The epilogue contract of ``row_gather_spmm`` (``ops/ell.py``): ``z`` an
-    optional f32 [N, d] residual, ``alpha`` (default 0) and ``beta``
+    The epilogue contract of ``row_gather_spmm`` (``ops/ell.py``): ``x``
+    is [num_cols, d], ``z`` an optional f32 [num_rows, d] residual, ``alpha`` (default 0) and ``beta``
     (default 1) per-column constants.  ``x`` is f32.  A CPU operand runs
     the plain version; a CUDA operand launches K5.
     """

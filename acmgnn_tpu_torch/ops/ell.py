@@ -45,6 +45,12 @@ class EllHalf:
     vals: Optional[torch.Tensor] = None       # [nnz] f32; None = value-free
     row_scale: Optional[torch.Tensor] = None  # [N] f32, output-row order
     pre_scale: Optional[torch.Tensor] = None  # [N] f32, operand-row order
+    # operand rows (the matrix's column count); None: square, N
+    num_cols: Optional[int] = None
+
+    def __post_init__(self):
+        if self.num_cols is None:
+            self.num_cols = self.num_rows
 
     @property
     def num_rows(self) -> int:
@@ -56,8 +62,8 @@ class EllHalf:
         memo = {} if memo is None else memo
 
         def move(t):
-            if t is None:
-                return None
+            if not isinstance(t, torch.Tensor):
+                return t
             if id(t) not in memo:
                 memo[id(t)] = t.to(device)
             return memo[id(t)]
@@ -104,6 +110,7 @@ def _build_half(csr: sp.csr_matrix, uniform_scale=None,
         indptr=torch.from_numpy(srt.indptr.astype(np.int64)),
         indices=torch.from_numpy(srt.indices.astype(np.int32)),
         row_ids=torch.from_numpy(order.astype(np.int32)),
+        num_cols=csr.shape[1],
     )
     if uniform_scale is None:
         half.vals = torch.from_numpy(srt.data.astype(np.float32))
@@ -197,13 +204,16 @@ def _row_gather_spmm_cuda(half: EllHalf, x, z, alpha, beta):
     n, d = half.num_rows, x.shape[1]
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K1 takes a bf16 or f32 operand, got {x.dtype}")
-    if x.shape[0] != n:
-        raise ValueError(f"operand has {x.shape[0]} rows, operator {n}")
+    if x.shape[0] != half.num_cols:
+        raise ValueError(f"operand has {x.shape[0]} rows, operator "
+                         f"{half.num_cols} columns")
     arrays = [half.indptr, half.indices, half.row_ids, x]
     arrays += [t for t in (z, half.vals, half.row_scale) if t is not None]
     kernels.require_cuda(*arrays)
-    if z is not None and (z.dtype != torch.float32 or z.shape != x.shape):
-        raise ValueError("epilogue operand z must be f32 and match x")
+    # K1 reads the operand only through ``indices`` and indexes z and out
+    # by output row, so z is [num_rows, d] also for a rectangular half
+    if z is not None and (z.dtype != torch.float32 or z.shape != (n, d)):
+        raise ValueError(f"epilogue operand z must be f32 [{n}, {d}]")
     out = torch.empty(n, d, dtype=torch.float32, device=x.device)
     alpha_t = column_constants(alpha, x.device)
     beta_t = column_constants(beta, x.device)
@@ -225,8 +235,9 @@ def row_gather_spmm(half: EllHalf, x: torch.Tensor,
                     z: Optional[torch.Tensor] = None, alpha=None, beta=None):
     """``out[r, j] = alpha[j]·z[r, j] + beta[j]·rs[r]·Σ_{c ∈ row r} x[c, j]``.
 
-    ``x``: [N, d] gather operand (bf16 or f32; a transpose half's operand
-    is already pre-scaled).  ``z``: optional f32 [N, d] residual; ``alpha``
+    ``x``: [num_cols, d] gather operand (bf16 or f32; a transpose half's
+    operand is already pre-scaled).  ``z``: optional f32 [num_rows, d]
+    residual; ``alpha``
     (default 0) and ``beta`` (default 1) are per-column constants.  Returns
     f32 [N, d].  A CPU operand runs the plain version; a CUDA operand
     launches K1.

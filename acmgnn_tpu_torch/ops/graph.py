@@ -75,6 +75,12 @@ def make_coo_op(mat: sp.spmatrix) -> CooOp:
     return CooOp(fwd=fwd, bwd=bwd, num_nodes=n, nnz=fwd.nnz)
 
 
+def permute_graph(adj: sp.spmatrix, perm: np.ndarray) -> sp.csr_matrix:
+    """``P A Pᵀ`` for the node permutation ``perm`` (node ``perm[i]``
+    becomes node i)."""
+    return sp.csr_matrix(adj)[perm][:, perm].tocsr()
+
+
 def row_normalize(mat: sp.spmatrix) -> sp.csr_matrix:
     """``D^-1 M`` row normalization; zero rows stay zero."""
     mat = sp.csr_matrix(mat, dtype=np.float64)
@@ -100,7 +106,7 @@ class Operators:
     is off.
     """
 
-    adj_low: Union[EllOp, CooOp]
+    adj_low: Union[EllOp, CooOp]   # or a rank's share of a sharded one
     x_agg: Optional[torch.Tensor] = None
 
     def to(self, device) -> "Operators":

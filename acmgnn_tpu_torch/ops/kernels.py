@@ -28,7 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("spmm", "attention", "coo", "rocauc")
+SOURCES = ("spmm", "attention", "coo", "rocauc", "halo")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,17 +60,22 @@ _SIGNATURES = {
                             _I, _I, _I, _F, _P],
     },
     "coo": {
-        # row, col, val, nnz, slice_nnz, span_rows, span_first, span_last,
-        # n_span, empty_rows, n_empty, x, z, alpha, beta, carry, out,
-        # n_rows, d, stream
-        "acm_k5_coo_spmm": [_P, _P, _P, _L, _I, _P, _P, _P, _I, _P, _I, _P,
-                            _P, _P, _P, _P, _P, _I, _I, _P],
+        # row, col, val, nnz, slice_nnz, slice_offset, span_rows,
+        # span_first, span_last, n_span, empty_rows, n_empty, x, z, alpha,
+        # beta, carry, out, n_rows, d, stream
+        "acm_k5_coo_spmm": [_P, _P, _P, _L, _I, _I, _P, _P, _P, _I, _P, _I,
+                            _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "rocauc": {
         "acm_k4_tile_size": [],
         # s_sorted, order, packed, n, n_cols, n_masks, n_tiles, scratch,
         # out, stream
         "acm_k4_auc_rank_pass": [_P, _P, _P, _L, _I, _I, _L, _P, _P, _P],
+    },
+    "halo": {
+        # x, sign, pre_scale, rows, d, out_bf16, own, send_idx, n_send_rows,
+        # send, stream
+        "acm_k6_halo_pack": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
     },
 }
 

@@ -2,7 +2,10 @@
 
 Counterpart of ``acmgnn_tpu/ops/spmm.py``.  Every product is one call
 of K1 on an ``EllOp`` (``ops/ell.py``) or of K5 on a ``CooOp``
-(``ops/coo.py``); both kernels share one per-column epilogue.
+(``ops/coo.py``); both kernels share one per-column epilogue.  On a
+rank's share of a sharded operator (``parallel/sharded.py``) the product
+packs and exchanges the operand rows first, and the operands, residuals
+and results are the rank's ``[rows_per_part, d]`` slabs.
 ``spmm_multi`` fuses any number of operands that share the operator into
 one traversal; its epilogue writes the high-pass ``z - Âz`` directly
 (subtracting from the f32 ``z``, not its gather-dtype copy), and its
@@ -20,8 +23,16 @@ import torch
 from acmgnn_tpu_torch.ops.coo import coo_spmm
 from acmgnn_tpu_torch.ops.ell import column_constants, row_gather_spmm
 from acmgnn_tpu_torch.ops.graph import CooOp, EllOp
+from acmgnn_tpu_torch.parallel.sharded import (
+    ShardedCooOp,
+    ShardedEllOp,
+    sharded_ell_spmm,
+    sharded_ell_spmm_transpose,
+    sharded_spmm,
+    sharded_spmm_transpose,
+)
 
-SparseOp = Union[EllOp, CooOp]
+SparseOp = Union[EllOp, CooOp, ShardedEllOp, ShardedCooOp]
 
 
 def spmm_transpose(op: SparseOp, g: torch.Tensor, sign=None,
@@ -31,9 +42,17 @@ def spmm_transpose(op: SparseOp, g: torch.Tensor, sign=None,
 
     On an ``EllOp`` the operand is cast to the gather dtype, then
     pre-scaled in f32 and rounded once more (the JAX package's rounding
-    order); a ``CooOp`` gathers f32 over its transpose triplets.  ``sign``
-    (±1 per column) is exact in any float format.
+    order); a ``CooOp`` gathers f32 over its transpose triplets.  A
+    sharded ELL operator pre-scales in f32 and rounds once, as the JAX
+    package's sharded path does.  ``sign`` (±1 per column) is exact in any
+    float format.
     """
+    if isinstance(op, ShardedEllOp):
+        return sharded_ell_spmm_transpose(op, g.float(), sign, residual,
+                                          residual_cols)
+    if isinstance(op, ShardedCooOp):
+        return sharded_spmm_transpose(op, g.float(), sign, residual,
+                                      residual_cols)
     x = g if sign is None else g * column_constants(sign, g.device)
     if isinstance(op, CooOp):
         return coo_spmm(op.bwd, x.float(), z=residual, alpha=residual_cols)
@@ -54,7 +73,12 @@ class _FusedGather(torch.autograd.Function):
         z_cat = z_cat.float()
         alpha = tuple(1.0 if hp else 0.0 for hp in hp_cols)
         beta = tuple(-1.0 if hp else 1.0 for hp in hp_cols)
-        if isinstance(op, CooOp):
+        if isinstance(op, ShardedEllOp):
+            out = sharded_ell_spmm(op, z_cat, z=z_cat, alpha=alpha,
+                                   beta=beta)
+        elif isinstance(op, ShardedCooOp):
+            out = sharded_spmm(op, z_cat, z=z_cat, alpha=alpha, beta=beta)
+        elif isinstance(op, CooOp):
             out = coo_spmm(op.fwd, z_cat, z=z_cat, alpha=alpha, beta=beta)
         else:
             out = row_gather_spmm(op.fwd, z_cat.to(op.gather_dtype), z=z_cat,

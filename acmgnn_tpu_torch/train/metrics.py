@@ -1,6 +1,12 @@
 """Masked evaluation metrics on the device — counterpart of
 ``acmgnn_tpu/train/metrics.py``.
 
+On the sharded path (``make_split_runner`` with a process group) each
+rank holds a slab of the nodes: a loss takes ``count``, the mask's
+all-reduced node count, and returns this rank's share of the global mean
+(the local masked sum over ``count``; the shares sum to the mean), and an
+accuracy all-reduces ``masked_correct`` counts.
+
 The ROC-AUC is the Mann-Whitney statistic with average-rank ties
 (``sklearn.metrics.roc_auc_score`` on each mask's subset), for several
 masks over one score sort.  ``torch.sort`` orders the scores; the rank
@@ -20,30 +26,41 @@ from acmgnn_tpu_torch.ops import kernels
 MAX_MASKS = 7
 
 
+def masked_correct(logits: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Masked nodes whose argmax matches the label (int64 count)."""
+    if labels.ndim > 1 and labels.shape[-1] > 1:
+        raise ValueError("accuracy got a [N, C] multilabel matrix; it is "
+                         "undefined for multilabel targets")
+    return ((logits.argmax(dim=-1) == labels) & mask).sum()
+
+
 def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """Fraction of masked nodes whose argmax matches the label."""
-    if labels.ndim > 1 and labels.shape[-1] > 1:
-        raise ValueError("masked_accuracy got a [N, C] multilabel matrix; "
-                         "accuracy is undefined for multilabel targets")
-    correct = (logits.argmax(dim=-1) == labels) & mask
-    return correct.sum() / mask.sum().clamp_min(1)
+    return masked_correct(logits, labels, mask) / mask.sum().clamp_min(1)
+
+
+def _mean_over(total: torch.Tensor, mask: torch.Tensor, count):
+    return total / (mask.sum().clamp_min(1) if count is None else count)
 
 
 def masked_nll(log_probs: torch.Tensor, labels: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
-    """Mean negative log-likelihood over masked nodes (torch NLLLoss)."""
+               mask: torch.Tensor, count=None) -> torch.Tensor:
+    """Mean negative log-likelihood over masked nodes (torch NLLLoss);
+    with ``count`` (all-reduced) this rank's share of the global mean."""
     picked = log_probs.gather(1, labels[:, None].long())[:, 0]
-    return -(picked * mask).sum() / mask.sum().clamp_min(1)
+    return _mean_over(-(picked * mask).sum(), mask, count)
 
 
 def masked_bce_with_logits(logits: torch.Tensor, targets_onehot: torch.Tensor,
-                           mask: torch.Tensor) -> torch.Tensor:
+                           mask: torch.Tensor, count=None) -> torch.Tensor:
     """torch BCEWithLogitsLoss, mean over masked rows and all columns, in
-    the ``max(x, 0) - x·t + log1p(exp(-|x|))`` form."""
+    the ``max(x, 0) - x·t + log1p(exp(-|x|))`` form; ``count`` as in
+    ``masked_nll``."""
     x, t = logits, targets_onehot
     per_elt = torch.clamp_min(x, 0) - x * t + torch.log1p(torch.exp(-x.abs()))
-    return (per_elt.mean(dim=-1) * mask).sum() / mask.sum().clamp_min(1)
+    return _mean_over((per_elt.mean(dim=-1) * mask).sum(), mask, count)
 
 
 def is_multilabel(labels: torch.Tensor) -> bool:

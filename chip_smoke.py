@@ -42,6 +42,33 @@ Phases (any failure exits non-zero and prints no result):
       over alternating pairs of full-length sequential runs;
    c. card against CPU on a small genius stand-in (joint ELL and joint
       COO over 40 epochs, sequential with an early stop that fires).
+6. The sharded path (the graph row-partitioned over ranks; K6 packs each
+   rank's operand slab before the exchange, K1/K5 aggregate its local
+   half):
+   a. the headline graph partitioned over 4 ranks in this process, with
+      all-gather and with halo exchange: K6 bit-equal to its plain
+      version on every rank's slabs (widths 7, 8, 4, with and without
+      pre-scale and sign, bf16 and f32); each rank's receive buffer
+      assembled by hand from the four packs, then K1 and K5 on every
+      local half per element as in phase 2; rank 0 timed against the
+      plain versions and ``torch.sparse.mm``; then K6 at world size 1
+      (phase b's shapes);
+   b. world size 1 over NCCL: ``run_experiment_sharded`` against the
+      single-chip port (f32, dropout 0, 10 epochs, parameters within
+      1e-4), then the headline configuration timed with launch counts and
+      a profiler window, beside phase 3;
+   c. world size 4 on the one card (four processes, gloo on CUDA tensors
+      staged through the host, a ``FileStore``) on a 20k-node
+      twitch-shaped graph (labels a function of the features, lr 1e-3,
+      no weight decay: a configuration that does not amplify rounding):
+      every rank's bf16 halo receive buffer against the four ranks' packs
+      bit for bit; all-gather and halo × ELL and COO in f32, 20 epochs
+      each, against the single-chip port (parameters within 1e-4, equal
+      epochs); each halo run against the all-gather run of its format and
+      dtype, bf16 ELL included (within 1e-4); the rows each rank sends and
+      receives per SpMM; how far two summation orders of the single-chip
+      port part there after 20 epochs; and, for the record, gloo's own
+      handling of CUDA tensors without the staging.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -143,10 +170,11 @@ def k1_order_replay(half, x, z, alpha, beta):
     lane = torch.arange(32, device=dev)
     beg, end = half.indptr[:-1, None], half.indptr[1:, None]
     acc = torch.zeros(n, 32, d, device=dev)
+    zero_row = x.shape[0]          # the appended zero row of xf
     for k in range(-(-int(deg.max()) // 32)):
         e = beg + 32 * k + lane[None]
         idx = torch.where(e < end, half.indices[
-            e.clamp(max=half.indices.numel() - 1)].long(), n)
+            e.clamp(max=half.indices.numel() - 1)].long(), zero_row)
         acc = acc + xf[idx]
     for off in (16, 8, 4, 2, 1):
         acc = acc + acc[:, lane ^ off]
@@ -558,12 +586,13 @@ def sequential_counts(bodies, gather, input_width):
 
 
 def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
-               profile=True):
-    """One path through the user's entry points: ``prepare_data``,
-    ``build_model``, a warm-up run (``cfg.epochs``), then a timed run of
-    ``timed_epochs``; steady ms per loop body, finite losses, the best
-    split result, every launch count against ``expected(bodies)``, and a
-    profiler window.  Returns (counts, ms per body, timed result)."""
+               profile=True, group=None):
+    """One path through the user's entry points: ``prepare_data`` (with
+    ``group``, a process group: ``prepare_sharded_data`` and this rank's
+    slabs), ``build_model``, a warm-up run (``cfg.epochs``), then a timed
+    run of ``timed_epochs``; steady ms per loop body, finite losses, the
+    best split result, every launch count against ``expected(bodies)``,
+    and a profiler window.  Returns (counts, ms per body, timed result)."""
     import torch
 
     from acmgnn_tpu_torch.ops import kernels
@@ -571,22 +600,29 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
         build_model,
         make_split_runner,
         prepare_data,
+        prepare_sharded_data,
     )
 
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    data, ops, x, y, y1h, nclass = prepare_data(data, cfg)
+    if group is None:
+        data, ops, x, y, y1h, nclass = prepare_data(data, cfg)
+        masks = tuple(torch.from_numpy(m).cuda() for m in masks_np)
+    else:
+        prep = prepare_sharded_data(data, cfg, group=group)
+        ops, x, y, y1h, nclass = (prep.ops, prep.x, prep.labels,
+                                  prep.labels_onehot, prep.nclass)
+        masks = tuple(prep.place(m) for m in masks_np)
     torch.cuda.synchronize()
     t_prep = time.perf_counter() - t0
     model = build_model(cfg, x.shape[1], nclass)
-    masks = tuple(torch.from_numpy(m).cuda() for m in masks_np)
-    warm = make_split_runner(model, cfg)
+    warm = make_split_runner(model, cfg, group=group)
     _, warm_state = warm(ops, x, y, masks, seed=1, return_state=True,
                          labels_onehot=y1h)
     torch.cuda.synchronize()
     timed = make_split_runner(model, dataclasses.replace(
-        cfg, epochs=timed_epochs))
+        cfg, epochs=timed_epochs), group=group)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res, state = timed(ops, x, y, masks, seed=2, return_state=True,
@@ -598,7 +634,7 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
     ms_epoch = 1e3 * dt / state.epoch
     losses = torch.cat([warm_state.train_losses, state.train_losses]).cpu()
     loop = "joint iterations" if cfg.joint else "sequential epochs"
-    print(f"{tag} prepare_data {t_prep:.1f} s; {bodies} {loop}; steady "
+    print(f"{tag} prepare {t_prep:.1f} s; {bodies} {loop}; steady "
           f"{ms_epoch:.3f} ms/epoch over {state.epoch}; epochs_run "
           f"{res.epochs_run} of {timed_epochs} (early_stopping "
           f"{cfg.early_stopping}); peak "
@@ -615,8 +651,9 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
         fail(f"{tag} launch counts {counts} != expected {want}")
     if profile:
         prof_cfg = dataclasses.replace(cfg, epochs=PROFILE_EPOCHS)
-        phase_profile(tag, lambda: make_split_runner(model, prof_cfg)(
-            ops, x, y, masks, seed=3, labels_onehot=y1h),
+        phase_profile(tag, lambda: make_split_runner(
+            model, prof_cfg, group=group)(ops, x, y, masks, seed=3,
+                                          labels_onehot=y1h),
             PROFILE_EPOCHS + (1 if cfg.joint else 0))
     return counts, ms_epoch, res
 
@@ -719,6 +756,10 @@ def _kernel_group(name: str) -> str:
         return "K4 auc"
     if "coo_slices_kernel" in name or "coo_spans_kernel" in name:
         return "K5 coo"
+    if "halo_pack_kernel" in name:
+        return "K6 halo pack"
+    if "nccl" in low:
+        return "NCCL collectives"
     if "sort" in low:
         return "torch.sort"
     if any(k in low for k in ("cusparse", "csrmm", "spmm", "csr2")):
@@ -778,6 +819,19 @@ def phase_profile(tag, run, bodies):
     for us, cnt, key in sorted(top, reverse=True)[:10]:
         print(f"    {us / 1e3 / bodies:.4f} ms/epoch x{cnt / bodies:.1f} "
               f"{key[:90]}")
+    # the host side: where its time goes, and every call that makes it
+    # wait for the device (a wait stops the host from running ahead)
+    host = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if "cuda" not in str(e.device_type).lower()
+                   and e.self_cpu_time_total > 0), reverse=True)
+    print(f"{tag} host self time by operation (profiler on), top 8: "
+          + "; ".join(f"{key[:40]} {us / 1e3 / bodies:.3f} ms "
+                      f"x{cnt / bodies:.1f}" for us, cnt, key in host[:8]))
+    waits = [(us, cnt, key) for us, cnt, key in host if "ynchronize" in key]
+    print(f"{tag} host waits for the device per epoch: " + ("; ".join(
+        f"{key} x{cnt / bodies:.1f} {us / 1e3 / bodies:.3f} ms"
+        for us, cnt, key in waits) or "none"))
 
 
 def card_vs_cpu(tag, data, cfg, masks_np):
@@ -857,6 +911,669 @@ def phase_genius_card_vs_cpu():
         fail("[5c seq+es] the early stop did not fire")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the sharded path (B6: K6, the exchange, K1/K5 on local halves)
+# ---------------------------------------------------------------------------
+
+SHARDED_P = 4                    # ranks of phases 6a and 6c
+# phase 6c's runs: (exchange, format, gather dtype); the f32 runs are held
+# to the single-chip port, each halo run to its all-gather twin
+SHARDED_RUNS = (("allgather", "ell", "float32"), ("halo", "ell", "float32"),
+                ("allgather", "coo", "float32"), ("halo", "coo", "float32"),
+                ("allgather", "ell", "bfloat16"), ("halo", "ell", "bfloat16"))
+# phase 6c's twitch-shaped graph: ~20k nodes at the full graph's density,
+# non-negative features, labels a function of the features.  The parity
+# check trains it at lr 1e-3 without weight decay: with the stand-in's
+# random labels at the headline's lr 0.01 and weight decay 1e-3, Adam
+# steps of ±lr on weights near zero turn rounding into ~1e-2 parameter
+# differences within 20 epochs, whatever the path.  Phase 6c prints how
+# far two summation orders of the single-chip port part on the
+# configuration it checks; tests/test_torch_sharded.py pins that below
+# 1e-5 on the CPU.
+SMALL_TWITCH = dict(n=20_000, pairs=808_700)
+SHARDED_CHECK_EPOCHS = 20
+RANK_DEADLINE_S = 420
+K6_REPLACES = "acmgnn_tpu/parallel/sharded.py:493"
+K1_LOCAL_REPLACES = "acmgnn_tpu/parallel/sharded.py:450"
+K5_LOCAL_REPLACES = "acmgnn_tpu/parallel/sharded.py:614"
+
+
+def sharded_counts(bodies):
+    """Launches a sharded joint run of the headline implies: K6 packs the
+    operand of every product before K1 (the hoist's input gather at
+    set-up included), K2/K3 as on one card."""
+    out = joint_counts(bodies, "k1_spmm", 7)
+    out.update({f"k6_pack_w{d}": out[f"k1_spmm_w{d}"] for d in (7, 8, 4)})
+    return out
+
+
+def _slab_of(t, boundaries, rpp, p):
+    """Rank p's zero-padded ``[rpp, d]`` slab of a ``[N, d]`` tensor."""
+    import torch
+
+    r0, r1 = int(boundaries[p]), int(boundaries[p + 1])
+    out = torch.zeros(rpp, t.shape[1], dtype=t.dtype, device=t.device)
+    out[: r1 - r0] = t[r0:r1]
+    return out
+
+
+def _k6_bound(rows, d, n_send, gsz, pre):
+    """K6's bytes: the slab (and pre-scale) and send lists read once, own
+    and send rows written once; one multiply per element."""
+    nbytes = 4 * rows * d + (4 * rows if pre else 0) + 4 * n_send \
+        + gsz * (rows + n_send) * d
+    return bound(nbytes, 2 * rows * d)
+
+
+def _local_csr(half):
+    """f32 ``torch.sparse_csr_tensor`` of a rank's half over its receive
+    buffer, rows in the half's stored order (the library yardstick)."""
+    import torch
+
+    if hasattr(half, "indptr"):
+        crow, col = half.indptr, half.indices.long()
+        vals = (half.vals if half.vals is not None
+                else torch.ones(col.numel(), device=col.device))
+    else:
+        counts = torch.bincount(half.row.long(), minlength=half.num_rows)
+        crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+        col, vals = half.col.long(), half.val
+    return torch.sparse_csr_tensor(crow, col, vals,
+                                   size=(half.num_rows, half.num_cols),
+                                   check_invariants=False)
+
+
+def _check_k6(xs, out_dtype, pre, sign, send_idx, what):
+    """K6 against ``halo_pack_plain``, bit for bit; returns (own, send,
+    max |K6 - plain|)."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain
+
+    own = torch.empty(xs.shape, dtype=out_dtype, device=xs.device)
+    send = halo_pack(xs, own, pre_scale=pre, sign=sign, send_idx=send_idx)
+    own_p = torch.empty_like(own)
+    send_p = halo_pack_plain(xs, own_p, pre, sign, send_idx)
+    torch.cuda.synchronize()
+    err = float((own.float() - own_p.float()).abs().max())
+    if send is not None:
+        err = max(err, float((send.float() - send_p.float()).abs().max()))
+    if not torch.equal(own, own_p) or (
+            send is not None and not torch.equal(send, send_p)):
+        fail(f"{what}: K6 differs from its plain version")
+    return own, send, err
+
+
+def phase_sharded_kernels(adj, feats):
+    """[6a] The headline graph partitioned over 4 ranks in this one
+    process, with all-gather and with halo exchange forced: K6 on every
+    rank's slabs bit-equal to its plain version (and at widths 7, 8, 4
+    with and without pre-scale and sign), each rank's receive buffer
+    assembled by hand from the four packs, then K1 and K5 on every rank's
+    local half against their plain versions per element (K1 also against
+    its summation order replayed); rank 0 timed.  Then K6 at world size 1
+    (phase 6b's shapes), checked and timed the same way."""
+    import torch
+
+    from acmgnn_tpu_torch.data.registry import row_normalize_features
+    from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain
+    from acmgnn_tpu_torch.ops.ell import row_gather_spmm, \
+        row_gather_spmm_plain
+    from acmgnn_tpu_torch.ops.graph import row_normalized_adjacency
+    from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain
+    from acmgnn_tpu_torch.parallel.sharded import (
+        make_sharded_coo_op,
+        make_sharded_ell_op,
+    )
+
+    dev = torch.device("cuda")
+    a_hat = row_normalized_adjacency(adj)
+    n = adj.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x_in = torch.from_numpy(row_normalize_features(feats)).to(dev)
+    cases = _spmm_cases(n, gen, x_in)
+    sign4 = [-1.0 if h else 1.0 for h in (0, 0, 1, 1)]
+    rows = []
+    for exchange in ("allgather", "halo"):
+        t0 = time.perf_counter()
+        ell, bnd = make_sharded_ell_op(a_hat, SHARDED_P, None,
+                                       exchange=exchange,
+                                       gather_dtype=torch.bfloat16)
+        coo, _ = make_sharded_coo_op(a_hat, SHARDED_P, None,
+                                     exchange=exchange, boundaries=bnd)
+        ell = [op.to(dev) for op in ell]
+        coo = [op.to(dev) for op in coo]
+        rpp = ell[0].rows_per_part
+        print(f"[6a] P={SHARDED_P} {exchange}: rows_per_part {rpp}, receive "
+              f"buffer {ell[0].exchange_rows()} rows, halo_pad "
+              f"{ell[0].halo_pad}; rows sent/received per product by rank "
+              f"{[(op.rows_sent, op.rows_received) for op in ell]} (host "
+              f"build of both formats {time.perf_counter() - t0:.1f} s)")
+        tag = f"@P{SHARDED_P}-{exchange}"
+        for ops, fmt in ((ell, "ell"), (coo, "coo")):
+            for (x, z, alpha, beta, tr), case_sign in zip(
+                    cases, (None, None, sign4)):
+                # _spmm_cases' transpose operand carries the sign already;
+                # here K6 applies it to the raw cotangent
+                if tr:
+                    x = z
+                d = x.shape[1]
+                a = tuple(alpha or (0.0,) * d)
+                b = tuple(beta or (1.0,) * d)
+                packs, k6_err = [], 0.0
+                for p, op in enumerate(ops):
+                    half = op.bwd if tr else op.fwd
+                    own, send, err = _check_k6(
+                        _slab_of(x, bnd, rpp, p), op.gather_dtype,
+                        getattr(half, "pre_scale", None), case_sign,
+                        op.send_idx_t if tr else op.send_idx,
+                        f"k6_pack_w{d}{tag} rank {p}")
+                    packs.append((own, send))
+                    k6_err = max(k6_err, err)
+                worst = 0.0
+                for p, op in enumerate(ops):
+                    half = op.bwd if tr else op.fwd
+                    send_idx = op.send_idx_t if tr else op.send_idx
+                    if send_idx is None:
+                        recv = torch.cat([own for own, _ in packs])
+                    else:    # slot q holds what rank q sent to rank p
+                        pad = op.halo_pad_t if tr else op.halo_pad
+                        recv = torch.cat([packs[p][0]] + [
+                            packs[q][1].view(SHARDED_P, pad, d)[p]
+                            for q in range(SHARDED_P)])
+                    zs = None if z is None else _slab_of(z, bnd, rpp, p)
+                    if fmt == "ell":
+                        got = row_gather_spmm(half, recv, z=zs, alpha=alpha,
+                                              beta=beta)
+                        want = row_gather_spmm_plain(half, recv, zs, a, b)
+                        absref = row_gather_spmm_plain(
+                            half, recv.abs(), _abs(zs), _abs(a), _abs(b))
+                        terms = _ell_row_terms(half)
+                    else:
+                        got = coo_spmm(half, recv, z=zs, alpha=alpha,
+                                       beta=beta)
+                        want = coo_spmm_plain(half, recv, zs, a, b)
+                        absref = coo_spmm_plain(
+                            dataclasses.replace(half, val=half.val.abs()),
+                            recv.abs(), _abs(zs), _abs(a), _abs(b))
+                        terms = _coo_row_terms(half)
+                    name = f"{'k1_spmm' if fmt == 'ell' else 'k5_coo'}_w{d}"
+                    worst = max(worst, spmm_err(
+                        got, want, absref, terms + int(z is not None),
+                        f"{name}{tag} rank {p}"))
+                    if fmt == "ell" and not torch.equal(got, k1_order_replay(
+                            half, recv, zs if any(a) else None, a, b)):
+                        fail(f"{name}{tag} rank {p}: K1 differs from its "
+                             f"own summation order replayed")
+                    if p == 0:
+                        rank0 = (half, recv, zs, terms)
+                half, recv, zs, terms = rank0
+                kern = row_gather_spmm if fmt == "ell" else coo_spmm
+                plain = (row_gather_spmm_plain if fmt == "ell"
+                         else coo_spmm_plain)
+                ms = time_ms(lambda: kern(half, recv, z=zs, alpha=alpha,
+                                          beta=beta), 50)
+                plain_ms = time_ms(lambda: plain(half, recv, zs, a, b), 5)
+                lib = _local_csr(half)
+                recv_f = recv.float()
+                lib_ms = time_ms(lambda: torch.sparse.mm(lib, recv_f), 20)
+                nnz, ncols = int(terms.sum()), half.num_cols
+                gsz = recv.element_size()
+                if fmt == "ell":
+                    nbytes = (8 * (rpp + 1) + 4 * nnz + 4 * rpp
+                              + gsz * ncols * d + 4 * rpp * d
+                              + (4 * rpp * d if z is not None else 0)
+                              + (4 * rpp if half.row_scale is not None
+                                 else 0))
+                    b_ms, b_by = bound(nbytes, nnz * d + 2 * rpp * d)
+                else:
+                    extra = 4 * (3 * half.span_rows.numel()
+                                 + half.empty_rows.numel())
+                    nbytes = (12 * nnz + extra + 4 * ncols * d
+                              + 4 * rpp * d
+                              + (4 * rpp * d if z is not None else 0))
+                    b_ms, b_by = bound(nbytes, 2 * nnz * d + 2 * rpp * d)
+                rows.append(dict(
+                    name=name + tag, counter=name, route="cuda",
+                    source=("acmgnn_tpu_torch/csrc/spmm.cu" if fmt == "ell"
+                            else "acmgnn_tpu_torch/csrc/coo.cu"),
+                    replaces=(K1_LOCAL_REPLACES if fmt == "ell"
+                              else K5_LOCAL_REPLACES),
+                    max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    run=(exchange, fmt)))
+                print(f"  {name}{tag} (rank 0, {rpp} x {ncols} local half): "
+                      f"{ms:.4f} ms (plain {plain_ms:.3f}, torch.sparse.mm "
+                      f"f32 {lib_ms:.4f}, bound {b_ms:.4f} {b_by})")
+                if fmt == "ell":
+                    rows.append(_k6_row(ops[0], x, bnd, rpp, tr, case_sign,
+                                        tag, (exchange, fmt), k6_err))
+    ell1, bnd1 = make_sharded_ell_op(a_hat, 1, 0, gather_dtype=torch.bfloat16)
+    ell1 = ell1.to(dev)
+    for (x, z, _, _, tr), case_sign in zip(cases, (None, None, sign4)):
+        rows.append(_k6_row(ell1, z if tr else x, bnd1, n, tr, case_sign,
+                            "@P1", None, 0.0))
+    return rows
+
+
+def _k6_row(op, x, bnd, rpp, tr, path_sign, tag, run, err):
+    """K6 on rank 0's slab of ``x``: every combination of pre-scale and
+    sign bit-equal to the plain version in bf16 and f32, then the path's
+    own combination timed.  ``err``: the largest |K6 - plain| read on the
+    other ranks' slabs."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain
+
+    xs = _slab_of(x, bnd, rpp, 0)
+    d = xs.shape[1]
+    send_idx = op.send_idx_t if tr else op.send_idx
+    slab_scale = op.bwd.pre_scale if op.bwd.pre_scale is not None \
+        else op.fwd.row_scale
+    sign = [(-1.0) ** j for j in range(d)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for pre in (None, slab_scale):
+            for sg in (None, sign):
+                err = max(err, _check_k6(xs, dtype, pre, sg, send_idx,
+                                         f"k6_pack_w{d}{tag} combinations")[2])
+    pre = op.bwd.pre_scale if tr else None
+    own = torch.empty(rpp, d, dtype=op.gather_dtype, device=xs.device)
+    ms = time_ms(lambda: halo_pack(xs, own, pre_scale=pre, sign=path_sign,
+                                   send_idx=send_idx), 50)
+    plain_ms = time_ms(lambda: halo_pack_plain(xs, own, pre, path_sign,
+                                               send_idx), 5)
+    lib_ms = None
+    if pre is None and path_sign is None and send_idx is None:
+        lib_ms = time_ms(lambda: xs.to(op.gather_dtype), 50)
+    n_send = 0 if send_idx is None else send_idx.numel()
+    b_ms, b_by = _k6_bound(rpp, d, n_send, own.element_size(),
+                           pre is not None)
+    print(f"  k6_pack_w{d}{tag} (rank 0: {rpp} rows, {n_send} send rows): "
+          f"{ms:.4f} ms (plain {plain_ms:.3f}, library "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}, bound "
+          f"{b_ms:.4f} {b_by}); bit-equal to its plain version with and "
+          f"without pre-scale and sign, bf16 and f32")
+    return dict(name=f"k6_pack_w{d}{tag}", counter=f"k6_pack_w{d}",
+                route="cuda", source="acmgnn_tpu_torch/csrc/halo.cu",
+                replaces=K6_REPLACES, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, run=run)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def single_chip_reference(data, cfg):
+    """The single-chip port on the card under ``run_experiment_sharded``'s
+    protocol for one split: its masks and initial parameters.  Returns
+    (split result, parameters on the host)."""
+    import torch
+
+    from acmgnn_tpu_torch.data.splits import random_disassortative_splits
+    from acmgnn_tpu_torch.train.trainer import (
+        build_model,
+        make_split_runner,
+        prepare_data,
+    )
+
+    _, ops, x, y, _, nclass = prepare_data(data, cfg)
+    masks = random_disassortative_splits(
+        np.asarray(data.labels), nclass, rng=np.random.default_rng(cfg.seed))
+    model = build_model(cfg, x.shape[1], nclass, seed=cfg.seed)
+    res = make_split_runner(model, cfg)(
+        ops, x, y, tuple(torch.from_numpy(m).cuda() for m in masks),
+        seed=cfg.seed)
+    return res, {k: p.detach().cpu() for k, p in model.named_parameters()}
+
+
+def compare_to_single(tag, result, params, ref):
+    """A sharded run's result dict and parameters against
+    ``single_chip_reference``: parameters within 1e-4, equal epochs, test
+    metric within 1e-4."""
+    res, want = ref
+    worst = max(float((params[k] - want[k]).abs().max()) for k in want)
+    print(f"{tag} against the single-chip port: max |Δparam| {worst:.3e} "
+          f"(tolerance 1e-4); epochs {result['epochs_total']}/"
+          f"{res.epochs_run}; test {result['test_mean']:.6f}/"
+          f"{float(res.test_metric):.6f}")
+    if (worst > 1e-4 or result["epochs_total"] != res.epochs_run
+            or abs(result["test_mean"] - float(res.test_metric)) > 1e-4):
+        fail(f"{tag} disagrees with the single-chip port")
+
+
+def phase_sharded_main_path(adj, feats, labels, ms_single):
+    """[6b] World size 1 over NCCL: ``run_experiment_sharded`` against the
+    single-chip port (f32 gathers, dropout 0, 10 epochs), then the
+    headline configuration (bf16, dropout 0.5) timed with launch counts
+    and a profiler window, beside phase 3's single-chip number."""
+    import torch
+    import torch.distributed as dist
+
+    from acmgnn_tpu_torch.ops.graph import GraphData
+    from acmgnn_tpu_torch.parallel.multihost import init_distributed
+    from acmgnn_tpu_torch.train.trainer import run_experiment_sharded
+
+    init_distributed(backend="nccl", device="cuda",
+                     init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                     world_size=1)
+    try:
+        data = GraphData("twitch-gamers-scale-uniform", adj, feats, labels)
+        cfg = headline_config(dropout=0.0, spmm_dtype="float32", epochs=10,
+                              num_splits=1, seed=0)
+        t0 = time.perf_counter()
+        result, model = run_experiment_sharded(data, cfg, return_model=True)
+        torch.cuda.synchronize()
+        print(f"[6b] run_experiment_sharded, world size 1 (nccl), f32, "
+              f"{cfg.epochs} epochs: {time.perf_counter() - t0:.1f} s")
+        compare_to_single("[6b]", result, {
+            k: p.detach().cpu() for k, p in model.named_parameters()},
+            single_chip_reference(data, cfg))
+        counts, ms_epoch, _ = drive_path(
+            "[6b]", data, headline_config(), _masks(adj.shape[0]),
+            TIMED_EPOCHS, sharded_counts, group=dist.group.WORLD)
+        pairs = phase_sharded_overhead(data)
+    finally:
+        dist.destroy_process_group()
+    print(f"[6b] headline, world size 1 (nccl): {ms_epoch:.3f} ms/epoch "
+          f"beside the single-chip path's {ms_single:.3f} (phase 3, this "
+          f"call); alternating pairs: median {pairs[0]:.3f} single-chip, "
+          f"{pairs[1]:.3f} sharded ms/epoch")
+    return counts, ms_epoch
+
+
+def phase_sharded_overhead(data, pairs: int = 5):
+    """The headline configuration on one card through the single-chip
+    runner and through the sharded one (world size 1), ``TIMED_EPOCHS``
+    epochs a run, in alternating pairs: (median single-chip, median
+    sharded) ms/epoch.  Both share the host, so pairs cancel its drift."""
+    import torch
+    import torch.distributed as dist
+
+    from acmgnn_tpu_torch.train.trainer import (
+        build_model,
+        make_split_runner,
+        prepare_data,
+        prepare_sharded_data,
+    )
+
+    cfg = headline_config(epochs=TIMED_EPOCHS)
+    masks_np = _masks(data.num_nodes)
+    _, ops, x, y, _, nclass = prepare_data(data, cfg)
+    prep = prepare_sharded_data(data, cfg, group=dist.group.WORLD)
+    arms = {
+        "single": (make_split_runner(build_model(cfg, x.shape[1], nclass),
+                                     cfg),
+                   (ops, x, y, tuple(torch.from_numpy(m).cuda()
+                                     for m in masks_np))),
+        "sharded": (make_split_runner(
+            build_model(cfg, x.shape[1], nclass), cfg,
+            group=dist.group.WORLD),
+            (prep.ops, prep.x, prep.labels,
+             tuple(prep.place(m) for m in masks_np))),
+    }
+    ms = {k: [] for k in arms}
+    for i in range(pairs + 1):
+        for arm in (("single", "sharded") if i % 2 else ("sharded",
+                                                          "single")):
+            run, args = arms[arm]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(*args, seed=i)
+            torch.cuda.synchronize()
+            if i > 0:            # the first pair warms both arms up
+                ms[arm].append(1e3 * (time.perf_counter() - t0)
+                               / (TIMED_EPOCHS + 1))
+    print(f"[6b] alternating pairs, ms/epoch: single-chip "
+          f"{[round(v, 3) for v in ms['single']]}, sharded world size 1 "
+          f"{[round(v, 3) for v in ms['sharded']]}")
+    return float(np.median(ms["single"])), float(np.median(ms["sharded"]))
+
+
+def _small_twitch():
+    from acmgnn_tpu_torch.data.synthetic_scale import \
+        twitch_gamers_scale_graph
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    adj, feats, _ = twitch_gamers_scale_graph(0, **SMALL_TWITCH)
+    feats = np.abs(feats)
+    labels = (feats[:, 0] > np.median(feats[:, 0])).astype(np.int32)
+    return GraphData("twitch-shaped-20k", adj, feats, labels)
+
+
+def sharded_check_config(fmt, dtype="float32"):
+    """Phase 6c's configuration: the headline model at dropout 0, lr 1e-3,
+    no weight decay (see ``SMALL_TWITCH``)."""
+    return headline_config(dropout=0.0, lr=1e-3, weight_decay=0.0,
+                           spmm_dtype=dtype, epochs=SHARDED_CHECK_EPOCHS,
+                           num_splits=1, operator_format=fmt, seed=0)
+
+
+def _gloo_unstaged(rank, world):
+    """gloo's own handling of CUDA tensors, without the port's staging:
+    each collective of the path at f32 and bf16, written into a view of a
+    larger buffer, on values exact in bf16; {collective dtype: ok}."""
+    import torch
+    import torch.distributed as dist
+
+    rows, d = 64, 8
+    base = torch.arange(rows * d, device="cuda").reshape(rows, d) % 8
+
+    def val(src, dst, dtype):
+        return (32 * src + 8 * dst + base).to(dtype)
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        buf = torch.full(((world + 1) * rows, d), -1.0, dtype=dtype,
+                         device="cuda")
+        dist.all_to_all_single(buf[rows:], torch.cat(
+            [val(rank, q, dtype) for q in range(world)]))
+        want = torch.cat([buf.new_full((rows, d), -1.0)]
+                         + [val(q, rank, dtype) for q in range(world)])
+        out[f"all_to_all_single {name}"] = torch.equal(buf.cpu(), want.cpu())
+        buf.fill_(-1.0)
+        dist.all_gather_into_tensor(buf[rows:], val(rank, rank, dtype))
+        want = torch.cat([buf.new_full((rows, d), -1.0)]
+                         + [val(q, q, dtype) for q in range(world)])
+        out[f"all_gather_into_tensor {name}"] = torch.equal(buf.cpu(),
+                                                            want.cpu())
+        t = val(rank, 0, dtype)
+        dist.all_reduce(t)
+        want = sum(val(q, 0, torch.float32) for q in range(world)).to(dtype)
+        out[f"all_reduce {name}"] = torch.equal(t.cpu(), want.cpu())
+    return out
+
+
+def _halo_exchange_rows(data, rank, world):
+    """This rank's bf16 halo receive buffers, filled by the path's staged
+    ``all_to_all``, against the same rows assembled from every rank's K6
+    pack in this process: the rows that differ, forward and transpose."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.graph import row_normalized_adjacency
+    from acmgnn_tpu_torch.ops.halo import halo_pack
+    from acmgnn_tpu_torch.parallel.sharded import (
+        make_sharded_ell_op,
+        receive_buffer,
+    )
+
+    ops, b = make_sharded_ell_op(row_normalized_adjacency(data.adj), world,
+                                 None, exchange="halo",
+                                 gather_dtype=torch.bfloat16)
+    ops = [op.to("cuda") for op in ops]
+    rpp = ops[0].rows_per_part
+    gen = torch.Generator().manual_seed(6)     # the same x on every rank
+    bad = []
+    for tr, sign in ((False, None), (True, [1.0, 1.0, -1.0, -1.0])):
+        x = torch.randn(data.num_nodes, 4 if tr else 8, generator=gen).cuda()
+        got = receive_buffer(ops[rank], _slab_of(x, b, rpp, rank), tr, sign)
+        packs = []
+        for q, op in enumerate(ops):
+            own = torch.empty(rpp, x.shape[1], dtype=torch.bfloat16,
+                              device="cuda")
+            send = halo_pack(_slab_of(x, b, rpp, q), own,
+                             pre_scale=(op.bwd if tr else op.fwd).pre_scale,
+                             sign=sign,
+                             send_idx=op.send_idx_t if tr else op.send_idx)
+            packs.append((own, send))
+        pad = ops[0].halo_pad_t if tr else ops[0].halo_pad
+        want = torch.cat([packs[rank][0]] + [
+            packs[q][1].view(world, pad, -1)[rank] for q in range(world)])
+        bad.append(int((got != want).any(dim=1).sum()))
+    return bad
+
+
+def _sharded_rank(rank, world, store_path, out_dir):
+    """One rank of phase 6c (a process of its own on the one card): the
+    exchange checks, then every run of ``SHARDED_RUNS`` through
+    ``run_experiment_sharded``, its parameters and launch counts written
+    for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from acmgnn_tpu_torch.ops import kernels
+    from acmgnn_tpu_torch.parallel.multihost import init_distributed
+    from acmgnn_tpu_torch.train.trainer import run_experiment_sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", device="cuda", rank=rank,
+                     world_size=world,
+                     store=dist.FileStore(store_path, world))
+    data = _small_twitch()
+    torch.save(dict(unstaged=_gloo_unstaged(rank, world),
+                    exchange=_halo_exchange_rows(data, rank, world)),
+               f"{out_dir}/checks-rank{rank}.pt")
+    for exchange, fmt, dtype in SHARDED_RUNS:
+        kernels.reset_launches()
+        result, model = run_experiment_sharded(
+            data, sharded_check_config(fmt, dtype), exchange=exchange,
+            return_model=True)
+        torch.save(dict(result=result, launches=dict(kernels.launches),
+                        params={k: p.detach().cpu()
+                                for k, p in model.named_parameters()}),
+                   f"{out_dir}/{exchange}-{fmt}-{dtype}-rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def phase_sharded_gloo():
+    """[6c] World size 4 on the one card: four processes joined by gloo on
+    CUDA tensors over a ``FileStore``.  The bf16 halo exchange checked
+    row for row; each run of ``SHARDED_RUNS`` trained for
+    ``SHARDED_CHECK_EPOCHS`` epochs of ``sharded_check_config``, the f32
+    ones against the single-chip port on the card, each halo run against
+    its all-gather twin.  Returns each run's rank-0 launch counts."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from acmgnn_tpu_torch.ops.graph import row_normalized_adjacency
+    from acmgnn_tpu_torch.parallel.sharded import make_sharded_ell_op
+
+    data = _small_twitch()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_sharded_rank,
+                                 args=(SHARDED_P, f"{tmp}/store", tmp),
+                                 nprocs=SHARDED_P, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > RANK_DEADLINE_S:
+                    fail(f"[6c] the ranks did not finish in "
+                         f"{RANK_DEADLINE_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        print(f"[6c] {SHARDED_P} ranks (gloo on CUDA tensors staged through "
+              f"the host, one card), graph N={data.num_nodes} "
+              f"nnz={data.adj.nnz}, {len(SHARDED_RUNS)} runs of "
+              f"{SHARDED_CHECK_EPOCHS} epochs: "
+              f"{time.perf_counter() - t0:.1f} s with start-up")
+        checks = [torch.load(f"{tmp}/checks-rank{r}.pt")
+                  for r in range(SHARDED_P)]
+        bad = [c["exchange"] for c in checks]
+        print(f"[6c] bf16 halo receive buffers (forward, transpose) against "
+              f"the four ranks' K6 packs: rows differing by rank {bad}")
+        if any(any(b) for b in bad):
+            fail("[6c] the halo exchange delivered wrong rows")
+        print(f"[6c] gloo's own handling of CUDA tensors, not staged (the "
+              f"port stages every gloo collective on the card): rank 0 "
+              + ", ".join(f"{k} {'ok' if v else 'WRONG'}"
+                          for k, v in checks[0]["unstaged"].items()))
+        a_hat = row_normalized_adjacency(data.adj)
+        params = {}
+        for exchange, fmt, dtype in SHARDED_RUNS:
+            tag = f"[6c {exchange} {fmt} {dtype}]"
+            ranks = [torch.load(f"{tmp}/{exchange}-{fmt}-{dtype}-rank{r}.pt")
+                     for r in range(SHARDED_P)]
+            r0 = ranks[0]
+            for r in ranks[1:]:
+                if any(not torch.equal(r["params"][k], r0["params"][k])
+                       for k in r0["params"]):
+                    fail(f"{tag} the replicas' parameters differ")
+            if r0["result"]["devices"] != SHARDED_P:
+                fail(f"{tag} ran on {r0['result']['devices']} ranks")
+            if dtype == "float32":
+                compare_to_single(tag, r0["result"], r0["params"],
+                                  single_chip_reference(
+                                      data, sharded_check_config(fmt)))
+            ops, _ = make_sharded_ell_op(a_hat, SHARDED_P, None,
+                                         exchange=exchange)
+            print(f"{tag} rows sent/received per SpMM by rank "
+                  f"{[(op.rows_sent, op.rows_received) for op in ops]}; "
+                  f"{r0['result']['epoch_ms_avg']:.3f} ms/epoch with set-up "
+                  f"(gloo on one card copies every collective through the "
+                  f"host: not the path's speed); rank 0 launches "
+                  f"{json.dumps(r0['launches'], sort_keys=True)}")
+            counts[(exchange, fmt, dtype)] = r0["launches"]
+            params[(exchange, fmt, dtype)] = r0
+    for exchange, fmt, dtype in SHARDED_RUNS:
+        if exchange == "halo":
+            _halo_against_allgather(f"[6c halo {fmt} {dtype}]",
+                                    params[("halo", fmt, dtype)],
+                                    params[("allgather", fmt, dtype)])
+    phase_check_conditioning(data)
+    return counts
+
+
+def _halo_against_allgather(tag, halo, ag):
+    """The halo run against the all-gather run of the same format and
+    dtype: the same rows in the same order, so within 1e-4 (in fact
+    equal)."""
+    worst = max(float((halo["params"][k] - ag["params"][k]).abs().max())
+                for k in ag["params"])
+    print(f"{tag} against the all-gather run: max |Δparam| {worst:.3e} "
+          f"(tolerance 1e-4); epochs {halo['result']['epochs_total']}/"
+          f"{ag['result']['epochs_total']}; test "
+          f"{halo['result']['test_mean']:.6f}/{ag['result']['test_mean']:.6f}")
+    if (worst > 1e-4 or halo["result"]["epochs_total"]
+            != ag["result"]["epochs_total"]
+            or abs(halo["result"]["test_mean"]
+                   - ag["result"]["test_mean"]) > 1e-4):
+        fail(f"{tag} disagrees with the all-gather run")
+
+
+def phase_check_conditioning(data):
+    """How far two summation orders of the single-chip port (ELL, COO)
+    part on phase 6c's configuration: what the parity check would see of
+    a sharded path that summed in another order."""
+    (_, pe), (_, pc) = (single_chip_reference(data, sharded_check_config(fmt))
+                        for fmt in ("ell", "coo"))
+    worst = max(float((pe[k] - pc[k]).abs().max()) for k in pe)
+    print(f"[6c] single-chip ELL against single-chip COO (summation order "
+          f"only) after {SHARDED_CHECK_EPOCHS} epochs: max |Δparam| "
+          f"{worst:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -900,16 +1617,38 @@ def main() -> int:
                    launches=paths[key][0].get(row["counter"], 0))
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on its path")
+
+    s_rows = phase_sharded_kernels(adj, feats)
+    s1_counts, s_ms = phase_sharded_main_path(adj, feats, labels, ms_epoch)
+    s_counts = phase_sharded_gloo()
+    for row in s_rows:
+        run = row.pop("run")
+        if run is None:             # K6 at world size 1: phase 6b's shapes
+            row.update(path="sharded headline, world size 1 (nccl): "
+                            "launches phase 6b, timed phase 6a",
+                       launches=s1_counts.get(row["counter"], 0))
+        else:
+            dtype = "float32" if run[1] == "coo" else "bfloat16"
+            row.update(path=f"timed phase 6a: headline graph, {SHARDED_P} "
+                            f"ranks in one process, rank 0; launches phase "
+                            f"6c {run[0]} {run[1]} {dtype}: 20k-node graph, "
+                            f"{SHARDED_P} gloo ranks, {SHARDED_CHECK_EPOCHS} "
+                            f"epochs, rank 0",
+                       launches=s_counts[run + (dtype,)].get(
+                           row["counter"], 0))
+        if row["launches"] == 0:
+            fail(f"{row['name']} was not launched on its path")
     print(f"[done] {time.perf_counter() - t_start:.1f} s; main path "
           f"{ms_epoch:.3f} ms/epoch; genius joint ell "
           f"{paths['ell'][1]:.3f}, coo {paths['coo'][1]:.3f}, sequential "
           f"{paths['seq'][1]:.3f} ms/epoch; the stop-flag read "
-          f"{paths['stop_flag_ms']:+.3f} ms/epoch")
+          f"{paths['stop_flag_ms']:+.3f} ms/epoch; sharded headline, world "
+          f"size 1 {s_ms:.3f} ms/epoch")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in rows + g_rows]}))
+                                  for r in rows + g_rows + s_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -38,6 +38,7 @@ from acmgnn_tpu_torch.models.layers import (
 from acmgnn_tpu_torch.ops import kernels
 from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain, make_coo_half
 from acmgnn_tpu_torch.ops.ell import (
+    _build_half,
     make_ell_op,
     row_gather_spmm,
     row_gather_spmm_plain,
@@ -47,6 +48,7 @@ from acmgnn_tpu_torch.ops.graph import (
     make_coo_op,
     row_normalized_adjacency,
 )
+from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain
 from acmgnn_tpu_torch.ops.spmm import spmm_multi
 from acmgnn_tpu_torch.train.metrics import (
     auc_rank_pass,
@@ -119,6 +121,8 @@ def test_wrappers_refuse_a_device_without_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         auc_rank_pass(s, torch.empty(1, 50, dtype=torch.int64, device="meta"),
                       torch.empty(1, 50, dtype=torch.uint8, device="meta"), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        halo_pack(x, torch.empty_like(x, dtype=torch.bfloat16))
 
 
 def test_port_imports_no_jax():
@@ -262,6 +266,118 @@ def test_run_joint_card_matches_cpu_and_counts_launches(cuda):
 
 
 # ---------------------------------------------------------------------------
+# Rectangular halves (a rank's local operator in the sharded SpMM) and K6
+# ---------------------------------------------------------------------------
+
+
+def _rectangular(rows=150, cols=420, seed=3):
+    """A ``[rows, cols]`` block: rows without entries, a long row, and
+    columns no row references (as a rank's block of the operator over its
+    receive buffer)."""
+    rng = np.random.default_rng(seed)
+    dense = (rng.random((rows, cols)) < 0.04) * rng.uniform(0.1, 2.0,
+                                                            (rows, cols))
+    dense[[4, 9], :] = 0.0
+    dense[11, : cols // 2] = rng.uniform(0.1, 2.0, cols // 2)
+    dense[:, cols - 40:] = 0.0
+    return sp.csr_matrix(dense)
+
+
+def _rectangular_halves(mat):
+    """The block as a valued and as a row-scaled value-free ELL half, and
+    as a COO half."""
+    rows, cols = mat.shape
+    binary = (mat != 0).astype(np.float64)
+    deg = np.asarray(binary.sum(axis=1)).ravel()
+    scale = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
+    coo = sp.coo_matrix(mat)
+    order = np.lexsort((coo.col, coo.row))
+    return {
+        "ell_valued": (_build_half(mat), mat),
+        "ell_value_free": (_build_half(binary, scale, "post"),
+                           sp.diags(scale.astype(np.float32)) @ binary),
+        "coo": (make_coo_half(coo.row[order], coo.col[order],
+                              coo.data[order], rows, num_cols=cols), mat),
+    }
+
+
+@pytest.mark.parametrize("kind", ("ell_valued", "ell_value_free", "coo"))
+def test_rectangular_half_matches_scipy(kind):
+    """A ``[rows, cols]`` half gathers a ``[cols, d]`` operand and takes a
+    ``[rows, d]`` residual; the plain versions against scipy (f32 sums)."""
+    mat = _rectangular()
+    half, ref_mat = _rectangular_halves(mat)[kind]
+    assert (half.num_rows, half.num_cols) == mat.shape
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(mat.shape[1], 6)).astype(np.float32)
+    z = rng.normal(size=(mat.shape[0], 6)).astype(np.float32)
+    alpha, beta = (1.0, 0.0, 1.0, 0.0, 0.5, 1.0), (-1.0, 1.0, 2.0, 1.0, 1.0, -1.0)
+    spmm_fn = coo_spmm if kind == "coo" else row_gather_spmm
+    got = spmm_fn(half, torch.from_numpy(x), z=torch.from_numpy(z),
+                  alpha=alpha, beta=beta)
+    want = np.asarray(alpha) * z + np.asarray(beta) * (ref_mat @ x)
+    assert_close(got, torch.from_numpy(want.astype(np.float32)),
+                 int(np.diff(mat.indptr).max()) + 1, kind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("ell_valued", "ell_value_free", "coo"))
+@pytest.mark.parametrize("width", (4, 7, 8))
+def test_rectangular_half_card_matches_plain(cuda, kind, width):
+    """K1 and K5 on a rectangular half: operand rows != output rows."""
+    half, _ = _rectangular_halves(_rectangular())[kind]
+    half = half.to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    x = torch.randn(half.num_cols, width, generator=gen, device=cuda)
+    z = torch.randn(half.num_rows, width, generator=gen, device=cuda)
+    alpha = tuple(float(j % 2) for j in range(width))
+    beta = tuple(-1.0 if j % 2 else 1.0 for j in range(width))
+    if kind == "coo":
+        got = coo_spmm(half, x, z=z, alpha=alpha, beta=beta)
+        want = coo_spmm_plain(half, x, z, alpha, beta)
+    else:
+        got = row_gather_spmm(half, x, z=z, alpha=alpha, beta=beta)
+        want = row_gather_spmm_plain(half, x, z, alpha, beta)
+    torch.cuda.synchronize()
+    assert got.shape == (half.num_rows, width)
+    assert_close(got, want, 250, kind)
+
+
+def _halo_inputs(width, with_scale, with_sign, device, rows=1000, n_dest=4,
+                 halo_pad=64):
+    gen = torch.Generator().manual_seed(width)
+    x = torch.randn(rows, width, generator=gen) * 100
+    pre = torch.rand(rows, generator=gen) if with_scale else None
+    sign = ([(-1.0) ** j for j in range(width)] if with_sign else None)
+    send_idx = torch.randint(0, rows, (n_dest, halo_pad), generator=gen,
+                             dtype=torch.int32)
+    return (x.to(device), None if pre is None else pre.to(device), sign,
+            send_idx.to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+@pytest.mark.parametrize("width", (4, 7, 8, 64))
+@pytest.mark.parametrize("with_scale,with_sign", [(False, False), (True, False),
+                                                  (False, True), (True, True)])
+def test_k6_matches_plain(cuda, dtype, width, with_scale, with_sign):
+    """K6 against its plain version bit for bit: one f32 multiply per
+    factor, one rounding into the gather dtype, and the send rows copied
+    from the same values."""
+    x, pre, sign, send_idx = _halo_inputs(width, with_scale, with_sign, cuda)
+    own = torch.empty(x.shape, dtype=dtype, device=cuda)
+    own_plain = torch.empty_like(own)
+    send = halo_pack(x, own, pre_scale=pre, sign=sign, send_idx=send_idx)
+    send_plain = halo_pack_plain(x, own_plain, pre, sign, send_idx)
+    alone = torch.empty_like(own)
+    assert halo_pack(x, alone, pre_scale=pre, sign=sign) is None
+    torch.cuda.synchronize()
+    assert torch.equal(own, own_plain) and torch.equal(alone, own_plain)
+    assert send.shape == (send_idx.numel(), width)
+    assert torch.equal(send, send_plain)
+
+
+# ---------------------------------------------------------------------------
 # What K5 and K4 rely on, checked without a card
 # ---------------------------------------------------------------------------
 
@@ -306,6 +422,37 @@ def test_coo_half_partition_matches_its_definition(kind, slice_nnz):
     assert len(set(firsts)) == len(firsts) and len(set(lasts)) == len(lasts)
     if kind == "hub":
         assert max(last - f for f, last in spans.values()) >= 2
+
+
+def _row_block(whole, r0: int):
+    """Rows ``r0:`` of a COO half as a half of their own that keeps the
+    whole half's slice grid, and where its first triplet sits in it."""
+    lo = int(np.searchsorted(whole.row.numpy(), r0))
+    block = make_coo_half(whole.row.numpy()[lo:] - r0, whole.col.numpy()[lo:],
+                          whole.val.numpy()[lo:], whole.num_rows - r0,
+                          num_cols=whole.num_cols, nnz_offset=lo)
+    return block, lo
+
+
+@pytest.mark.parametrize("r0", (1, 4, 37, 101))
+def test_coo_row_block_keeps_the_whole_slice_grid(r0):
+    """A block of rows built with ``nnz_offset`` cuts its slices where the
+    whole half does: the same spanning rows over the same slices (shifted
+    by the slices before the block) and the same empty rows."""
+    whole = make_coo_op(_hub_matrix()).fwd
+    block, lo = _row_block(whole, r0)
+    shift = lo // whole.slice_nnz
+    keep = whole.span_rows.numpy() >= r0
+    assert block.span_rows.numpy().tolist() == (
+        whole.span_rows.numpy()[keep] - r0).tolist()
+    assert (block.span_first.numpy() + shift).tolist() == \
+        whole.span_first.numpy()[keep].tolist()
+    assert (block.span_last.numpy() + shift).tolist() == \
+        whole.span_last.numpy()[keep].tolist()
+    empty = whole.empty_rows.numpy()
+    assert block.empty_rows.numpy().tolist() == (empty[empty >= r0]
+                                                  - r0).tolist()
+    assert block.n_slices == whole.n_slices - shift
 
 
 def _auc_inputs(kind: str, n: int, seed: int = 0):
@@ -382,6 +529,23 @@ def test_k5_matches_plain(cuda, kind, width, hp):
         torch.cuda.synchronize()
         assert_close(got, want, n_terms, f"{kind} w{width}")
         assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r0", (1, 4, 1777))
+@pytest.mark.parametrize("width", (4, 8, 12))
+def test_k5_row_block_sums_as_the_whole(cuda, r0, width):
+    """K5 on a block of rows with its ``nnz_offset`` gives the whole
+    half's rows bit for bit (a rank's block of a sharded operator)."""
+    whole = make_coo_op(_hub_matrix(3000)).fwd
+    block, _ = _row_block(whole, r0)
+    x = torch.randn(whole.num_cols, width,
+                    generator=torch.Generator(device=cuda).manual_seed(r0),
+                    device=cuda)
+    got = coo_spmm(block.to(cuda), x)
+    want = coo_spmm(whole.to(cuda), x)[r0:]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,659 @@
+"""The port's sharded path against the JAX package's on a 4-device mesh.
+
+The port runs as 4 ranks of a gloo group on the CPU, each a process of
+``tests/_torch_sharded_worker.py`` (torch only) over a ``FileStore``
+under the test's temporary directory; the JAX package runs its sharded
+functions on 4 of conftest's 8 virtual CPU devices.  One world of 4 ranks
+runs every job of the module once (the ranks write their slabs, the tests
+compare them); a world of 2 runs the entry point again.
+
+Tolerances, stated where used: partitions, schedules and the plain pack
+exactly; sparse products per element ``1e-5·sqrt(row terms)·max(1,
+Σ|terms|)`` (f32 sums in another order); the model forward
+``1e-5·sqrt(reduction length)`` relative; 20 training epochs within
+``tests/test_torch_trainer.py``'s 1e-4 for f32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from acmgnn_tpu.data.registry import row_normalize_features as jax_rownorm
+from acmgnn_tpu.data.splits import indices_to_masks as jax_indices_to_masks
+from acmgnn_tpu.data.splits import (
+    random_disassortative_splits as jax_random_splits,
+)
+from acmgnn_tpu.ops.graph import permute_graph as jax_permute_graph
+from acmgnn_tpu.ops.graph import row_normalized_adjacency as jax_a_hat
+from acmgnn_tpu.ops.spmm import spmm as jax_spmm
+from acmgnn_tpu.parallel import partition as jpart
+from acmgnn_tpu.parallel.sharded import (
+    _pre_scale_block,
+    make_graph_mesh,
+    make_sharded_coo_op,
+    make_sharded_ell_op,
+    make_sharded_operators,
+    shard_node_array,
+    sharded_ell_spmm,
+    sharded_ell_spmm_transpose,
+    sharded_spmm,
+    sharded_spmm_transpose,
+)
+from acmgnn_tpu.train.config import TrainConfig as JaxTrainConfig
+from acmgnn_tpu.train.trainer import build_model as jax_build_model
+from acmgnn_tpu.train.trainer import make_split_runner as jax_split_runner
+from acmgnn_tpu_torch.data.splits import (
+    indices_to_masks,
+    random_disassortative_splits,
+)
+from acmgnn_tpu_torch.data.synthetic_scale import twitch_gamers_scale_graph
+from acmgnn_tpu_torch.models.convert import params_from_flax
+from acmgnn_tpu_torch.ops.ell import make_ell_op
+from acmgnn_tpu_torch.ops.graph import (
+    GraphData,
+    make_coo_op,
+    permute_graph,
+    row_normalized_adjacency,
+)
+from acmgnn_tpu_torch.ops.halo import halo_pack_plain
+from acmgnn_tpu_torch.parallel import partition as tpart
+from acmgnn_tpu_torch.parallel import sharded as tsharded
+from acmgnn_tpu_torch.parallel.multihost import init_distributed
+from acmgnn_tpu_torch.train.config import TrainConfig
+from acmgnn_tpu_torch.train.trainer import (
+    build_model,
+    make_split_runner,
+    prepare_data,
+    run_experiment_sharded,
+)
+
+WORKER = Path(__file__).parent / "_torch_sharded_worker.py"
+WORLD = 4
+TIMEOUT_S = 240
+
+# the headline configuration at test size (hidden cut to 16), f32 gathers
+# and dropout 0 for parity
+MODEL_CFG = dict(
+    model_type="acmgcnp", hidden=16, dropout=0.0, lr=0.01, weight_decay=1e-3,
+    epochs=20, early_stopping=0, selection="val_metric",
+    operator_format="ell", spmm_dtype="float32", joint=True,
+    hoist_first=True)
+SPMM_CASES = [(g, ex, fmt, dt) for g in ("small", "banded")
+              for ex in ("allgather", "halo") for fmt in ("ell", "coo")
+              for dt in ("float32", "bfloat16")]
+FORWARD_CASES = [(ex, fmt) for ex in ("allgather", "halo")
+                 for fmt in ("ell", "coo")]
+RUNNER_CASES = [("allgather", "ell"), ("halo", "coo")]
+
+
+def _banded():
+    """Ring lattice, i ~ i±1..3: a contiguous partition references only a
+    thin band of its neighbours (the JAX tests' banded graph)."""
+    n = 256
+    rows, cols = [], []
+    for i in range(n):
+        for d in (1, 2, 3):
+            rows += [i, (i + d) % n]
+            cols += [(i + d) % n, i]
+    adj = sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+    adj.sum_duplicates()
+    adj.data[:] = 1.0
+    return adj
+
+
+@pytest.fixture(scope="module")
+def graphs(small_graph):
+    adj, _, _ = small_graph
+    rng = np.random.default_rng(11)
+    out = {}
+    for name, a in (("small", adj), ("banded", _banded())):
+        a = sp.csr_matrix(a)
+        out[name] = dict(adj=a, x=rng.normal(size=(a.shape[0], 7)).astype(
+            np.float32), g=rng.normal(size=(a.shape[0], 4)).astype(np.float32))
+    return out
+
+
+@pytest.fixture(scope="module")
+def model_graph():
+    """Twitch-shaped, non-negative features (the fast LayerNorm variance
+    cancels on the stand-in's near-zero row sums: tests/test_torch_trainer.py)."""
+    adj, feats, labels = twitch_gamers_scale_graph(0, n=300, pairs=3000)
+    return adj, np.abs(feats), labels
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    return make_graph_mesh(jax.devices()[:WORLD])
+
+
+def _masks(n, seed=0):
+    perm = np.random.default_rng(seed).permutation(n)
+    m = np.zeros((3, n), bool)
+    m[0, perm[: n // 2]] = True
+    m[1, perm[n // 2: 3 * n // 4]] = True
+    m[2, perm[3 * n // 4:]] = True
+    return m
+
+
+def _jax_model(cfg_kw, adj, feats, labels, mesh, exchange, fmt):
+    """JAX's sharded operators, placed arrays and flax init, as its
+    ``run_experiment_sharded`` builds them."""
+    jcfg = JaxTrainConfig(**dict(cfg_kw, operator_format=fmt))
+    ops, b, rpp = make_sharded_operators(adj, mesh, pad_multiple=64,
+                                         exchange=exchange, fmt=fmt,
+                                         ell_hub_threshold=0)
+    x = shard_node_array(jax_rownorm(feats), b, rpp, mesh)
+    ops = ops.replace(x_agg=jax.jit(jax_spmm)(ops.adj_low, x))
+    nclass = int(labels.max()) + 1
+    model = jax_build_model(jcfg, nclass, int(x.shape[0]))
+    variables = jax.jit(model.init)(jax.random.key(0), x, ops)
+    return jcfg, model, variables, ops, x, b, rpp
+
+
+@pytest.fixture(scope="module")
+def jax_models(model_graph, mesh):
+    adj, feats, labels = model_graph
+    return {case: _jax_model(MODEL_CFG, adj, feats, labels, mesh, *case)
+            for case in FORWARD_CASES}
+
+
+def _spawn(tmp: Path, world: int, inputs: dict, jobs: list) -> list:
+    """Run ``jobs`` on ``world`` worker ranks; their outputs by rank."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    np.savez(tmp / "inputs.npz", **inputs)
+    task = dict(world=world, store=str(tmp / "store"), out=str(tmp),
+                inputs=str(tmp / "inputs.npz"), jobs=jobs)
+    (tmp / "task.json").write_text(json.dumps(task))
+    procs = [subprocess.Popen(
+        [sys.executable, str(WORKER), str(tmp / "task.json"), str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{out}"
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+
+
+def _graph_inputs(name, adj, **arrays):
+    out = {f"{name}_data": adj.data, f"{name}_indices": adj.indices,
+           f"{name}_indptr": adj.indptr,
+           f"{name}_shape": np.asarray(adj.shape)}
+    out.update({f"{name}_{k}": v for k, v in arrays.items()})
+    return out
+
+
+def _state_dict(variables):
+    return {k: v.numpy() for k, v in params_from_flax(
+        jax.tree_util.tree_map(np.asarray, variables["params"])).items()}
+
+
+EXPERIMENT_CFG = dict(MODEL_CFG, num_splits=2, epochs=12, seed=5)
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory, graphs, model_graph, jax_models):
+    """Every job of the module on 4 ranks, once."""
+    inputs = {}
+    for name, g in graphs.items():
+        inputs.update(_graph_inputs(name, g["adj"], x=g["x"], g=g["g"]))
+    adj, feats, labels = model_graph
+    inputs.update(_graph_inputs("model", sp.csr_matrix(adj), features=feats,
+                                labels=labels))
+    inputs["masks"] = _masks(adj.shape[0])
+    jobs = [dict(kind="spmm", key=f"spmm/{g}/{ex}/{fmt}/{dt}", graph=g,
+                 exchange=ex, fmt=fmt, dtype=dt)
+            for g, ex, fmt, dt in SPMM_CASES]
+    jobs += [dict(kind="spmm", key=f"spmm/{g}/auto/ell/float32", graph=g,
+                  exchange="auto", fmt="ell", dtype="float32")
+             for g in ("small", "banded")]
+    for ex, fmt in FORWARD_CASES:
+        prefix = f"params/{ex}/{fmt}/"
+        inputs.update({prefix + k: v for k, v in _state_dict(
+            jax_models[(ex, fmt)][2]).items()})
+        cfg = dict(MODEL_CFG, operator_format=fmt)
+        jobs.append(dict(kind="forward", key=f"forward/{ex}/{fmt}",
+                         graph="model", exchange=ex, cfg=cfg, params=prefix))
+        if (ex, fmt) in RUNNER_CASES:
+            jobs.append(dict(kind="runner", key=f"runner/{ex}/{fmt}",
+                             graph="model", exchange=ex, cfg=cfg,
+                             params=prefix, masks="masks"))
+    jobs.append(dict(kind="experiment", key="experiment", graph="model",
+                     exchange="auto", cfg=EXPERIMENT_CFG))
+    return _spawn(tmp_path_factory.mktemp("world4"), WORLD, inputs, jobs)
+
+
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory, model_graph):
+    adj, feats, labels = model_graph
+    inputs = _graph_inputs("model", sp.csr_matrix(adj), features=feats,
+                           labels=labels)
+    return _spawn(tmp_path_factory.mktemp("world2"), 2, inputs,
+                  [dict(kind="experiment", key="experiment", graph="model",
+                        exchange="auto", cfg=EXPERIMENT_CFG)])
+
+
+def _gather(ranks, key):
+    """The ranks' slabs of ``key``, stacked in rank order (the padded node
+    layout of the JAX package's sharded arrays)."""
+    return np.concatenate([r[key] for r in ranks], axis=0)
+
+
+def _spmm_close(got, want, mat, operand, what):
+    """Per element ``1e-5·sqrt(row terms)·max(1, Σ|terms|)``."""
+    absmat = abs(sp.csr_matrix(mat))
+    terms = np.diff(absmat.indptr)[:, None]
+    absref = absmat @ np.abs(operand.astype(np.float64))
+    tol = 1e-5 * np.sqrt(np.maximum(terms, 1)) * np.maximum(absref, 1.0)
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= tol).all(), f"{what}: worst err/tol {(err / tol).max():.3e}"
+
+
+# ---------------------------------------------------------------------------
+# Partition, schedule and pack: exact
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ("small", "banded", "model"))
+def test_partitions_match_jax(graphs, model_graph, name):
+    adj = model_graph[0] if name == "model" else graphs[name]["adj"]
+    for p in (1, 3, WORLD):
+        np.testing.assert_array_equal(tpart.partition_rows(adj, p),
+                                      jpart.partition_rows(adj, p))
+        for fn in ("degree_balanced_partition", "fennel_partition"):
+            part = getattr(tpart, fn)(adj, p)
+            np.testing.assert_array_equal(part, getattr(jpart, fn)(adj, p))
+            for got, want in zip(tpart.partition_to_perm(part, p),
+                                 jpart.partition_to_perm(part, p)):
+                np.testing.assert_array_equal(got, want)
+
+
+def test_pad_unpad_match_jax(graphs):
+    x = graphs["small"]["x"]
+    b = tpart.partition_rows(graphs["small"]["adj"], WORLD)
+    rpp = int(np.diff(b).max())
+    padded = tpart.pad_node_array(x, b, rpp)
+    np.testing.assert_array_equal(padded, jpart.pad_node_array(x, b, rpp))
+    np.testing.assert_array_equal(tpart.unpad_node_array(padded, b, rpp), x)
+
+
+@pytest.mark.parametrize("name", ("small", "banded"))
+def test_sharded_coo_blocks_match_jax(graphs, name):
+    """Each rank's triplets equal the unpadded prefix of JAX's blocks."""
+    a_hat = jax_a_hat(graphs[name]["adj"])
+    got = tpart.build_sharded_coo(a_hat, WORLD)
+    want = jpart.build_sharded_coo(a_hat, WORLD, pad_multiple=64)
+    for k in ("rows_per_part", "num_nodes", "nnz"):
+        assert got[k] == want[k], k
+    np.testing.assert_array_equal(got["boundaries"], want["boundaries"])
+    for keys in (("row_l", "col", "val"), ("row_l_t", "col_t", "val_t")):
+        for p in range(WORLD):
+            k = got[keys[0]][p].size
+            assert (want[keys[0]][p, k:] == want["rows_per_part"]).all()
+            for key in keys:
+                np.testing.assert_array_equal(got[key][p], want[key][p, :k])
+
+
+@pytest.mark.parametrize("name", ("small", "banded"))
+def test_halo_schedule_matches_jax(graphs, name):
+    a_hat = jax_a_hat(graphs[name]["adj"])
+    blocks = tpart.build_sharded_coo(a_hat, WORLD)
+    got = tpart.build_halo_schedule(blocks)
+    want = jpart.build_halo_schedule(
+        jpart.build_sharded_coo(a_hat, WORLD, pad_multiple=64))
+    for sfx in ("", "_t"):
+        assert got["halo_pad" + sfx] == want["halo_pad" + sfx]
+        assert got["halo_rows" + sfx] == want["halo_rows" + sfx]
+        np.testing.assert_array_equal(got["send_idx" + sfx],
+                                      want["send_idx" + sfx])
+        for p in range(WORLD):
+            k = got["col_h" + sfx][p].size
+            np.testing.assert_array_equal(got["col_h" + sfx][p],
+                                          want["col_h" + sfx][p, :k])
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("with_scale,with_sign", [(False, False), (True, True),
+                                                  (True, False)])
+def test_halo_pack_plain_matches_jax(dtype, with_scale, with_sign):
+    """K6's plain version against ``_pre_scale_block`` and the send-slab
+    ``take``, bit for bit (the sign is the cotangent's negation JAX's
+    autodiff applies before the block)."""
+    rng = np.random.default_rng(2)
+    rows, d, halo_pad = 50, 7, 8
+    x = (rng.normal(size=(rows, d)) * 100).astype(np.float32)
+    pre = rng.random(rows).astype(np.float32) if with_scale else None
+    sign = [(-1.0) ** j for j in range(d)] if with_sign else None
+    send_idx = rng.integers(0, rows, (WORLD, halo_pad)).astype(np.int32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    x_in = x * np.asarray(sign, np.float32) if with_sign else x
+    want = _pre_scale_block(jnp.asarray(x_in),
+                            None if pre is None else jnp.asarray(pre)[None],
+                            jdt)
+    want_send = jnp.take(want, jnp.asarray(send_idx).reshape(-1), axis=0)
+    own = torch.empty(rows, d, dtype=getattr(torch, dtype))
+    send = halo_pack_plain(torch.from_numpy(x), own,
+                           None if pre is None else torch.from_numpy(pre),
+                           sign, torch.from_numpy(send_idx))
+    np.testing.assert_array_equal(own.float().numpy(),
+                                  np.asarray(want, np.float32))
+    np.testing.assert_array_equal(send.float().numpy(),
+                                  np.asarray(want_send, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# The sharded SpMM, the model, the runner and the entry point on 4 ranks
+# ---------------------------------------------------------------------------
+
+
+def _jax_spmm(a_hat, mesh, exchange, fmt, dtype, x, g):
+    if fmt == "ell":
+        op, b = make_sharded_ell_op(
+            a_hat, mesh, pad_multiple=64, exchange=exchange,
+            gather_dtype=jnp.bfloat16 if dtype == "bfloat16" else jnp.float32,
+            hub_threshold=0)
+        fwd, bwd = sharded_ell_spmm, sharded_ell_spmm_transpose
+    else:
+        op, b = make_sharded_coo_op(a_hat, mesh, pad_multiple=64,
+                                    exchange=exchange)
+        fwd, bwd = sharded_spmm, sharded_spmm_transpose
+
+    def run(fn, v):
+        # jit: eager shard_map dispatches every degree class on its own
+        out = jax.jit(lambda o, w: fn(o, w, mesh))(
+            op, shard_node_array(v, b, op.rows_per_part, mesh))
+        return jpart.unpad_node_array(np.asarray(out, np.float64), b,
+                                      op.rows_per_part)
+
+    return run(fwd, x), run(bwd, g), b, op
+
+
+@pytest.mark.parametrize("name,exchange,fmt,dtype", SPMM_CASES)
+def test_sharded_spmm_matches_jax(world4, graphs, mesh, name, exchange, fmt,
+                                  dtype):
+    """``Â x`` and ``Âᵀ g`` on 4 ranks against JAX's ``sharded_ell_spmm``
+    / ``sharded_spmm`` and their transposes; the same rounding of the
+    operand into the gather dtype, f32 sums in another order."""
+    g = graphs[name]
+    a_hat = jax_a_hat(g["adj"])
+    want_f, want_b, b, op = _jax_spmm(a_hat, mesh, exchange, fmt, dtype,
+                                      g["x"], g["g"])
+    key = f"spmm/{name}/{exchange}/{fmt}/{dtype}"
+    rpp = op.rows_per_part
+    assert all(bool(r[key + "/halo"]) == (exchange == "halo") for r in world4)
+    got_f = jpart.unpad_node_array(_gather(world4, key + "/fwd"), b, rpp)
+    got_b = jpart.unpad_node_array(_gather(world4, key + "/bwd"), b, rpp)
+    # both sides gather the same bf16 operands: the f32 ones set the scale
+    _spmm_close(got_f, want_f, a_hat, g["x"], key + " forward")
+    _spmm_close(got_b, want_b, a_hat.T, g["g"], key + " transpose")
+
+
+@pytest.mark.parametrize("name", ("small", "banded"))
+def test_auto_exchange_matches_jax(world4, graphs, mesh, name):
+    """"auto" picks what JAX picks (halo on the banded graph, all-gather
+    on the random one); the ranks' sent and received halo rows add up to
+    JAX's real halo row count."""
+    a_hat = jax_a_hat(graphs[name]["adj"])
+    op, _ = make_sharded_coo_op(a_hat, mesh, pad_multiple=64,
+                                exchange="auto")
+    key = f"spmm/{name}/auto/ell/float32"
+    assert bool(world4[0][key + "/halo"]) == (op.col_h is not None)
+    assert (name == "banded") == (op.col_h is not None)
+    rows = np.stack([r[key + "/rows"] for r in world4])
+    if op.col_h is not None:
+        assert rows[:, 0].sum() == rows[:, 1].sum() == op.halo_rows
+
+
+@pytest.mark.parametrize("exchange,fmt", FORWARD_CASES)
+def test_sharded_forward_matches_jax(world4, jax_models, exchange, fmt):
+    """The acmgcnp forward (hoisted layer 1, projected LayerNorm) on 4
+    ranks against JAX's on its mesh, from the same flax parameters."""
+    _, model, variables, ops, x, b, rpp = jax_models[(exchange, fmt)]
+    want = jpart.unpad_node_array(np.asarray(jax.jit(
+        lambda v, x_, o: model.apply(v, x_, o, training=False))(
+            variables, x, ops)), b, rpp)
+    got = jpart.unpad_node_array(
+        _gather(world4, f"forward/{exchange}/{fmt}/logits"), b, rpp)
+    tol = 1e-5 * MODEL_CFG["hidden"] ** 0.5
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("exchange,fmt", RUNNER_CASES)
+def test_split_runner_matches_jax(world4, jax_models, model_graph, mesh,
+                                  exchange, fmt):
+    """20 joint epochs on 4 ranks (global loss and metrics, all-reduced
+    gradients) against JAX's runner on the mesh: equal best metrics and
+    epochs, parameters within 1e-4 (tests/test_torch_trainer.py's f32
+    rule), and every rank holding rank 0's parameters."""
+    adj, _, labels = model_graph
+    jcfg, model, variables, ops, x, b, rpp = jax_models[(exchange, fmt)]
+    place = (lambda v: shard_node_array(v, b, rpp, mesh))
+    onehot = np.eye(int(labels.max()) + 1, dtype=np.float32)[labels]
+    masks = tuple(place(m) for m in _masks(adj.shape[0]))
+    jres, jstate = jax_split_runner(model, jcfg)(
+        variables, jax.random.key(1), ops, x, place(labels.astype(np.int32)),
+        place(onehot), masks, return_state=True)
+    key = f"runner/{exchange}/{fmt}"
+    r0 = world4[0]
+    assert all(bool(r[key + "/replicas_equal"]) for r in world4)
+    assert int(r0[key + "/epochs_run"]) == int(jres.epochs_run)
+    for field in ("test_metric", "val_metric", "val_loss", "train_loss"):
+        assert float(r0[f"{key}/{field}"]) == pytest.approx(
+            float(getattr(jres, field)), rel=1e-5, abs=1e-5), field
+    want = params_from_flax(jax.tree_util.tree_map(
+        np.asarray, jstate.variables["params"]))
+    for name, ref in want.items():
+        np.testing.assert_allclose(r0[f"{key}/param/{name}"], ref.numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def _single_chip(model_graph, cfg_kw):
+    """The single-chip port under ``run_experiment_sharded``'s protocol
+    (its masks and initial parameters): the splits' test metrics and the
+    last split's parameters."""
+    adj, feats, labels = model_graph
+    cfg = TrainConfig(**cfg_kw)
+    _, ops, x, y, _, nclass = prepare_data(GraphData("g", adj, feats, labels),
+                                           cfg, device="cpu")
+    rng = np.random.default_rng(cfg.seed)
+    tests = []
+    for idx in range(cfg.num_splits):
+        masks = random_disassortative_splits(labels, nclass, rng=rng)
+        model = build_model(cfg, x.shape[1], nclass, device="cpu",
+                            seed=cfg.seed + idx)
+        res = make_split_runner(model, cfg)(
+            ops, x, y, tuple(torch.from_numpy(m) for m in masks),
+            seed=cfg.seed + idx)
+        tests.append(float(res.test_metric))
+    return tests, {k: p.detach().numpy() for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("world", (1, 2, WORLD))
+def test_entry_point_world_sizes_agree(world, world2, world4, model_graph):
+    """``run_experiment_sharded`` at world sizes 1 (in this process, no
+    group), 2 and 4 against the single-chip port on the same splits and
+    initial parameters: equal test metrics and epochs, the last split's
+    parameters within 1e-5, the replicas equal from start to end."""
+    adj, feats, labels = model_graph
+    tests, want = _single_chip(model_graph, EXPERIMENT_CFG)
+    if world == 1:
+        out, model = run_experiment_sharded(
+            GraphData("g", adj, feats, labels), TrainConfig(**EXPERIMENT_CFG),
+            device="cpu", return_model=True)
+        got = {k: p.detach().numpy() for k, p in model.named_parameters()}
+        test_mean, devices = out["test_mean"], out["devices"]
+    else:
+        ranks = world2 if world == 2 else world4
+        r0 = ranks[0]
+        assert all(bool(r["experiment/start_equal"])
+                   and bool(r["experiment/replicas_equal"]) for r in ranks)
+        got = {k[len("experiment/param/"):]: v for k, v in r0.items()
+               if k.startswith("experiment/param/")}
+        test_mean, devices = r0["experiment/test_mean"], r0["experiment/devices"]
+    assert int(devices) == world
+    assert float(test_mean) == float(np.mean(tests))
+    assert set(got) == set(want)
+    for name, ref in want.items():
+        np.testing.assert_allclose(got[name], ref, rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
+def _buffer_nodes(ops, boundaries, p, transpose=False):
+    """The node whose value each row of rank p's receive buffer holds."""
+    rpp = ops[p].rows_per_part
+    own = [int(boundaries[q]) + np.arange(rpp) for q in range(len(ops))]
+    send = [op.send_idx_t if transpose else op.send_idx for op in ops]
+    if send[p] is None:                     # all-gather: every rank's slab
+        return np.concatenate(own)
+    return np.concatenate([own[p]] + [int(boundaries[q]) + send[q][p].numpy()
+                                      for q in range(len(ops))])
+
+
+def _ell_terms(half, nodes, row0=0):
+    """An ELL half's (output node, column node) pairs in its summation
+    order, rows ascending."""
+    deg = np.diff(half.indptr.numpy())
+    rows = np.repeat(half.row_ids.numpy().astype(np.int64), deg) + row0
+    order = np.argsort(rows, kind="stable")
+    return rows[order], nodes[half.indices.numpy()][order]
+
+
+def test_sharded_card_check_is_well_conditioned():
+    """chip_smoke.py phase 6c holds each 4-rank run to the single-chip
+    port within 1e-4 after ``SHARDED_CHECK_EPOCHS`` epochs.  Only a
+    configuration that does not amplify rounding can show faults that
+    way: there, the single-chip port with its two summation orders (ELL,
+    COO) parts by less than a tenth of that.  And the sharded halves sum
+    every row in the single-chip order, so a rank's rounding differs
+    from one card's only in the reductions split over ranks: a rank's
+    ELL rows list their columns, mapped back to nodes, in the single-chip
+    half's order, and a rank's COO half holds the single-chip triplets in
+    order on the single-chip slice grid."""
+    import chip_smoke
+
+    assert chip_smoke.SHARDED_CHECK_EPOCHS == 20
+    data = chip_smoke._small_twitch()
+    params = []
+    for fmt in ("ell", "coo"):
+        cfg = chip_smoke.sharded_check_config(fmt)
+        _, ops, x, y, _, nclass = prepare_data(data, cfg, device="cpu")
+        masks = random_disassortative_splits(
+            data.labels, nclass, rng=np.random.default_rng(cfg.seed))
+        model = build_model(cfg, x.shape[1], nclass, device="cpu",
+                            seed=cfg.seed)
+        make_split_runner(model, cfg)(
+            ops, x, y, tuple(torch.from_numpy(m) for m in masks),
+            seed=cfg.seed)
+        params.append({k: p.detach() for k, p in model.named_parameters()})
+    worst = max(float((params[0][k] - params[1][k]).abs().max())
+                for k in params[0])
+    assert worst < 1e-5, worst
+
+    a_hat = row_normalized_adjacency(data.adj)
+    ell1, coo1 = make_ell_op(a_hat), make_coo_op(a_hat)
+    world = chip_smoke.SHARDED_P
+    for exchange in ("allgather", "halo"):
+        ells, b = tsharded.make_sharded_ell_op(a_hat, world, None,
+                                               exchange=exchange)
+        coos, _ = tsharded.make_sharded_coo_op(a_hat, world, None,
+                                               exchange=exchange,
+                                               boundaries=b)
+        if exchange == "halo":
+            assert ells[0].send_idx is not None
+        for p in range(world):
+            for tr in (False, True):
+                nodes = _buffer_nodes(ells, b, p, tr)
+                got = _ell_terms(ells[p].bwd if tr else ells[p].fwd, nodes,
+                                 int(b[p]))
+                rows, cols = _ell_terms(ell1.bwd if tr else ell1.fwd,
+                                        np.arange(data.num_nodes))
+                mine = (rows >= b[p]) & (rows < b[p + 1])
+                np.testing.assert_array_equal(got[0], rows[mine])
+                np.testing.assert_array_equal(got[1], cols[mine])
+
+                half = coos[p].bwd if tr else coos[p].fwd
+                whole = coo1.bwd if tr else coo1.fwd
+                lo = int(np.searchsorted(whole.row.numpy(), b[p]))
+                hi = lo + half.nnz
+                np.testing.assert_array_equal(half.row.numpy() + b[p],
+                                              whole.row.numpy()[lo:hi])
+                np.testing.assert_array_equal(
+                    _buffer_nodes(coos, b, p, tr)[half.col.numpy()],
+                    whole.col.numpy()[lo:hi])
+                k = np.arange(half.nnz)
+                grid = ((lo + k) // whole.slice_nnz
+                        - (k + half.slice_offset) // half.slice_nnz)
+                assert np.all(grid == grid[0])
+
+
+# ---------------------------------------------------------------------------
+# Host pieces and refusals
+# ---------------------------------------------------------------------------
+
+
+def test_splits_match_jax(model_graph):
+    _, _, labels = model_graph
+    got = random_disassortative_splits(labels, 2, rng=np.random.default_rng(3))
+    want = jax_random_splits(labels, 2, rng=np.random.default_rng(3))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    idx = (np.arange(5), np.arange(5, 9), np.arange(9, 12))
+    for a, b in zip(indices_to_masks(14, *idx),
+                    jax_indices_to_masks(14, *idx)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_permute_graph_matches_jax(graphs):
+    adj = graphs["small"]["adj"]
+    perm = np.random.default_rng(4).permutation(adj.shape[0])
+    assert (permute_graph(adj, perm) != jax_permute_graph(adj, perm)).nnz == 0
+
+
+def test_init_distributed_needs_a_group_or_the_card(monkeypatch):
+    """Without torchrun's variables it joins nothing; asking for the card
+    where there is none raises before any group is made."""
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    assert init_distributed() is False
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_distributed(rank=0, world_size=1,
+                         init_method="tcp://127.0.0.1:1")
+
+
+def test_sharded_path_refuses_what_is_not_ported(model_graph):
+    adj, feats, labels = model_graph
+    data = GraphData("g", adj, feats, labels)
+    cfg = TrainConfig(**EXPERIMENT_CFG)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run_experiment_sharded(data, cfg)
+    model = build_model(cfg, feats.shape[1], 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_split_runner(model, dataclasses.replace(cfg, metric="rocauc"),
+                          group=object())
+    with pytest.raises(NotImplementedError, match="checkpointing"):
+        run_experiment_sharded(data, cfg, device="cpu", checkpoint_dir="x")
+    with pytest.raises(NotImplementedError, match="file-based splits"):
+        run_experiment_sharded(data, dataclasses.replace(
+            cfg, fixed_splits=True), device="cpu")
