@@ -11,7 +11,10 @@
 
 The attention and mix of each branch is one launch of K2 (forward) and K3
 (backward), ``csrc/attention.cu``; ``attention_mix_forward_plain`` and
-``attention_mix_backward_plain`` are their plain PyTorch versions.
+``attention_mix_backward_plain`` are their plain PyTorch versions.  The
+channel projections ``X W`` follow ``gemm_dtype`` (``make_mm``): f32, or
+bf16 operands with an f32 result and JAX's backward (``bf16_matmul``);
+the attention's own products stay f32.
 Parameter names and orientations follow the flax module (``weight_low``
 is ``[F_in, F_out]`` used as ``x @ W``; ``layer_norm_low.scale``), so a
 flax parameter tree copies over flat (``models/convert.py``).
@@ -191,6 +194,67 @@ def attention_mix(hs, v, c, W, use_ln: bool, scale: float):
 
 
 # ---------------------------------------------------------------------------
+# Channel-projection GEMMs (JAX ``_resolve_gemm_dtype`` / ``_make_mm``)
+# ---------------------------------------------------------------------------
+
+
+def _mm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 matrices, accumulated and returned in f32.
+    On the card one cuBLAS GEMM (``aten::mm.dtype``); the CPU has no such
+    kernel, so there the bf16 values are multiplied as f32 (exact
+    products, another summation order)."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _Bf16Matmul(torch.autograd.Function):
+    """JAX's ``dot(a.bf16, w.bf16, preferred_element_type=f32)``: the
+    operands are rounded to bf16, the product is not.  Its backward is
+    what ``jax.grad`` makes of it: the f32 cotangent times the other
+    operand's bf16 values as an f32 product, rounded to bf16 and cast
+    back to the input's dtype; the cotangent itself is not rounded."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(ab, wb)
+        ctx.dtypes = (a.dtype, w.dtype)
+        return _mm_f32_out(ab, wb)
+
+    @staticmethod
+    def backward(ctx, g):
+        ab, wb = ctx.saved_tensors
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = (g @ wb.float().T).to(torch.bfloat16).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            dw = (ab.float().T @ g).to(torch.bfloat16).to(ctx.dtypes[1])
+        return da, dw
+
+
+def bf16_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``a @ w`` with bf16 operands and an f32 result."""
+    return _Bf16Matmul.apply(a, w)
+
+
+def f32_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in f32; a bf16-stored input (``feature_dtype``) is
+    promoted first, as JAX promotes ``bf16 @ f32``."""
+    return (a if a.dtype == w.dtype else a.to(w.dtype)) @ w
+
+
+def make_mm(gemm_dtype: Optional[str]):
+    """The channel-projection matmul of a gemm dtype: None / "float32"
+    exact f32, "bfloat16" bf16 operands with an f32 accumulator."""
+    if gemm_dtype in (None, "float32"):
+        return f32_matmul
+    if gemm_dtype == "bfloat16":
+        return bf16_matmul
+    raise ValueError(f"unknown gemm_dtype {gemm_dtype!r}")
+
+
+# ---------------------------------------------------------------------------
 # ACMConv
 # ---------------------------------------------------------------------------
 
@@ -224,8 +288,7 @@ class ACMConv(nn.Module):
         if variant or structure_info:
             raise NotImplementedError("variant 1 and the structure channel "
                                       "are not ported yet")
-        if gemm_dtype not in (None, "float32"):
-            raise NotImplementedError(f"gemm_dtype {gemm_dtype!r}")
+        self.mm = make_mm(gemm_dtype)
         self.out_features = out_features
         self.use_layernorm = use_layernorm
         self.input_hoist = input_hoist
@@ -271,6 +334,7 @@ class ACMConv(nn.Module):
         ``x_agg``/``x_eval_agg``: precomputed ``Â @ x`` for the input
         hoist, valid only when the input is the array it came from."""
         f_in = x.shape[-1]
+        mm = self.mm
         paired = x_eval is not None
         branches = [x, x_eval] if paired else [x]
         pre_aggs = [x_agg, x_eval_agg] if paired else [x_agg]
@@ -293,7 +357,7 @@ class ACMConv(nn.Module):
             zs = []
             for b in proj:
                 (w_low, w_high, _), _ = params[b]
-                zs += [branches[b] @ w_low, branches[b] @ w_high]
+                zs += [mm(branches[b], w_low), mm(branches[b], w_high)]
             n_train = sum(1 for b in proj if b == 0)
             grad_prefix = (2 * n_train if paired and n_train < len(proj)
                            else None)
@@ -307,12 +371,14 @@ class ACMConv(nn.Module):
             if hoisted[b]:
                 y = pre_aggs[b]
                 if f_in > HOIST_MAX_COLS:
-                    z_low, z_high = y @ w_low, xb @ w_high - y @ w_high
+                    z_low = mm(y, w_low)
+                    z_high = mm(xb, w_high) - mm(y, w_high)
                 else:
-                    z_low, z_high = y @ w_low, (xb - y) @ w_high
+                    z_low, z_high = mm(y, w_low), mm(xb - y, w_high)
             else:
                 z_low, z_high = proj_aggs[b]
-            hs = (torch.relu(z_low), torch.relu(z_high), torch.relu(xb @ w_mlp))
+            hs = (torch.relu(z_low), torch.relu(z_high),
+                  torch.relu(mm(xb, w_mlp)))
             results.append(attention_mix(hs, *att_ops, self.use_layernorm,
                                          3.0))
         return tuple(results) if paired else results[0]

@@ -31,6 +31,10 @@ class GraphData:
     adj: sp.spmatrix                 # [N, N] raw (unnormalized) adjacency
     features: np.ndarray             # [N, F] float32
     labels: np.ndarray               # [N] int labels, or [N, C] multilabel
+    splits: Optional[list] = None    # list of dicts {train/valid/test: idx}
+    # node permutation applied to adj/features/labels (locality reorder);
+    # split masks given in the original node ids are permuted with it
+    perm: Optional[np.ndarray] = None
 
     @property
     def num_nodes(self) -> int:
@@ -73,6 +77,22 @@ def make_coo_op(mat: sp.spmatrix) -> CooOp:
     fwd = make_coo_half(*_coo_sorted_triplets(mat), n)
     bwd = make_coo_half(*_coo_sorted_triplets(mat.T), n)
     return CooOp(fwd=fwd, bwd=bwd, num_nodes=n, nnz=fwd.nnz)
+
+
+def locality_order(adj: sp.spmatrix, method: str = "rcm") -> np.ndarray:
+    """Node permutation that gives neighbours nearby ids (the JAX
+    package's): "rcm" is scipy's reverse Cuthill-McKee on the symmetrised
+    structure, "degree" sorts by descending degree (stable).  Node
+    ``perm[i]`` becomes node i (``permute_graph``, ``x[perm]``)."""
+    if method == "rcm":
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+        return np.asarray(reverse_cuthill_mckee(
+            sp.csr_matrix(adj), symmetric_mode=True)).astype(np.int64)
+    if method == "degree":
+        deg = np.asarray(sp.csr_matrix(adj).sum(axis=1)).flatten()
+        return np.argsort(-deg, kind="stable").astype(np.int64)
+    raise ValueError(f"unknown reorder method: {method!r}")
 
 
 def permute_graph(adj: sp.spmatrix, perm: np.ndarray) -> sp.csr_matrix:

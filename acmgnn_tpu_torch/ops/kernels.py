@@ -28,7 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("spmm", "attention", "coo", "rocauc", "halo")
+SOURCES = ("spmm", "attention", "coo", "rocauc", "halo", "panel_gather")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,6 +76,10 @@ _SIGNATURES = {
         # x, sign, pre_scale, rows, d, out_bf16, own, send_idx, n_send_rows,
         # send, stream
         "acm_k6_halo_pack": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
+    },
+    "panel_gather": {
+        # x, idx, out, p, d, dc, m_rows, elem_bytes, per_row, stream
+        "acm_k7_panel_gather": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _P],
     },
 }
 

@@ -70,19 +70,25 @@ class _FusedGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, op, hp_cols, grad_width, *zs):
         z_cat = zs[0] if len(zs) == 1 else torch.cat(zs, dim=1)
-        z_cat = z_cat.float()
         alpha = tuple(1.0 if hp else 0.0 for hp in hp_cols)
         beta = tuple(-1.0 if hp else 1.0 for hp in hp_cols)
+        residual = z_cat.float() if any(alpha) else None
         if isinstance(op, ShardedEllOp):
-            out = sharded_ell_spmm(op, z_cat, z=z_cat, alpha=alpha,
+            out = sharded_ell_spmm(op, z_cat.float(), z=residual, alpha=alpha,
                                    beta=beta)
         elif isinstance(op, ShardedCooOp):
-            out = sharded_spmm(op, z_cat, z=z_cat, alpha=alpha, beta=beta)
+            out = sharded_spmm(op, z_cat.float(), z=residual, alpha=alpha,
+                               beta=beta)
         elif isinstance(op, CooOp):
-            out = coo_spmm(op.fwd, z_cat, z=z_cat, alpha=alpha, beta=beta)
+            out = coo_spmm(op.fwd, z_cat.float(), z=residual, alpha=alpha,
+                           beta=beta)
         else:
-            out = row_gather_spmm(op.fwd, z_cat.to(op.gather_dtype), z=z_cat,
-                                  alpha=alpha, beta=beta)
+            # K1 gathers a bf16 operand as it is (its values are exact in
+            # f32), so bf16-stored features get no f32 copy
+            x = (z_cat if z_cat.dtype == torch.bfloat16
+                 else z_cat.to(op.gather_dtype))
+            out = row_gather_spmm(op.fwd, x, z=residual, alpha=alpha,
+                                  beta=beta)
         ctx.op = op
         ctx.hp_cols = hp_cols
         ctx.grad_width = grad_width

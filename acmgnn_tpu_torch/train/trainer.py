@@ -1,15 +1,18 @@
 """Training harness — counterpart of ``acmgnn_tpu/train/trainer.py``.
 
-Ported so far: ``make_split_runner``'s two loops with torch-style Adam
-(coupled L2), the NLL or BCE loss, accuracy or ROC-AUC, best-val
-selection and the early-stopping window:
+Ported: ``make_split_runner``'s two loops with torch-style Adam (coupled
+L2) or AdamW, the NLL or BCE loss, accuracy or ROC-AUC, best-val
+selection, the early-stopping window and ``remat``:
 
 - ``run_joint``, where epoch k's dropout train forward and epoch k-1's
   eval forward share one paired pass and every sparse gather;
 - ``run``, the sequential loop: a train step, then a separate eval
   forward;
 
-and the sharded path, ``prepare_sharded_data`` and
+the single-card entry points ``run_experiment`` (multi-split, the fast
+path) and ``run_experiment_stepwise`` (one epoch at a time with
+``RunStats``), ``prepare_data`` with ``maybe_reorder`` and bf16 feature
+storage; and the sharded path, ``prepare_sharded_data`` and
 ``run_experiment_sharded``: the graph row-partitioned over the ranks of
 a process group, the same runner with global losses and metrics and
 all-reduced gradients.
@@ -27,17 +30,24 @@ import dataclasses
 import math
 import time
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from acmgnn_tpu_torch import resolve_device
 from acmgnn_tpu_torch.data.registry import row_normalize_features
-from acmgnn_tpu_torch.data.splits import random_disassortative_splits
+from acmgnn_tpu_torch.data.splits import (
+    indices_to_masks,
+    random_disassortative_splits,
+)
 from acmgnn_tpu_torch.models.models import ACMGNN
 from acmgnn_tpu_torch.ops.graph import (
     GraphData,
     Operators,
+    locality_order,
     permute_graph,
     precompute_operators,
 )
@@ -61,20 +71,69 @@ from acmgnn_tpu_torch.train.metrics import (
     masked_rocauc_multi,
     pack_labels_and_masks,
 )
+from acmgnn_tpu_torch.utils.logging import RunStats
+from acmgnn_tpu_torch.utils.resilience import retry_transient
 
 JOINT_CAPABLE = ("acmgcn", "acmgcnp", "acmgcnpp")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
-    """Torch Adam with coupled L2, which is optax's
-    ``add_decayed_weights -> scale_by_adam -> scale(-lr)``: L2 folded into
-    the gradient before the moments."""
-    if cfg.optimizer != "adam":
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not "
-                                  "ported yet")
-    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.weight_decay)
+def make_optimizer(cfg: TrainConfig, params, lr=None,
+                   weight_decay=None) -> torch.optim.Optimizer:
+    """The optimizer of ``cfg`` (``lr`` / ``weight_decay`` override the
+    config's values, as ``hparams`` does):
+
+    - "adam": torch Adam with coupled L2, which is optax's
+      ``add_decayed_weights -> scale_by_adam -> scale(-lr)``: L2 folded
+      into the gradient before the moments;
+    - "adamw": torch AdamW, which is ``optax.adamw``'s decoupled decay
+      (``p -= lr·(adam step + wd·p)``)."""
+    lr = cfg.lr if lr is None else float(lr)
+    wd = cfg.weight_decay if weight_decay is None else float(weight_decay)
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=wd)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=wd)
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
+def train_forward(model: ACMGNN, x, ops, generator, *,
+                  paired_eval: bool = False, remat: bool = False):
+    """The dropout train forward (with ``paired_eval``, also the eval
+    logits of the same parameters).
+
+    ``remat`` (JAX ``jax.checkpoint`` around the train forward) runs it
+    under non-reentrant activation checkpointing: the backward recomputes
+    the forward instead of holding its activations.  The recompute must
+    draw the same dropout masks, and checkpointing's own RNG stash covers
+    only the default generators, not the explicit ``generator``: its state
+    at entry is restored for the recompute, and its state after the
+    forward put back when the recompute ends."""
+
+    def run(x_):
+        return model(x_, ops, training=True, paired_eval=paired_eval,
+                     generator=generator)
+
+    if not remat:
+        return run(x)
+    entry = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def region(x_):
+        calls[0] += 1
+        if calls[0] == 1 or generator is None:
+            return run(x_)
+        after = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return run(x_)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(region, x, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def build_model(cfg: TrainConfig, nfeat: int, nclass: int, *, device=None,
@@ -115,10 +174,13 @@ class SplitState:
 def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
                       group=None):
     """``run(ops, x, labels, masks, seed=0, return_state=False,
-    labels_onehot=None)`` — one split's training from the model's current
-    parameters (the joint loop for joint-capable models when
-    ``cfg.joint``, else the sequential one).  ``labels_onehot`` is the BCE
-    target, ``prepare_data``'s ``labels_onehot``.
+    labels_onehot=None, hparams=None)`` — one split's training from the
+    model's current parameters (the joint loop for joint-capable models
+    when ``cfg.joint``, else the sequential one).  ``labels_onehot`` is
+    the BCE target, ``prepare_data``'s ``labels_onehot``; ``hparams``, an
+    ``(lr, weight_decay)`` pair, builds the optimizer from those values
+    in place of the config's.  With ``cfg.remat`` the train forward runs
+    under activation checkpointing (``train_forward``).
 
     ``group``: the process group of a sharded run, whose ranks each pass
     their slabs of the node arrays and their share of a sharded operator
@@ -139,8 +201,6 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     es = int(cfg.early_stopping)
     if es >= epochs:   # the stop rule could never fire (JAX: disabled)
         es = 0
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
     if joint is None:
         joint = bool(cfg.joint) and cfg.model_type in JOINT_CAPABLE
     sel_metric = cfg.selection == "val_metric"
@@ -244,14 +304,20 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
                               else torch.zeros(0)))
         return result
 
+    def optimizer(hparams):
+        if hparams is None:
+            return make_optimizer(cfg, params)
+        return make_optimizer(cfg, params, lr=hparams[0],
+                              weight_decay=hparams[1])
+
     def run(ops, x, labels, masks, seed: int = 0,
-            return_state: bool = False, labels_onehot=None):
+            return_state: bool = False, labels_onehot=None, hparams=None):
         """Sequential loop: each epoch trains, then evaluates the updated
         parameters in a separate forward; stops after ``epochs`` or when
         the early-stopping rule fires (that epoch counts)."""
         dev = x.device
         gen = generator(dev, seed)
-        opt = make_optimizer(cfg, params)
+        opt = optimizer(hparams)
         packed = packed_words(labels, masks, labels_onehot)
         counts = global_counts(masks)
         best = initial_best(dev)
@@ -260,7 +326,7 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         losses = []
         epoch = 0
         while epoch < epochs:
-            logits = model(x, ops, training=True, generator=gen)
+            logits = train_forward(model, x, ops, gen, remat=cfg.remat)
             loss = loss_of(logits, labels, labels_onehot, masks[0],
                            None if counts is None else counts[0])
             step(opt, loss)
@@ -278,7 +344,8 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         return finish(best, loss, epoch, epoch, losses, opt, return_state)
 
     def run_joint(ops, x, labels, masks, seed: int = 0,
-                  return_state: bool = False, labels_onehot=None):
+                  return_state: bool = False, labels_onehot=None,
+                  hparams=None):
         """Iteration k evaluates epoch k-1 (parameters after k updates)
         and trains epoch k in one paired forward; ``epochs + 1``
         iterations, the first one's evaluation is skipped.  An iteration
@@ -286,7 +353,7 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         update, then the loop ends."""
         dev = x.device
         gen = generator(dev, seed)
-        opt = make_optimizer(cfg, params)
+        opt = optimizer(hparams)
         packed = packed_words(labels, masks, labels_onehot)
         counts = global_counts(masks)
         best = initial_best(dev)
@@ -295,8 +362,8 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         losses = []
         k = 0
         while k < epochs + 1:
-            logits_train, logits_eval = model(
-                x, ops, training=True, paired_eval=True, generator=gen)
+            logits_train, logits_eval = train_forward(
+                model, x, ops, gen, paired_eval=True, remat=cfg.remat)
             loss_share = loss_of(logits_train, labels, labels_onehot,
                                  masks[0],
                                  None if counts is None else counts[0])
@@ -320,20 +387,42 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     return run_joint if joint else run
 
 
+def maybe_reorder(data: GraphData, cfg: TrainConfig) -> GraphData:
+    """Apply ``cfg.reorder``'s locality permutation ("rcm", "degree") to
+    the whole graph (adjacency, features, labels) once and record it in
+    ``data.perm``; a no-op if the graph is permuted already or reorder is
+    "none"."""
+    if cfg.reorder == "none" or data.perm is not None:
+        return data
+    perm = locality_order(data.adj, cfg.reorder)
+    return dataclasses.replace(
+        data, adj=permute_graph(data.adj, perm),
+        features=np.asarray(data.features)[perm],
+        labels=np.asarray(data.labels)[perm], perm=perm)
+
+
+def _features_on(features: torch.Tensor, cfg: TrainConfig, dev):
+    """A host f32 feature tensor in ``cfg.feature_dtype`` on ``dev``: a
+    bf16 copy is made on the host, so only it crosses to the device (the
+    model promotes it at each use)."""
+    if cfg.feature_dtype == "bfloat16":
+        features = features.to(torch.bfloat16)
+    elif cfg.feature_dtype != "float32":
+        raise ValueError(f"unknown feature_dtype {cfg.feature_dtype!r}")
+    return features.to(dev)
+
+
 def prepare_data(dataset: GraphData, cfg: TrainConfig, device=None):
     """Preprocess a graph into device tensors and operators:
-    ``(data, ops, x, labels, labels_onehot, nclass)``."""
+    ``(data, ops, x, labels, labels_onehot, nclass)``, where ``data`` is
+    the graph after ``maybe_reorder``."""
     dev = resolve_device(device)
     if not isinstance(dataset, GraphData):
         raise NotImplementedError("dataset loaders are not ported yet; "
                                   "pass a GraphData")
-    if cfg.reorder != "none":
-        raise NotImplementedError("locality reordering is not ported yet")
     if cfg.ell_block not in (0, 1):
         raise NotImplementedError("block-column ELL is a TPU layout")
-    if cfg.feature_dtype != "float32":
-        raise NotImplementedError("bf16 feature storage is not ported yet")
-    data = dataset
+    data = maybe_reorder(dataset, cfg)
     features = data.features
     if cfg.resolve_feature_normalize():
         features = row_normalize_features(features)
@@ -344,7 +433,8 @@ def prepare_data(dataset: GraphData, cfg: TrainConfig, device=None):
     labels = _host_labels(data.labels)
     nclass = data.num_classes
     labels_onehot = _one_hot(labels, nclass)
-    x = torch.from_numpy(np.ascontiguousarray(features, np.float32)).to(dev)
+    x = _features_on(torch.from_numpy(
+        np.ascontiguousarray(features, np.float32)), cfg, dev)
     y = torch.from_numpy(labels.astype(np.int64)).to(dev)
     y1h = torch.from_numpy(labels_onehot).to(dev)
     if cfg.resolve_hoist():
@@ -409,22 +499,20 @@ def prepare_sharded_data(dataset: GraphData, cfg: TrainConfig, *,
                          group=None, device=None,
                          exchange: str = "auto") -> ShardedData:
     """Sharded counterpart of ``prepare_data`` for this rank of ``group``
-    (None: one rank, no collectives): the partition (``cfg.partition``:
-    "contiguous" nnz-balanced blocks, or "fennel" / "balanced" with a
-    contiguity permutation of the whole graph), this rank's share of the
-    operator (``exchange``: "allgather", "halo" or "auto"), its slabs of
-    the features, labels and one-hot labels, and the hoisted ``Â X``
-    through the sharded operator."""
+    (None: one rank, no collectives): ``maybe_reorder`` first (a
+    locality order shrinks each part's halo), the partition
+    (``cfg.partition``: "contiguous" nnz-balanced blocks, or "fennel" /
+    "balanced" with a contiguity permutation of the whole graph, composed
+    into ``data.perm``), this rank's share of the operator (``exchange``:
+    "allgather", "halo" or "auto"), its slabs of the features (in
+    ``cfg.feature_dtype``), labels and one-hot labels, and the hoisted
+    ``Â X`` through the sharded operator."""
     dev = resolve_device(device)
     rank, world = _rank_and_world(group)
     if not isinstance(dataset, GraphData):
         raise NotImplementedError("dataset loaders are not ported yet; "
                                   "pass a GraphData")
-    if cfg.reorder != "none":
-        raise NotImplementedError("locality reordering is not ported yet")
-    if cfg.feature_dtype != "float32":
-        raise NotImplementedError("bf16 feature storage is not ported yet")
-    data = dataset
+    data = maybe_reorder(dataset, cfg)
     boundaries = None
     if cfg.partition in ("fennel", "balanced"):
         part = (fennel_partition(data.adj, world) if cfg.partition == "fennel"
@@ -433,7 +521,8 @@ def prepare_sharded_data(dataset: GraphData, cfg: TrainConfig, *,
         data = dataclasses.replace(
             data, adj=permute_graph(data.adj, perm),
             features=np.asarray(data.features)[perm],
-            labels=np.asarray(data.labels)[perm])
+            labels=np.asarray(data.labels)[perm],
+            perm=perm if data.perm is None else np.asarray(data.perm)[perm])
     elif cfg.partition != "contiguous":
         raise ValueError(f"unknown partition {cfg.partition!r}")
     features = data.features
@@ -451,7 +540,8 @@ def prepare_sharded_data(dataset: GraphData, cfg: TrainConfig, *,
         return shard_node_array(arr, boundaries, rpp, rank, dev)
 
     labels = _host_labels(data.labels)
-    x = place(np.asarray(features, np.float32))
+    x = _features_on(shard_node_array(np.asarray(features, np.float32),
+                                      boundaries, rpp, rank, "cpu"), cfg, dev)
     if cfg.resolve_hoist():
         # Â X once, through the sharded operator (lands row-partitioned)
         agg = spmm(ops.adj_low, x)
@@ -464,15 +554,31 @@ def prepare_sharded_data(dataset: GraphData, cfg: TrainConfig, *,
         rank=rank, world_size=world)
 
 
-def resolve_split(cfg: TrainConfig, rng, labels, nclass: int):
-    """One (train, val, test) bool-mask triple: the random disassortative
-    60/20/20 split drawn from ``rng`` (the JAX package's
-    ``resolve_split`` without its file-based splits, which wait for the
-    data layer)."""
-    if cfg.fixed_splits:
-        raise NotImplementedError("file-based splits wait for the data "
-                                  "layer; use random splits")
-    return random_disassortative_splits(np.asarray(labels), nclass, rng=rng)
+def resolve_split(data: GraphData, cfg: TrainConfig, idx: int, rng, labels,
+                  nclass: int):
+    """One (train, val, test) bool-mask triple, as the JAX package's:
+
+    - with ``cfg.fixed_splits``, the dataset's own ``data.splits[idx]``
+      (index lists in the original node ids, permuted by ``data.perm``);
+    - else the random disassortative 60/20/20 split drawn from ``rng`` in
+      the (possibly permuted) label space ``labels``.
+
+    The bundled Geom-GCN mask files wait for the data layer."""
+    n = data.num_nodes
+    if data.splits is not None and cfg.fixed_splits:
+        s = data.splits[idx % len(data.splits)]
+        masks = indices_to_masks(n, s["train"], s["valid"], s["test"])
+    elif cfg.fixed_splits:
+        raise NotImplementedError(
+            "file-based splits (the bundled Geom-GCN masks) wait for the "
+            "data layer (ROADMAP.md); pass GraphData.splits or use random "
+            "splits")
+    else:
+        return random_disassortative_splits(np.asarray(labels), nclass,
+                                            rng=rng)
+    if data.perm is not None:
+        masks = tuple(m[data.perm] for m in masks)
+    return masks
 
 
 def run_experiment_sharded(dataset: GraphData, cfg: TrainConfig, *,
@@ -481,11 +587,11 @@ def run_experiment_sharded(dataset: GraphData, cfg: TrainConfig, *,
     """Multi-split full-batch training with the graph row-partitioned
     over the ranks of the default process group (``init_distributed``;
     without one, a single rank): the counterpart of the JAX package's
-    ``run_experiment_sharded``, for random splits.
+    ``run_experiment_sharded``.
 
-    Every rank calls it with the same arguments.  Split ``idx`` draws its
-    masks from ``numpy.random.default_rng(cfg.seed)`` (the JAX package's
-    random disassortative splits) and starts from ``build_model(...,
+    Every rank calls it with the same arguments.  Split ``idx`` takes its
+    masks from ``resolve_split`` (random ones from
+    ``numpy.random.default_rng(cfg.seed)``) and starts from ``build_model(...,
     seed=cfg.seed + idx)`` on every rank, so the replicas start equal;
     ``make_split_runner`` keeps them equal.  Returns the JAX package's
     result dict (``devices`` is the world size); with ``return_model``
@@ -500,32 +606,40 @@ def run_experiment_sharded(dataset: GraphData, cfg: TrainConfig, *,
     labels_np = _host_labels(prep.data.labels)
     results = []
     t_total = time.time()
-    epochs_total = 0
     steady_time = 0.0
     steady_epochs = 0
     model = None
     for idx in range(cfg.num_splits):
         masks = tuple(prep.place(m) for m in resolve_split(
-            cfg, masks_rng, labels_np, prep.nclass))
+            prep.data, cfg, idx, masks_rng, labels_np, prep.nclass))
         model = build_model(cfg, prep.x.shape[1], prep.nclass,
                             device=prep.x.device, seed=cfg.seed + idx)
         t_split = time.time()
         res = make_split_runner(model, cfg, group=group)(
             prep.ops, prep.x, prep.labels, masks, seed=cfg.seed + idx,
             labels_onehot=prep.labels_onehot)
-        if prep.x.device.type == "cuda":
-            torch.cuda.synchronize()
+        _sync(prep.x.device)
         results.append(res)
-        epochs_total += int(res.epochs_run)
         if idx > 0:   # split 0 pays the warm-up; excluded from the rate
             steady_time += time.time() - t_split
             steady_epochs += int(res.epochs_run)
-    elapsed = time.time() - t_total
+    out = _experiment_result(prep.data, cfg, results, time.time() - t_total,
+                             steady_time, steady_epochs,
+                             devices=prep.world_size)
+    return (out, model) if return_model else out
+
+
+def _experiment_result(data, cfg, results, elapsed, steady_time,
+                       steady_epochs, **extra):
+    """The JAX package's result dict of a multi-split run;
+    ``epoch_ms_steady`` covers the splits after the first (split 0 pays
+    the warm-up)."""
     test = np.array([float(r.test_metric) for r in results])
-    out = {
-        "dataset": prep.data.name,
+    epochs_total = sum(int(r.epochs_run) for r in results)
+    return {
+        "dataset": data.name,
         "model": cfg.model_type,
-        "devices": prep.world_size,
+        **extra,
         "test_mean": float(test.mean()),
         "test_std": float(test.std()),
         "per_split": test.tolist(),
@@ -535,4 +649,211 @@ def run_experiment_sharded(dataset: GraphData, cfg: TrainConfig, *,
         "epoch_ms_steady": (1000.0 * steady_time / steady_epochs
                             if steady_epochs else None),
     }
-    return (out, model) if return_model else out
+
+
+# ---------------------------------------------------------------------------
+# Single-card entry points
+# ---------------------------------------------------------------------------
+
+
+def _sync(dev) -> None:
+    """Wait for the card, so an asynchronous fault surfaces here (inside
+    a retry scope)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_experiment(dataset: GraphData, cfg: TrainConfig, *, splits=None,
+                   logger=None, prepared=None, runner=None, hparams=None,
+                   device=None) -> dict:
+    """Multi-split experiment, the counterpart of the JAX package's
+    ``run_experiment``: returns its result dict (test mean/std, per-split
+    test metrics, epochs, run time, ``epoch_ms_avg`` and
+    ``epoch_ms_steady`` over the splits after the first).
+
+    Split ``idx`` takes its masks from ``splits[idx]`` or ``resolve_split``
+    (random ones from ``numpy.random.default_rng(cfg.seed)``) and starts
+    from ``build_model(..., seed=cfg.seed + idx)``; each split runs under
+    ``retry_transient`` from its initial parameters.  The reuse hooks keep
+    the JAX package's meaning: ``prepared`` is ``prepare_data``'s output
+    (skips preprocessing); ``runner(model, ops, x, labels, masks, *, seed,
+    labels_onehot, hparams)`` runs one split from the model's current
+    parameters in place of ``make_split_runner(model, cfg)`` (JAX's
+    runner takes the split's initial variables; here the model holds
+    them); ``hparams = (lr, weight_decay)`` builds the optimizer from
+    those values.  ``logger``: an ``ExperimentLogger`` or any object with
+    its ``info`` / ``log_split`` / ``log_result``."""
+    data, ops, x, labels, labels_onehot, nclass = (
+        prepared if prepared is not None
+        else prepare_data(dataset, cfg, device=device))
+    if runner is None:
+        def runner(model, *args, **kwargs):
+            return make_split_runner(model, cfg)(*args, **kwargs)
+    dev = x.device
+    rng = np.random.default_rng(cfg.seed)
+    labels_np = _host_labels(data.labels)
+    results = []
+    t_total = time.time()
+    steady_time = 0.0
+    steady_epochs = 0
+    for idx in range(cfg.num_splits):
+        if splits is not None:
+            split = splits[idx]
+        else:
+            split = resolve_split(data, cfg, idx, rng, labels_np, nclass)
+        masks = tuple(torch.as_tensor(np.asarray(m)).to(dev) for m in split)
+        t_split = time.time()
+
+        def run_once():
+            model = build_model(cfg, x.shape[1], nclass, device=dev,
+                                seed=cfg.seed + idx)
+            res = runner(model, ops, x, labels, masks, seed=cfg.seed + idx,
+                         labels_onehot=labels_onehot, hparams=hparams)
+            _sync(dev)
+            return res
+
+        res = retry_transient(run_once, logger=logger)()
+        results.append(res)
+        if idx > 0:   # split 0 pays the warm-up; excluded from the rate
+            steady_time += time.time() - t_split
+            steady_epochs += int(res.epochs_run)
+        if logger is not None:
+            logger.log_split(idx, res)
+    out = _experiment_result(data, cfg, results, time.time() - t_total,
+                             steady_time, steady_epochs)
+    if logger is not None:
+        logger.log_result(out)
+    return out
+
+
+def make_epoch_fns(model: ACMGNN, cfg: TrainConfig):
+    """One-epoch-at-a-time train and eval functions of the observable
+    path (JAX ``make_epoch_fns``):
+
+    - ``train_epoch(opt, generator, ops, x, labels, labels_onehot,
+      train_mask)``: one dropout forward (checkpointed with
+      ``cfg.remat``), backward and optimizer step, in place; returns the
+      train loss;
+    - ``eval_epoch(ops, x, labels, labels_onehot, masks)``: one eval
+      forward; ``{"train_metric", "val_metric", "test_metric",
+      "val_loss"}`` (ROC-AUC: one score sort serves the three masks)."""
+    use_bce = cfg.loss == "bce"
+    use_rocauc = cfg.metric == "rocauc"
+
+    def loss_of(logits, labels, labels_onehot, mask):
+        if use_bce:
+            return masked_bce_with_logits(logits, labels_onehot, mask)
+        return masked_nll(torch.log_softmax(logits, dim=1), labels, mask)
+
+    def train_epoch(opt, generator, ops, x, labels, labels_onehot,
+                    train_mask):
+        logits = train_forward(model, x, ops, generator, remat=cfg.remat)
+        loss = loss_of(logits, labels, labels_onehot, train_mask)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    @torch.no_grad()
+    def eval_epoch(ops, x, labels, labels_onehot, masks):
+        logits = model(x, ops, training=False)
+        if use_rocauc:
+            metrics = masked_rocauc_multi(logits, labels, masks)
+        else:
+            metrics = tuple(masked_accuracy(logits, labels, m) for m in masks)
+        return {"train_metric": metrics[0], "val_metric": metrics[1],
+                "test_metric": metrics[2],
+                "val_loss": loss_of(logits, labels, labels_onehot, masks[1])}
+
+    return train_epoch, eval_epoch
+
+
+def epoch_generator(device, seed: int, epoch: int) -> torch.Generator:
+    """Epoch ``epoch``'s dropout generator of the stepwise path, derived
+    from ``(seed, epoch)`` (JAX ``fold_in(run_key, epoch)``): an epoch
+    draws the same masks however it is reached."""
+    state = np.random.SeedSequence((seed, epoch)).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def run_experiment_stepwise(dataset: GraphData, cfg: TrainConfig, *,
+                            splits=None, logger=None, display_step: int = 25,
+                            checkpoint_dir: Optional[str] = None,
+                            checkpoint_every: int = 0, resume: bool = False,
+                            device=None) -> dict:
+    """Observable multi-split run (JAX ``run_experiment_stepwise``): every
+    epoch trains, then evaluates on the host's request, and ``RunStats``
+    collects (train, val, test) per epoch; a split's test metric is the one
+    at its best-val epoch.  Split ``idx`` starts from ``build_model(...,
+    seed=cfg.seed + idx)``; its masks come as in ``run_experiment``.  Each
+    epoch runs under ``retry_transient``; it trains in place, so a retry
+    continues from the parameters the failed attempt left (JAX's epoch is
+    a pure function of its inputs).  ``epoch_ms_steady`` excludes the
+    first executed epoch.  Checkpointing (``checkpoint_dir``,
+    ``checkpoint_every``, ``resume``) is not ported yet (ROADMAP.md)."""
+    if checkpoint_dir is not None or checkpoint_every or resume:
+        raise NotImplementedError("checkpointing (checkpoint_dir, "
+                                  "checkpoint_every, resume) is not ported "
+                                  "yet (ROADMAP.md)")
+    data, ops, x, labels, labels_onehot, nclass = prepare_data(
+        dataset, cfg, device=device)
+    dev = x.device
+    rng = np.random.default_rng(cfg.seed)
+    labels_np = _host_labels(data.labels)
+    stats = RunStats(cfg.num_splits)
+    t_total = time.time()
+    steady_time = 0.0
+    steady_epochs = 0
+    first_epoch_done = False
+    for idx in range(cfg.num_splits):
+        if splits is not None:
+            split = splits[idx]
+        else:
+            split = resolve_split(data, cfg, idx, rng, labels_np, nclass)
+        masks = tuple(torch.as_tensor(np.asarray(m)).to(dev) for m in split)
+        model = build_model(cfg, x.shape[1], nclass, device=dev,
+                            seed=cfg.seed + idx)
+        opt = make_optimizer(cfg, list(model.parameters()))
+        train_epoch, eval_epoch = make_epoch_fns(model, cfg)
+        for epoch in range(cfg.epochs):
+
+            def do_epoch():
+                gen = epoch_generator(dev, cfg.seed + idx, epoch)
+                loss_ = train_epoch(opt, gen, ops, x, labels, labels_onehot,
+                                    masks[0])
+                ev_ = eval_epoch(ops, x, labels, labels_onehot, masks)
+                return float(loss_), {k: float(v) for k, v in ev_.items()}
+
+            t_epoch = time.time()
+            loss, ev = retry_transient(do_epoch, logger=logger)()
+            if first_epoch_done:   # the first executed epoch is warm-up
+                steady_time += time.time() - t_epoch
+                steady_epochs += 1
+            first_epoch_done = True
+            stats.add_result(idx, (ev["train_metric"], ev["val_metric"],
+                                   ev["test_metric"]))
+            if logger is not None and epoch % display_step == 0:
+                logger.info(
+                    "split %d epoch %d: loss %.4f train %.4f val %.4f "
+                    "test %.4f", idx, epoch, loss, ev["train_metric"],
+                    ev["val_metric"], ev["test_metric"])
+    summary = stats.summary()
+    elapsed = time.time() - t_total
+    epochs_total = cfg.num_splits * cfg.epochs
+    out = {
+        "dataset": data.name,
+        "model": cfg.model_type,
+        "test_mean": summary["test_mean"],
+        "test_std": summary["test_std"],
+        "valid_mean": summary["valid_mean"],
+        "valid_std": summary["valid_std"],
+        "per_split": [s["final_test"] for s in summary["per_run"]],
+        "epochs_total": epochs_total,
+        "runtime_s": elapsed,
+        "epoch_ms_avg": 1000.0 * elapsed / max(epochs_total, 1),
+        "epoch_ms_steady": (1000.0 * steady_time / steady_epochs
+                            if steady_epochs else None),
+    }
+    if logger is not None:
+        logger.log_result(out)
+    return out

@@ -69,6 +69,21 @@ Phases (any failure exits non-zero and prints no result):
       receives per SpMM; how far two summation orders of the single-chip
       port part there after 20 epochs; and, for the record, gloo's own
       handling of CUDA tensors without the staging.
+7. The last TPU kernels and the single-card entry points:
+   a. K7, the panel gather of ``tools/pallas_gather_probe.py`` (P1
+      per-element, P2 per-row indices): the port's probe
+      (``python -m acmgnn_tpu_torch.tools.gather_probe``) with its
+      launches counted, then each of its six configurations bit-equal to
+      the plain version, with K7, plain and library ms, the bytes bound
+      and M rows/s, and the HBM ``index_select`` yardstick;
+   b. ``run_experiment`` on the headline configuration at full size (2
+      splits, joint loop) and ``run_experiment_stepwise`` (1 split,
+      sequential epochs), with launch counts;
+   c. each knob in a short ``run_experiment`` at full size, with launch
+      counts: remat (peak memory beside the plain run; the recomputed
+      forward's launches counted), bf16 features with bf16 GEMMs, AdamW,
+      the RCM reorder (and the host seconds of the order); then each knob
+      card against CPU on phase 4's small graph.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -574,15 +589,30 @@ def joint_counts(bodies, gather, input_width, k4=False):
     return out
 
 
-def sequential_counts(bodies, gather, input_width):
-    """Launches a sequential ROC-AUC run implies: per epoch the train
-    forward's input gather and layer-2 gather, the layer-2 transpose, the
-    eval forward's layer-2 gather (its layer 1 reads x_agg), K2 per
-    forward and layer, K3 once per layer, K4 once."""
-    return {f"{gather}_w{input_width}": bodies + 1, f"{gather}_w4": 3 * bodies,
-            "k2_attn_fwd_d64": 2 * bodies, "k2_attn_fwd_d2": 2 * bodies,
-            "k3_attn_bwd_d64": bodies, "k3_attn_bwd_d2": bodies,
-            "k4_auc_m2": bodies}
+def sequential_counts(bodies, gather, input_width, k4=True):
+    """Launches a sequential run implies: per epoch the train forward's
+    input gather and layer-2 gather, the layer-2 transpose, the eval
+    forward's layer-2 gather (its layer 1 reads x_agg), K2 per forward
+    and layer, K3 once per layer, K4 once (ROC-AUC runs)."""
+    out = {f"{gather}_w{input_width}": bodies + 1, f"{gather}_w4": 3 * bodies,
+           "k2_attn_fwd_d64": 2 * bodies, "k2_attn_fwd_d2": 2 * bodies,
+           "k3_attn_bwd_d64": bodies, "k3_attn_bwd_d2": bodies}
+    if k4:
+        out["k4_auc_m2"] = bodies
+    return out
+
+
+def remat_counts(bodies, setup=1):
+    """``joint_counts`` of the headline with ``remat``: the backward
+    re-runs the train forward once, so every K1 and K2 launch of the
+    forward (the paired eval branch's included) runs twice; the
+    transpose, K3 and ``setup`` set-up gathers do not
+    (tests/test_torch_experiment.py pins this rule on the CPU)."""
+    out = joint_counts(bodies, "k1_spmm", 7)
+    for name in ("k1_spmm_w8", "k2_attn_fwd_d64", "k2_attn_fwd_d2"):
+        out[name] *= 2
+    out["k1_spmm_w7"] = 2 * bodies + setup
+    return out
 
 
 def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
@@ -834,10 +864,11 @@ def phase_profile(tag, run, bodies):
         for us, cnt, key in waits) or "none"))
 
 
-def card_vs_cpu(tag, data, cfg, masks_np):
+def card_vs_cpu(tag, data, cfg, masks_np, tol=1e-4, seed=3):
     """One configuration trained on the card (kernels) and on the CPU
-    (plain versions) from the same initial parameters: final parameters
-    within 1e-4, split results within 1e-4 relative, equal epochs_run."""
+    (plain versions) from the same initial parameters (``seed``): final
+    parameters within ``tol``, split results within ``tol`` relative,
+    equal epochs_run."""
     import torch
 
     from acmgnn_tpu_torch.train.trainer import (
@@ -849,7 +880,8 @@ def card_vs_cpu(tag, data, cfg, masks_np):
     out = {}
     for device in ("cuda", "cpu"):
         _, ops, x, y, y1h, nclass = prepare_data(data, cfg, device=device)
-        model = build_model(cfg, x.shape[1], nclass, device=device, seed=3)
+        model = build_model(cfg, x.shape[1], nclass, device=device,
+                            seed=seed)
         masks = tuple(torch.from_numpy(m).to(device) for m in masks_np)
         res = make_split_runner(model, cfg)(ops, x, y, masks,
                                             labels_onehot=y1h)
@@ -859,13 +891,13 @@ def card_vs_cpu(tag, data, cfg, masks_np):
     worst = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
     print(f"{tag} card vs CPU, {cfg.epochs} epochs (early_stopping "
           f"{cfg.early_stopping}): max |Δparam| {worst:.3e} (tolerance "
-          f"1e-4); epochs_run {rg.epochs_run}/{rc.epochs_run}")
+          f"{tol:g}); epochs_run {rg.epochs_run}/{rc.epochs_run}")
     for f in ("test_metric", "val_metric", "val_loss", "train_loss"):
         a, b = float(getattr(rg, f)), float(getattr(rc, f))
         print(f"  {f}: card {a:.6f} cpu {b:.6f}")
-        if not abs(a - b) <= 1e-4 * max(1.0, abs(b)):
+        if not abs(a - b) <= tol * max(1.0, abs(b)):
             fail(f"{tag} card and CPU disagree on {f}")
-    if worst > 1e-4 or rg.epochs_run != rc.epochs_run:
+    if worst > tol or rg.epochs_run != rc.epochs_run:
         fail(f"{tag} card and CPU parameters disagree")
     return rg
 
@@ -1574,6 +1606,240 @@ def phase_check_conditioning(data):
           f"{worst:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: K7 (the probe's panel gather) and the single-card entry points
+# ---------------------------------------------------------------------------
+
+PROBE_REPLACES = {"p1": "tools/pallas_gather_probe.py:62",
+                  "p2": "tools/pallas_gather_probe.py:91"}
+EXPERIMENT_EPOCHS, STEPWISE_EPOCHS, KNOB_EPOCHS = 20, 20, 10
+
+
+def phase_probe():
+    """[7a] The probe's entry point (``gather_probe.main``) on the card,
+    its K7 launches counted; then each of its six panel configurations:
+    K7 equal to its plain version bit for bit, K7, plain and library
+    (``take_along_dim`` for P1, ``index_select`` for P2) ms, the bytes
+    bound and M rows/s; and the HBM yardstick's ms beside its bound."""
+    import torch
+
+    from acmgnn_tpu_torch.ops import kernels
+    from acmgnn_tpu_torch.ops.panel_gather import (
+        panel_columns,
+        panel_gather,
+        panel_gather_plain,
+    )
+    from acmgnn_tpu_torch.tools import gather_probe as probe
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    probe.main("cuda")
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    per_config = probe.WARMUP + probe.ITERS
+    print(f"[7a] gather_probe.main: {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(counts)}")
+    if counts != {"K7": 6 * per_config}:
+        fail(f"[7a] K7 launches {counts} != 6 configurations x {per_config}")
+    configs = probe.configs("cuda")
+    m, d = probe.M, probe.D
+    rows = []
+    for name, _, x, idx in configs[1:]:
+        p, s = x.shape[0], x.element_size()
+        per_row = idx.dim() == 1
+        got = panel_gather(x, idx)
+        want = panel_gather_plain(x, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"[7a] {name}: K7 differs from its plain version")
+        del got, want
+        ms = time_ms(lambda: panel_gather(x, idx), 20)
+        plain_ms = time_ms(lambda: panel_gather_plain(x, idx), 5)
+        if per_row:
+            lib_ms = time_ms(lambda: torch.index_select(x, 0, idx), 20)
+        else:
+            idx64 = idx.long()
+            lib_ms = time_ms(lambda: torch.take_along_dim(x, idx64, 0), 20)
+            del idx64
+        nbytes = 4 * idx.numel() + m * d * s + p * d * s
+        b_ms, b_by = bound(nbytes, 0)
+        form = "p2" if per_row else "p1"
+        dtype = "bf16" if s == 2 else "f32"
+        row_name = f"k7_panel_gather_{form}_{dtype}_P{p}"
+        print(f"  {row_name}: bit-equal to its plain version; slice "
+              f"{panel_columns(p, d, s)} columns; {ms:.4f} ms "
+              f"({m / ms * 1e3 / 1e6:.1f} M rows/s; plain {plain_ms:.3f}, "
+              f"{'index_select' if per_row else 'take_along_dim'} "
+              f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by})")
+        rows.append(dict(
+            name=row_name, counter="K7", route="cuda",
+            source="acmgnn_tpu_torch/csrc/panel_gather.cu",
+            replaces=PROBE_REPLACES[form], launches=per_config,
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms,
+            path=f"probe, not on a training path (python -m "
+                 f"acmgnn_tpu_torch.tools.gather_probe): {per_config} "
+                 f"launches per configuration, 1 per probe call"))
+    _, _, xb, idxb = configs[0]
+    ms = time_ms(lambda: torch.index_select(xb, 0, idxb), 20)
+    b_ms, _ = bound(4 * m + 2 * m * d * 4, 0)
+    print(f"  yardstick torch.index_select from [{xb.shape[0]}, {d}] f32 in "
+          f"device memory: {ms:.4f} ms ({m / ms * 1e3 / 1e6:.1f} M rows/s; "
+          f"bound {b_ms:.4f} bytes, rows read once each)")
+    return rows
+
+
+def _experiment(tag, data, cfg, expected, prepared=None):
+    """``run_experiment`` on the card with the launch counts reset before
+    and read after (``expected(bodies)``, ``bodies`` the loop bodies of
+    all splits), peak memory from a reset; returns (result, counts)."""
+    import torch
+
+    from acmgnn_tpu_torch.ops import kernels
+    from acmgnn_tpu_torch.train import run_experiment
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = run_experiment(data, cfg, prepared=prepared)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    bodies = out["epochs_total"] + (cfg.num_splits if cfg.joint else 0)
+    print(f"{tag} run_experiment {cfg.num_splits} splits x {cfg.epochs} "
+          f"epochs: {time.perf_counter() - t0:.1f} s; peak {peak:.0f} MiB; "
+          f"{json.dumps(out)}")
+    want = expected(bodies)
+    print(f"{tag} launches {json.dumps(counts, sort_keys=True)}")
+    if counts != want:
+        fail(f"{tag} launch counts {counts} != expected {want}")
+    if not np.isfinite(out["test_mean"]) or out["epoch_ms_steady"] is None:
+        fail(f"{tag} no finite result")
+    return out, counts, peak
+
+
+def phase_entry_points(adj, feats, labels):
+    """[7b] ``run_experiment`` on the headline configuration at full size
+    (2 splits, joint loop) and ``run_experiment_stepwise`` (1 split,
+    sequential epochs) with launch counts; [7c] each knob of this slice in
+    one short ``run_experiment`` at full size: remat (peak memory beside
+    the plain run), bf16 features + bf16 GEMMs, AdamW, RCM reorder (with
+    the host seconds of the order itself)."""
+    import torch
+
+    from acmgnn_tpu_torch.ops import kernels
+    from acmgnn_tpu_torch.ops.graph import GraphData, locality_order
+    from acmgnn_tpu_torch.train.trainer import (
+        prepare_data,
+        run_experiment_stepwise,
+    )
+
+    data = GraphData("twitch-gamers-scale-uniform", adj, feats, labels)
+    cfg = headline_config(epochs=EXPERIMENT_EPOCHS, num_splits=2)
+    out = {}
+    out["experiment"] = _experiment(
+        "[7b]", data, cfg, lambda b: joint_counts(b, "k1_spmm", 7))
+
+    step_cfg = dataclasses.replace(cfg, epochs=STEPWISE_EPOCHS, num_splits=1,
+                                   joint=False)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = run_experiment_stepwise(data, step_cfg)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    per_epoch = {k: round(v / STEPWISE_EPOCHS, 3) for k, v in counts.items()}
+    print(f"[7b] run_experiment_stepwise 1 split x {STEPWISE_EPOCHS} "
+          f"epochs: {json.dumps(res)}; launches per epoch "
+          f"{json.dumps(per_epoch, sort_keys=True)}")
+    want = sequential_counts(STEPWISE_EPOCHS, "k1_spmm", 7, k4=False)
+    if counts != want:
+        fail(f"[7b] stepwise launch counts {counts} != expected {want}")
+    out["stepwise"] = res
+
+    knob = dataclasses.replace(cfg, epochs=KNOB_EPOCHS)
+    prepared = prepare_data(data, knob)
+    plain = lambda b: joint_counts(b, "k1_spmm", 7)    # noqa: E731
+    reused = lambda b: {**plain(b), "k1_spmm_w7": b}   # noqa: E731
+    out["plain"] = _experiment("[7c plain]", data, knob, reused, prepared)
+    out["remat"] = _experiment(
+        "[7c remat]", data, dataclasses.replace(knob, remat=True),
+        lambda b: remat_counts(b, setup=0), prepared)
+    print(f"[7c] peak memory: plain {out['plain'][2]:.0f} MiB, remat "
+          f"{out['remat'][2]:.0f} MiB; ms/epoch steady: plain "
+          f"{out['plain'][0]['epoch_ms_steady']:.3f}, remat "
+          f"{out['remat'][0]['epoch_ms_steady']:.3f}")
+    out["adamw"] = _experiment(
+        "[7c adamw]", data, dataclasses.replace(knob, optimizer="adamw"),
+        reused, prepared)
+    out["bf16"] = _experiment(
+        "[7c bf16 features + GEMMs]", data,
+        dataclasses.replace(knob, feature_dtype="bfloat16",
+                            gemm_dtype="bfloat16"), plain)
+    t0 = time.perf_counter()
+    perm = locality_order(adj, "rcm")
+    rcm_s = time.perf_counter() - t0
+    print(f"[7c] RCM order of N={adj.shape[0]} nnz={adj.nnz}: {rcm_s:.2f} s "
+          f"on the host (scipy); bandwidth before "
+          f"{_bandwidth(adj)}, after {_bandwidth(adj[perm][:, perm])}")
+    out["rcm"] = _experiment(
+        "[7c reorder rcm]", data, dataclasses.replace(knob, reorder="rcm"),
+        plain)
+    out["rcm_s"] = rcm_s
+    return out
+
+
+def _bandwidth(adj) -> int:
+    """The largest |row - column| of a nonzero."""
+    import scipy.sparse as sp
+
+    coo = sp.coo_matrix(adj)
+    return int(np.abs(coo.row.astype(np.int64) - coo.col).max())
+
+
+def bf16_check_config():
+    """Phase 7c's card-against-CPU check of bf16 features with bf16 GEMMs:
+    phase 6c's configuration (``sharded_check_config``) with both knobs.
+    A bf16 rounding that a last-bit f32 difference flips moves a value by
+    2^-8 relative, and on phase 4's configuration (lr 0.01, weight decay,
+    random labels) 20 epochs amplify that to 3.3e-2 card against CPU (H100
+    80GB HBM3, 700 W); here two summation orders of the CPU port part by
+    3.6e-4 (tests/test_torch_experiment.py pins it below 1e-3)."""
+    return dataclasses.replace(sharded_check_config("ell"),
+                               feature_dtype="bfloat16",
+                               gemm_dtype="bfloat16")
+
+
+def phase_knobs_card_vs_cpu():
+    """[7c] Each knob of this slice, card against CPU from the same
+    initial parameters at dropout 0 (the CPU and the card draw different
+    dropout streams): remat, AdamW and the RCM reorder on phase 4's small
+    graph within 1e-4 (f32: summation order only); bf16 features with
+    bf16 GEMMs on phase 6c's graph and configuration within 1e-2
+    (``bf16_check_config``)."""
+    from acmgnn_tpu_torch.data.splits import random_disassortative_splits
+    from acmgnn_tpu_torch.data.synthetic_scale import \
+        twitch_gamers_scale_graph
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    adj, feats, labels = twitch_gamers_scale_graph(0, n=2000, pairs=40_000)
+    data = GraphData("small", adj, np.abs(feats), labels)
+    base = headline_config(hidden=16, dropout=0.0, spmm_dtype="float32",
+                           epochs=20)
+    for tag, over in (("remat", dict(remat=True)),
+                      ("adamw", dict(optimizer="adamw")),
+                      ("reorder rcm", dict(reorder="rcm"))):
+        card_vs_cpu(f"[7c {tag}]", data, dataclasses.replace(base, **over),
+                    _masks(2000))
+    cfg = bf16_check_config()
+    data = _small_twitch()
+    masks = np.stack(random_disassortative_splits(
+        data.labels, 2, rng=np.random.default_rng(cfg.seed)))
+    card_vs_cpu("[7c bf16 features + GEMMs]", data, cfg, masks, tol=1e-2,
+                seed=cfg.seed)
+
+
 def main() -> int:
     import torch
 
@@ -1638,17 +1904,26 @@ def main() -> int:
                            row["counter"], 0))
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on its path")
+
+    p_rows = phase_probe()
+    entry = phase_entry_points(adj, feats, labels)
+    phase_knobs_card_vs_cpu()
+    steady = {k: entry[k][0]["epoch_ms_steady"]
+              for k in ("experiment", "plain", "remat", "adamw", "bf16",
+                        "rcm")}
     print(f"[done] {time.perf_counter() - t_start:.1f} s; main path "
           f"{ms_epoch:.3f} ms/epoch; genius joint ell "
           f"{paths['ell'][1]:.3f}, coo {paths['coo'][1]:.3f}, sequential "
           f"{paths['seq'][1]:.3f} ms/epoch; the stop-flag read "
           f"{paths['stop_flag_ms']:+.3f} ms/epoch; sharded headline, world "
-          f"size 1 {s_ms:.3f} ms/epoch")
+          f"size 1 {s_ms:.3f} ms/epoch; run_experiment steady ms/epoch "
+          + ", ".join(f"{k} {v:.3f}" for k, v in steady.items())
+          + f"; stepwise {entry['stepwise']['epoch_ms_steady']:.3f}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in rows + g_rows + s_rows]}))
+                                  for r in rows + g_rows + s_rows + p_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,6 +34,7 @@ from acmgnn_tpu_torch.models.layers import (
     attention_mix_backward_plain,
     attention_mix_forward,
     attention_mix_forward_plain,
+    bf16_matmul,
 )
 from acmgnn_tpu_torch.ops import kernels
 from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain, make_coo_half
@@ -49,6 +50,11 @@ from acmgnn_tpu_torch.ops.graph import (
     row_normalized_adjacency,
 )
 from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain
+from acmgnn_tpu_torch.ops.panel_gather import (
+    SMEM_BYTES,
+    panel_gather,
+    panel_gather_plain,
+)
 from acmgnn_tpu_torch.ops.spmm import spmm_multi
 from acmgnn_tpu_torch.train.metrics import (
     auc_rank_pass,
@@ -140,11 +146,16 @@ import acmgnn_tpu_torch
 for m in pkgutil.walk_packages(acmgnn_tpu_torch.__path__, "acmgnn_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-print("imported", len(sys.modules))
+print(" ".join(sorted(sys.modules)))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    imported = set(proc.stdout.split())
+    assert {"acmgnn_tpu_torch.ops.panel_gather",
+            "acmgnn_tpu_torch.tools.gather_probe",
+            "acmgnn_tpu_torch.utils.logging",
+            "acmgnn_tpu_torch.utils.resilience"} <= imported
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -562,3 +573,81 @@ def test_k4_matches_plain(cuda, kind, n):
     want = auc_rank_pass_plain(s_sorted, order, packed, 2)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want.cpu())
+
+
+# ---------------------------------------------------------------------------
+# K7: the panel gather (tools/pallas_gather_probe.py's P1 / P2)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", (8, 512, 4096))
+@pytest.mark.parametrize("d", (128, 7))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("per_row", (False, True))
+def test_k7_matches_plain(cuda, p, d, dtype, per_row):
+    """K7 equal to its plain version bit for bit (a gather copies bits),
+    on a ragged M (no multiple of any block's row chunk) and on indices
+    that differ across a row for the per-element form."""
+    gen = torch.Generator(device=cuda).manual_seed(p + d)
+    m = 10_007
+    x = torch.randn(p, d, generator=gen, device=cuda).to(dtype)
+    shape = (m,) if per_row else (m, d)
+    idx = torch.randint(0, p, shape, generator=gen, device=cuda,
+                        dtype=torch.int32)
+    kernels.reset_launches()
+    got = panel_gather(x, idx)
+    torch.cuda.synchronize()
+    assert kernels.launches["K7"] == 1
+    assert got.dtype == dtype and got.shape == (m, d)
+    assert torch.equal(got, panel_gather_plain(x, idx))
+
+
+@pytest.mark.gpu
+def test_k7_refuses_what_it_cannot_take(cuda):
+    """A panel that no column slice fits is refused by name with its
+    bytes; CPU and CUDA operands are not mixed; indices must be int32."""
+    idx = torch.zeros(16, dtype=torch.int32, device=cuda)
+    big = torch.zeros(SMEM_BYTES // 4 + 1, 8, device=cuda)
+    with pytest.raises(ValueError, match="bytes"):
+        panel_gather(big, idx)
+    x = torch.zeros(64, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        panel_gather(x, idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        panel_gather(x.to(cuda), idx.cpu())
+    with pytest.raises(TypeError, match="int32"):
+        panel_gather(x.to(cuda), idx.long())
+
+
+@pytest.mark.gpu
+def test_bf16_gemm_card_matches_cpu_formula(cuda):
+    """The bf16 GEMM's Function on the card (``torch.mm`` with an f32
+    result) against its CPU formula (bf16 values multiplied as f32):
+    output and gradients within ``1e-5·sqrt(K)·Σ|terms|`` (the same exact
+    products summed in other orders), plus one bf16 step (2^-7 relative)
+    on the gradients, whose rounding to bf16 a last-bit difference can
+    flip."""
+    rng = np.random.default_rng(9)
+    a = rng.normal(size=(3000, 96)).astype(np.float32)
+    w = rng.normal(size=(96, 64)).astype(np.float32)
+    g = rng.normal(size=(3000, 64)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda):
+        ta = torch.from_numpy(a).to(dev).requires_grad_()
+        tw = torch.from_numpy(w).to(dev).requires_grad_()
+        out = bf16_matmul(ta, tw)
+        out.backward(torch.from_numpy(g).to(dev))
+        res[str(dev)] = [t.detach().cpu() for t in (out, ta.grad, tw.grad)]
+    ab, wb = (torch.from_numpy(t).bfloat16().float().abs() for t in (a, w))
+    gabs = torch.from_numpy(g).abs()
+    scales = (ab @ wb, gabs @ wb.T, ab.T @ gabs)
+    for (got, want), scale, k, rounded in zip(
+            zip(res["cuda"], res["cpu"]), scales, (96, 64, 3000),
+            (False, True, True)):
+        assert got.dtype == torch.float32
+        tol = 1e-5 * k ** 0.5 * scale
+        if rounded:
+            tol = tol + 2.0 ** -7 * want.abs()
+            assert torch.equal(got, got.bfloat16().float())
+        assert bool(((got - want).abs() <= tol).all())

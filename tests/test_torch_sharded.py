@@ -5,7 +5,8 @@ The port runs as 4 ranks of a gloo group on the CPU, each a process of
 under the test's temporary directory; the JAX package runs its sharded
 functions on 4 of conftest's 8 virtual CPU devices.  One world of 4 ranks
 runs every job of the module once (the ranks write their slabs, the tests
-compare them); a world of 2 runs the entry point again.
+compare them); a world of 2 runs the entry point again, also with a
+locality reorder and bf16 feature storage.
 
 Tolerances, stated where used: partitions, schedules and the plain pack
 exactly; sparse products per element ``1e-5·sqrt(row terms)·max(1,
@@ -76,6 +77,7 @@ from acmgnn_tpu_torch.train.trainer import (
     build_model,
     make_split_runner,
     prepare_data,
+    run_experiment,
     run_experiment_sharded,
 )
 
@@ -207,6 +209,9 @@ def _state_dict(variables):
 
 
 EXPERIMENT_CFG = dict(MODEL_CFG, num_splits=2, epochs=12, seed=5)
+# the single-card knobs the sharded entry takes too: a locality reorder
+# before partitioning and bf16 feature storage
+KNOBS_CFG = dict(EXPERIMENT_CFG, reorder="rcm", feature_dtype="bfloat16")
 
 
 @pytest.fixture(scope="module")
@@ -248,7 +253,9 @@ def world2(tmp_path_factory, model_graph):
                            labels=labels)
     return _spawn(tmp_path_factory.mktemp("world2"), 2, inputs,
                   [dict(kind="experiment", key="experiment", graph="model",
-                        exchange="auto", cfg=EXPERIMENT_CFG)])
+                        exchange="auto", cfg=EXPERIMENT_CFG),
+                   dict(kind="experiment", key="knobs", graph="model",
+                        exchange="halo", cfg=KNOBS_CFG)])
 
 
 def _gather(ranks, key):
@@ -514,6 +521,34 @@ def test_entry_point_world_sizes_agree(world, world2, world4, model_graph):
     assert set(got) == set(want)
     for name, ref in want.items():
         np.testing.assert_allclose(got[name], ref, rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_entry_point_takes_reorder_and_bf16_features(world2, model_graph):
+    """World size 2 with ``reorder="rcm"`` (applied before partitioning)
+    and bf16 feature storage, halo exchange, against the single-card
+    ``run_experiment`` with the same knobs: the same masks (drawn in the
+    reordered label space) and initial parameters, so equal test metrics
+    and the last split's parameters within 1e-5."""
+    models = []
+
+    def keep(model, *args, **kwargs):
+        models.append(model)
+        return make_split_runner(model, cfg)(*args, **kwargs)
+
+    cfg = TrainConfig(**KNOBS_CFG)
+    want = run_experiment(GraphData("g", *model_graph), cfg, runner=keep,
+                          device="cpu")
+    ranks = world2
+    assert all(bool(r["knobs/start_equal"]) and bool(r["knobs/replicas_equal"])
+               for r in ranks)
+    assert int(ranks[0]["knobs/devices"]) == 2
+    assert float(ranks[0]["knobs/test_mean"]) == pytest.approx(
+        want["test_mean"], abs=1e-6)
+    assert int(ranks[0]["knobs/epochs_total"]) == want["epochs_total"]
+    for name, p in models[-1].named_parameters():
+        np.testing.assert_allclose(ranks[0][f"knobs/param/{name}"],
+                                   p.detach().numpy(), rtol=1e-5, atol=1e-5,
                                    err_msg=name)
 
 
