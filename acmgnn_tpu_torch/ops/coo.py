@@ -7,7 +7,7 @@ triplets).  A half is one matrix (``A`` or ``Aᵀ``) as row-sorted triplets
 package pads to a multiple of 512 with ``row = N``, a TPU shape habit.
 
 K5 balances nonzeros, not rows: the triplets are cut into slices of
-``slice_nnz`` nonzeros, one thread each.  A row wholly inside a slice is
+``slice_nnz`` nonzeros, one warp each.  A row wholly inside a slice is
 reduced and stored there; a row that crosses a slice boundary leaves a
 partial sum per slice in a carry buffer, and a second launch adds those
 in slice order and stores the row.  Which rows cross a boundary (and from
@@ -32,9 +32,9 @@ import torch
 from acmgnn_tpu_torch.ops import kernels
 from acmgnn_tpu_torch.ops.ell import _columns, column_constants
 
-# Nonzeros per K5 slice (one thread each).  A hub row of degree k spans
-# about k / SLICE_NNZ slices and is finished by one warp.
-SLICE_NNZ = 16
+# Nonzeros per K5 slice (one warp each: 8 per lane).  A hub row of degree
+# k spans about k / SLICE_NNZ slices, whose partial sums one thread adds.
+SLICE_NNZ = 256
 
 
 @dataclasses.dataclass

@@ -2,11 +2,13 @@
 
 Counterpart of ``acmgnn_tpu/ops/ell.py``.  The JAX package packs each
 matrix into degree buckets of rows-minor, pre-chunked ELL planes because
-of the TPU's gather engine.  On Hopper a warp per row walking plain CSR
-keeps the index stream coalesced, so a half here is degree-sorted CSR:
-``indptr``/``indices`` over rows in descending-degree order, and
-``row_ids`` mapping each sorted row to the output row it writes (the
-inverse permutation folded into the store).
+of the TPU's gather engine.  On Hopper a group of lanes per row walking
+plain CSR keeps the index stream coalesced, so a half here is
+degree-sorted CSR: ``indptr``/``indices`` over rows in descending-degree
+order, ``row_ids`` mapping each sorted row to the output row it writes
+(the inverse permutation folded into the store), and ``lane_classes``,
+where each group size of K1 (``k1_lanes``, a function of the degree
+alone) ends in the sorted order.
 
 The semantics carry over unchanged:
 
@@ -25,6 +27,7 @@ The semantics carry over unchanged:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -33,6 +36,36 @@ import scipy.sparse as sp
 import torch
 
 from acmgnn_tpu_torch.ops import kernels
+
+
+# K1 gives a row about K1_LANE_ENTRIES entries per lane in a group of
+# 1, 2, 4, 8, 16 or 32 lanes, and rows above K1_HUB_DEGREE a whole block
+# (8 entries a lane measured faster than 4 on both graphs of the training
+# paths, and as fast as 16: PERF.md's kernel findings).
+K1_LANE_ENTRIES = 8
+K1_HUB_DEGREE = 256
+K1_BLOCK = 256
+# lanes per row of each class, in sorted-row (descending degree) order
+K1_LANES = (K1_BLOCK, 32, 16, 8, 4, 2, 1)
+
+
+def k1_lanes(deg, entries: int = K1_LANE_ENTRIES):
+    """Lanes K1 gives a row of degree ``deg`` (scalar or array): the
+    fewest of 1, 2, ..., 32 that hold it at ``entries`` entries a lane,
+    or ``K1_BLOCK`` above ``K1_HUB_DEGREE``."""
+    deg = np.asarray(deg, np.int64)
+    need = np.maximum(-(-deg // entries), 1)
+    group = np.minimum(1 << np.ceil(np.log2(need)).astype(np.int64), 32)
+    return np.where(deg > K1_HUB_DEGREE, K1_BLOCK, group)
+
+
+def k1_lane_classes(indptr, entries: int = K1_LANE_ENTRIES) -> tuple:
+    """End of each ``K1_LANES`` class in a degree-sorted half's rows
+    (``k1_lanes`` at ``entries`` entries a lane)."""
+    lanes = k1_lanes(np.diff(np.asarray(indptr, np.int64)), entries)
+    if np.any(np.diff(lanes) > 0):
+        raise ValueError("K1 needs rows in descending-degree order")
+    return tuple(int(np.count_nonzero(lanes >= g)) for g in K1_LANES)
 
 
 @dataclasses.dataclass
@@ -47,10 +80,14 @@ class EllHalf:
     pre_scale: Optional[torch.Tensor] = None  # [N] f32, operand-row order
     # operand rows (the matrix's column count); None: square, N
     num_cols: Optional[int] = None
+    # end of each K1_LANES class in the sorted rows; None: from indptr
+    lane_classes: Optional[tuple] = None
 
     def __post_init__(self):
         if self.num_cols is None:
             self.num_cols = self.num_rows
+        if self.lane_classes is None:
+            self.lane_classes = k1_lane_classes(self.indptr.cpu().numpy())
 
     @property
     def num_rows(self) -> int:
@@ -141,6 +178,7 @@ def make_ell_op(mat: sp.spmatrix, *, gather_dtype=torch.float32) -> EllOp:
         # same structure: share it, pre-scale the operand instead
         bwd = EllHalf(
             indptr=fwd.indptr, indices=fwd.indices, row_ids=fwd.row_ids,
+            lane_classes=fwd.lane_classes,
             pre_scale=torch.from_numpy(np.asarray(scale_fwd, np.float32)),
         )
     elif scale_bwd is not None:
@@ -166,6 +204,33 @@ def _columns(values, d: int, default: float):
     return out
 
 
+def k1_operand_ld(d: int, dtype: torch.dtype) -> int:
+    """Row stride of K1's gather operand: a row of at most 32 bytes is
+    padded to a power of two of bytes (bf16 w7: 14 → 16 bytes, w12: 24 →
+    32), so it is one aligned 8- or 16-byte load sequence in one L2
+    sector; wider rows keep ``d``."""
+    nbytes = d * torch.finfo(dtype).bits // 8
+    if nbytes >= 32 or d == 0:
+        return d
+    return (1 << (nbytes - 1).bit_length()) * 8 // torch.finfo(dtype).bits
+
+
+def k1_operand(x: torch.Tensor, dtype: torch.dtype,
+               pre_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` (times ``pre_scale`` per row, in f32, rounded once) in K1's
+    gather dtype, as a ``[N, d]`` view with K1's row stride
+    (``k1_operand_ld``); the padding columns are never read into a sum."""
+    d = x.shape[1]
+    ld = k1_operand_ld(d, dtype)
+    if pre_scale is not None:
+        x = x.float() * pre_scale[:, None]
+    if ld == d:
+        return x.to(dtype)
+    out = torch.empty(x.shape[0], ld, dtype=dtype, device=x.device)[:, :d]
+    out.copy_(x)
+    return out
+
+
 def row_gather_spmm_plain(half: EllHalf, x: torch.Tensor,
                           z: Optional[torch.Tensor], alpha, beta):
     """Plain PyTorch version of K1 (same arithmetic, another sum order)."""
@@ -181,6 +246,59 @@ def row_gather_spmm_plain(half: EllHalf, x: torch.Tensor,
     if half.row_scale is not None:
         acc = acc * half.row_scale[:, None]
     out = column_constants(beta, dev) * acc
+    if z is not None:
+        out = column_constants(alpha, dev) * z + out
+    return out
+
+
+def k1_order_replay(half: EllHalf, x: torch.Tensor,
+                    z: Optional[torch.Tensor], alpha, beta) -> torch.Tensor:
+    """K1's arithmetic in its own order, in plain PyTorch: in a row's
+    group of ``k1_lanes(degree)`` lanes, lane l sums the row's entries l,
+    l+g, ... in turn (each product ``w·x`` rounded on its own), a
+    butterfly over lane offsets g/2, ..., 1 adds each warp's partials, a
+    hub row's warp partials are added in warp order, then the row scale
+    and the epilogue, one rounding per operation.  K1 equals this bit for
+    bit."""
+    n, d = half.num_rows, x.shape[1]
+    dev = x.device
+    xf = torch.cat([x.float(), torch.zeros(1, d, device=dev)])
+    zero_row = x.shape[0]          # the appended zero row of xf
+    last = max(half.indices.numel() - 1, 0)
+    sums = torch.zeros(n, d, device=dev)
+    row0 = 0
+    for lanes, row1 in zip(K1_LANES, half.lane_classes):
+        if row1 == row0:
+            continue
+        beg = half.indptr[row0:row1, None]
+        end = half.indptr[row0 + 1:row1 + 1, None]
+        lane = torch.arange(lanes, device=dev)
+        acc = torch.zeros(row1 - row0, lanes, d, device=dev)
+        for k in range(-(-int((end - beg).max()) // lanes)):
+            e = beg + lanes * k + lane[None]
+            valid = e < end
+            e = e.clamp(max=last)
+            term = xf[torch.where(valid, half.indices[e].long(), zero_row)]
+            if half.vals is not None:
+                term = term * torch.where(valid, half.vals[e], 0.0)[..., None]
+            acc = acc + term
+        warp = min(lanes, 32)
+        acc = acc.view(row1 - row0, lanes // warp, warp, d)
+        wl = torch.arange(warp, device=dev)
+        off = warp // 2
+        while off:
+            acc = acc + acc[:, :, wl ^ off]
+            off //= 2
+        s = acc[:, 0, 0]
+        for w in range(1, lanes // warp):
+            s = s + acc[:, w, 0]
+        sums[row0:row1] = s
+        row0 = row1
+    out = torch.empty(n, d, device=dev)
+    out[half.row_ids.long()] = sums
+    if half.row_scale is not None:
+        out = out * half.row_scale[:, None]
+    out = column_constants(beta, dev) * out
     if z is not None:
         out = column_constants(alpha, dev) * z + out
     return out
@@ -207,9 +325,10 @@ def _row_gather_spmm_cuda(half: EllHalf, x, z, alpha, beta):
     if x.shape[0] != half.num_cols:
         raise ValueError(f"operand has {x.shape[0]} rows, operator "
                          f"{half.num_cols} columns")
-    arrays = [half.indptr, half.indices, half.row_ids, x]
+    arrays = [half.indptr, half.indices, half.row_ids]
     arrays += [t for t in (z, half.vals, half.row_scale) if t is not None]
-    kernels.require_cuda(*arrays)
+    # the operand may be a row-padded view (k1_operand)
+    kernels.require_cuda(*arrays, strided=(x,))
     # K1 reads the operand only through ``indices`` and indexes z and out
     # by output row, so z is [num_rows, d] also for a rectangular half
     if z is not None and (z.dtype != torch.float32 or z.shape != (n, d)):
@@ -221,9 +340,10 @@ def _row_gather_spmm_cuda(half: EllHalf, x, z, alpha, beta):
     rc = lib.acm_k1_spmm(
         kernels.ptr(half.indptr), kernels.ptr(half.indices),
         kernels.ptr(half.vals), kernels.ptr(half.row_ids), kernels.ptr(x),
-        int(x.dtype == torch.bfloat16), kernels.ptr(z),
+        int(x.dtype == torch.bfloat16), x.stride(0), kernels.ptr(z),
         kernels.ptr(alpha_t), kernels.ptr(beta_t),
         kernels.ptr(half.row_scale), kernels.ptr(out), n, d,
+        (ctypes.c_int * len(K1_LANES))(*half.lane_classes),
         kernels.stream(),
     )
     kernels.check(lib, rc, "K1 spmm")
@@ -236,9 +356,10 @@ def row_gather_spmm(half: EllHalf, x: torch.Tensor,
     """``out[r, j] = alpha[j]·z[r, j] + beta[j]·rs[r]·Σ_{c ∈ row r} x[c, j]``.
 
     ``x``: [num_cols, d] gather operand (bf16 or f32; a transpose half's
-    operand is already pre-scaled).  ``z``: optional f32 [num_rows, d]
-    residual; ``alpha``
-    (default 0) and ``beta`` (default 1) are per-column constants.  Returns
+    operand is already pre-scaled), contiguous or a row-padded view
+    (``k1_operand``).  ``z``: optional f32 [num_rows, d] residual;
+    ``alpha`` (default 0) and ``beta`` (default 1) are per-column
+    constants.  Returns
     f32 [N, d].  A CPU operand runs the plain version; a CUDA operand
     launches K1.
     """
@@ -249,6 +370,8 @@ def row_gather_spmm(half: EllHalf, x: torch.Tensor,
         z = None
     if x.device.type == "cpu":
         return row_gather_spmm_plain(half, x, z, alpha, beta)
-    return _row_gather_spmm_cuda(half, x.contiguous(),
+    if x.stride(1) != 1 or x.stride(0) < d:
+        x = x.contiguous()
+    return _row_gather_spmm_cuda(half, x,
                                  None if z is None else z.contiguous(),
                                  alpha, beta)

@@ -43,13 +43,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # argtypes of every C entry point, by library
 _SIGNATURES = {
     "spmm": {
-        # indptr, indices, vals, row_ids, x, x_bf16, z, alpha, beta,
-        # row_scale, out, n_rows, d, stream
-        "acm_k1_spmm": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                        _P],
+        # indptr, indices, vals, row_ids, x, x_bf16, ld, z, alpha, beta,
+        # row_scale, out, n_rows, d, class_end (host), stream
+        "acm_k1_spmm": [_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _I,
+                        _I, _IP, _P],
     },
     "attention": {
         # h0, h1, h2, v, c, W, out, n, d, use_ln, scale, stream
@@ -173,12 +174,13 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def require_cuda(*tensors) -> None:
-    """Raise unless every tensor lies on one CUDA device and is contiguous."""
+def require_cuda(*tensors, strided=()) -> None:
+    """Raise unless every tensor lies on one CUDA device and is contiguous;
+    those in ``strided`` need only lie on that device."""
     dev = tensors[0].device
-    for t in tensors:
+    for t in (*tensors, *strided):
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"kernel operands must share one CUDA device, "
                              f"got {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError("kernel operands must be contiguous")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("kernel operands must be contiguous")

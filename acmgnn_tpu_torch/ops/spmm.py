@@ -21,7 +21,11 @@ from typing import Optional, Sequence, Union
 import torch
 
 from acmgnn_tpu_torch.ops.coo import coo_spmm
-from acmgnn_tpu_torch.ops.ell import column_constants, row_gather_spmm
+from acmgnn_tpu_torch.ops.ell import (
+    column_constants,
+    k1_operand,
+    row_gather_spmm,
+)
 from acmgnn_tpu_torch.ops.graph import CooOp, EllOp
 from acmgnn_tpu_torch.parallel.sharded import (
     ShardedCooOp,
@@ -42,10 +46,10 @@ def spmm_transpose(op: SparseOp, g: torch.Tensor, sign=None,
 
     On an ``EllOp`` the operand is cast to the gather dtype, then
     pre-scaled in f32 and rounded once more (the JAX package's rounding
-    order); a ``CooOp`` gathers f32 over its transpose triplets.  A
-    sharded ELL operator pre-scales in f32 and rounds once, as the JAX
-    package's sharded path does.  ``sign`` (±1 per column) is exact in any
-    float format.
+    order), into K1's row-padded layout (``k1_operand``); a ``CooOp``
+    gathers f32 over its transpose triplets.  A sharded ELL operator
+    pre-scales in f32 and rounds once, as the JAX package's sharded path
+    does.  ``sign`` (±1 per column) is exact in any float format.
     """
     if isinstance(op, ShardedEllOp):
         return sharded_ell_spmm_transpose(op, g.float(), sign, residual,
@@ -56,10 +60,10 @@ def spmm_transpose(op: SparseOp, g: torch.Tensor, sign=None,
     x = g if sign is None else g * column_constants(sign, g.device)
     if isinstance(op, CooOp):
         return coo_spmm(op.bwd, x.float(), z=residual, alpha=residual_cols)
-    x = x.to(op.gather_dtype)
     half = op.bwd
     if half.pre_scale is not None:
-        x = (x.float() * half.pre_scale[:, None]).to(op.gather_dtype)
+        x = x.to(op.gather_dtype)
+    x = k1_operand(x, op.gather_dtype, half.pre_scale)
     return row_gather_spmm(half, x, z=residual, alpha=residual_cols)
 
 
@@ -86,7 +90,7 @@ class _FusedGather(torch.autograd.Function):
             # K1 gathers a bf16 operand as it is (its values are exact in
             # f32), so bf16-stored features get no f32 copy
             x = (z_cat if z_cat.dtype == torch.bfloat16
-                 else z_cat.to(op.gather_dtype))
+                 else k1_operand(z_cat, op.gather_dtype))
             out = row_gather_spmm(op.fwd, x, z=residual, alpha=alpha,
                                   beta=beta)
         ctx.op = op

@@ -254,6 +254,7 @@ def make_sharded_ell_op(adj_op: sp.spmatrix, world_size: int,
             # same structure: share it, pre-scale the operand slab instead
             bwd = EllHalf(indptr=fwd.indptr, indices=fwd.indices,
                           row_ids=fwd.row_ids, num_cols=fwd.num_cols,
+                          lane_classes=fwd.lane_classes,
                           pre_scale=slab(scale_fwd))
         else:
             mat_t = local(blocks["row_l_t"][p], src[ck_t][p],

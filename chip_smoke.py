@@ -11,12 +11,17 @@ Phases (any failure exits non-zero and prints no result):
 2. Each kernel against its plain PyTorch version at the main path's shapes
    on the twitch-gamers-shaped operator (N=168,114, nnz=13,759,942): K1 at
    widths 7, 8 (high-pass epilogue) and 4 (transpose half), K2/K3 at
-   d=64 and d=2; max error against the stated tolerance, kernel ms, plain
-   ms, one PyTorch library call's ms where one computes the same product.
+   d=64 and d=2; max error against the stated tolerance, kernel ms
+   (events around a loop of calls) and device ms (events around a
+   CUDA-graph replay of the same calls), plain ms, and one PyTorch
+   library call's ms and device ms where one computes the same product;
+   K1 also at 4, 8 and 16 entries a lane.
    Sparse products are held per element to ``1e-5·sqrt(row terms)·max(1,
    Σ|terms|)``; the input gather is checked on the path's features and on
    a randn operand; K1 must also equal its own summation order replayed
-   in PyTorch (``k1_order_replay``) bit for bit.
+   in PyTorch (``ops/ell.py`` ``k1_order_replay``) bit for bit, on the
+   front end's row-padded operand and on the same values contiguous
+   (both layouts timed).
 3. The main path: ``prepare_data``, ``build_model`` and ``run_joint`` of
    the headline ACM-GCN+ configuration at full width (hidden 64, bf16
    gathers), warm-up then timed epochs; steady ms/epoch, finite losses,
@@ -31,7 +36,8 @@ Phases (any failure exits non-zero and prints no result):
    a. each kernel against its plain version on the genius operator, as in
       phase 2: K1 at widths 12, 8 and 4; K2/K3 without LayerNorm at d=64
       and d=2; K5 (COO) forward at widths 12 and 8 and transpose at width
-      4; K4 (ROC-AUC rank pass) with 2 masks, also against an exact host
+      4, then the input gather (w12) at slice sizes 128 to 1024; K4
+      (ROC-AUC rank pass) with 2 masks, also against an exact host
       reference (scipy rankdata, f64) on random scores and on a saturated
       tie group;
    b. the joint loop on the ELL operator, then on the COO operator, then
@@ -85,8 +91,9 @@ Phases (any failure exits non-zero and prints no result):
       the RCM reorder (and the host seconds of the order); then each knob
       card against CPU on phase 4's small graph.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table as JSON (every row with
+``ms`` and ``device_ms``, ``library_ms`` and ``library_device_ms``); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -167,40 +174,56 @@ def spmm_err(got, want, absref, row_terms, what: str):
     return float(err.max())
 
 
-def k1_order_replay(half, x, z, alpha, beta):
-    """K1's arithmetic in its own order, in plain PyTorch: lane l of a
-    row's warp sums the row's entries l, l+32, ... in turn, a butterfly
-    over lane offsets 16, 8, 4, 2, 1 adds the 32 partials, then the row
-    scale and the epilogue.  For a value-free half with epilogue constants
-    in {0, ±1} every step rounds as the kernel's does, so K1 must equal
-    this bit for bit."""
+def device_ms(fn, reps: int = 20):
+    """Device time per call of ``fn``, without the host's issue rate
+    (``time_ms`` times a Python loop of calls and reads the issue rate
+    below ~0.07 ms): ``reps`` calls captured in one CUDA graph, events
+    around its replay, the best of three replays.  A call that cannot be
+    captured is timed by torch.profiler's device time over ``reps``
+    calls instead (late in a long run the profiler has dropped records,
+    so the graph comes first); None where that records nothing."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    if half.vals is not None:
-        raise ValueError("the replay covers value-free halves")
-    dev = x.device
-    n, d = half.num_rows, x.shape[1]
-    deg = half.indptr[1:] - half.indptr[:-1]
-    xf = torch.cat([x.float(), torch.zeros(1, d, device=dev)])
-    lane = torch.arange(32, device=dev)
-    beg, end = half.indptr[:-1, None], half.indptr[1:, None]
-    acc = torch.zeros(n, 32, d, device=dev)
-    zero_row = x.shape[0]          # the appended zero row of xf
-    for k in range(-(-int(deg.max()) // 32)):
-        e = beg + 32 * k + lane[None]
-        idx = torch.where(e < end, half.indices[
-            e.clamp(max=half.indices.numel() - 1)].long(), zero_row)
-        acc = acc + xf[idx]
-    for off in (16, 8, 4, 2, 1):
-        acc = acc + acc[:, lane ^ off]
-    s = torch.empty(n, d, device=dev)
-    s[half.row_ids.long()] = acc[:, 0]
-    if half.row_scale is not None:
-        s = s * half.row_scale[:, None]
-    out = torch.tensor(beta, device=dev) * s
-    if z is not None:
-        out = torch.tensor(alpha, device=dev) * z + out
-    return out
+    fn()
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError:
+        graph = None
+    torch.cuda.synchronize()
+    if graph is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        best = float("inf")
+        for _ in range(3):
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / reps)
+        return best
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(max(getattr(e, "self_device_time_total", 0) or 0, 0)
+             for e in prof.key_averages()
+             if "cuda" in str(e.device_type).lower()
+             and not getattr(e, "is_user_annotation", False))
+    if us <= 0:
+        print("  device_ms: the profiler recorded no device time (not "
+              "measured)")
+        return None
+    return us / 1e3 / reps
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
 
 
 def phase_environment():
@@ -296,8 +319,15 @@ def phase_kernels(adj, feats, tag="[2]", suffix="", use_ln=True,
 
     from acmgnn_tpu_torch.data.registry import row_normalize_features
     from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain
-    from acmgnn_tpu_torch.ops.ell import row_gather_spmm, \
-        row_gather_spmm_plain
+    from acmgnn_tpu_torch.ops.coo import SLICE_NNZ, make_coo_half
+    from acmgnn_tpu_torch.ops.ell import (
+        K1_LANE_ENTRIES,
+        k1_lane_classes,
+        k1_operand,
+        k1_order_replay,
+        row_gather_spmm,
+        row_gather_spmm_plain,
+    )
     from acmgnn_tpu_torch.ops.graph import (
         make_coo_op,
         precompute_operators,
@@ -311,7 +341,9 @@ def phase_kernels(adj, feats, tag="[2]", suffix="", use_ln=True,
     n, nnz = op.num_nodes, op.nnz
     deg = op.fwd.indptr[1:] - op.fwd.indptr[:-1]
     print(f"{tag} operator N={n} nnz={nnz} max row {int(deg.max())} median "
-          f"row {int(deg.median())} (host build "
+          f"row {int(deg.median())}; K1 lane classes (rows ending each of "
+          f"256, 32, 16, 8, 4, 2, 1 lanes) fwd {op.fwd.lane_classes} bwd "
+          f"{op.bwd.lane_classes} (host build "
           f"{time.perf_counter() - t0:.1f} s)")
     a_hat = row_normalized_adjacency(adj)
     a_lib, a_lib_t = _csr_on_card(a_hat), _csr_on_card(a_hat.T)
@@ -334,9 +366,12 @@ def phase_kernels(adj, feats, tag="[2]", suffix="", use_ln=True,
                              "_randn"))
         checked = {}
         for xo, tag_x in operands:
-            xg = xo.to(torch.bfloat16)
-            if half.pre_scale is not None:     # the transpose's rounding order
-                xg = (xg.float() * half.pre_scale[:, None]).to(torch.bfloat16)
+            # the front end's operand: its rounding order (the transpose
+            # rounds, pre-scales in f32, rounds again) and K1's row-padded
+            # layout (ops/spmm.py)
+            xg = k1_operand(xo if half.pre_scale is None
+                            else xo.to(torch.bfloat16), torch.bfloat16,
+                            half.pre_scale)
             got = row_gather_spmm(half, xg, z=z, alpha=alpha, beta=beta)
             err = spmm_err(
                 got, row_gather_spmm_plain(half, xg, z, a, b),
@@ -347,17 +382,56 @@ def phase_kernels(adj, feats, tag="[2]", suffix="", use_ln=True,
             if not torch.equal(got, replay):
                 fail(f"{name + tag_x + suffix}: K1 differs from its own "
                      f"summation order replayed")
+            flat = row_gather_spmm(half, xg.contiguous(), z=z, alpha=alpha,
+                                   beta=beta)
+            if not torch.equal(got, flat):
+                fail(f"{name + tag_x + suffix}: K1 on the row-padded and "
+                     f"the contiguous operand differ")
             print(f"  {name + tag_x + suffix}: equal bit for bit to K1's "
-                  f"summation order replayed in PyTorch")
+                  f"summation order replayed in PyTorch (ops/ell.py "
+                  f"k1_order_replay), on row stride {xg.stride(0)} and "
+                  f"{d}")
             checked[tag_x] = (xg, err)
         xg, err = checked[""]
         ms = time_ms(lambda: row_gather_spmm(half, xg, z=z, alpha=alpha,
                                              beta=beta), 50)
+        dev_ms = device_ms(lambda: row_gather_spmm(half, xg, z=z,
+                                                   alpha=alpha, beta=beta))
+        if xg.stride(0) != d:   # the layout the path does not use
+            xc = xg.contiguous()
+
+            def flat():
+                return row_gather_spmm(half, xc, z=z, alpha=alpha, beta=beta)
+
+            print(f"  {name + suffix} operand layout: row stride "
+                  f"{xg.stride(0)} (the path's) {ms:.4f} ms, device "
+                  f"{_ms(dev_ms)}; contiguous rows of {d}: "
+                  f"{time_ms(flat, 50):.4f} ms, device "
+                  f"{_ms(device_ms(flat))}")
+        # K1's lane rule: the same half with the class table of 4, 8 and
+        # 16 entries a lane, each equal to its own order replayed
+        indptr = half.indptr.cpu().numpy()
+        rule = []
+        for entries in (4, 8, 16):
+            h = dataclasses.replace(
+                half, lane_classes=k1_lane_classes(indptr, entries))
+
+            def run():
+                return row_gather_spmm(h, xg, z=z, alpha=alpha, beta=beta)
+
+            if not torch.equal(run(), k1_order_replay(
+                    h, xg, z if any(a) else None, a, b)):
+                fail(f"{name + suffix} at {entries} entries a lane: K1 "
+                     f"differs from its order replayed")
+            rule.append(f"{entries}: {_ms(device_ms(run))}")
+        print(f"  {name + suffix} device ms by entries a lane (the rule "
+              f"uses {K1_LANE_ENTRIES}): " + "; ".join(rule))
         plain_ms = time_ms(
             lambda: row_gather_spmm_plain(half, xg, z, a, b), 5)
         xf = xg.float()
         lib = a_lib_t if tr else a_lib
         lib_ms = time_ms(lambda: torch.sparse.mm(lib, xf), 20)
+        lib_dev = device_ms(lambda: torch.sparse.mm(lib, xf))
         nbytes = (8 * (n + 1) + 4 * nnz + 4 * n + 2 * n * d + 4 * n * d
                   + (4 * n * d if z is not None else 0)
                   + (4 * n if half.row_scale is not None else 0))
@@ -365,10 +439,12 @@ def phase_kernels(adj, feats, tag="[2]", suffix="", use_ln=True,
         rows.append(dict(name=name + suffix, counter=name, route="cuda",
                          source="acmgnn_tpu_torch/csrc/spmm.cu",
                          replaces=replaces, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms))
-        print(f"  {name + suffix}: {ms:.4f} ms (plain {plain_ms:.3f}, "
-              f"torch.sparse.mm f32 {lib_ms:.4f}, bound {b_ms:.4f} {b_by})")
+                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms,
+                         library_device_ms=lib_dev))
+        print(f"  {name + suffix}: {ms:.4f} ms, device {_ms(dev_ms)} "
+              f"(plain {plain_ms:.3f}, torch.sparse.mm f32 {lib_ms:.4f}, "
+              f"device {_ms(lib_dev)}; bound {b_ms:.4f} {b_by})")
 
     if with_coo:
         t0 = time.perf_counter()
@@ -404,9 +480,12 @@ def phase_kernels(adj, feats, tag="[2]", suffix="", use_ln=True,
             err = checked[""]
             ms = time_ms(lambda: coo_spmm(half, x, z=z, alpha=alpha,
                                           beta=beta), 50)
+            dev_ms = device_ms(lambda: coo_spmm(half, x, z=z, alpha=alpha,
+                                                beta=beta))
             plain_ms = time_ms(lambda: coo_spmm_plain(half, x, z, a, b), 5)
             lib = a_lib_t if tr else a_lib
             lib_ms = time_ms(lambda: torch.sparse.mm(lib, x), 20)
+            lib_dev = device_ms(lambda: torch.sparse.mm(lib, x))
             extra = 4 * (3 * half.span_rows.numel() + half.empty_rows.numel())
             nbytes = (12 * nnz + extra + 4 * n * d + 4 * n * d
                       + (4 * n * d if z is not None else 0))
@@ -414,11 +493,34 @@ def phase_kernels(adj, feats, tag="[2]", suffix="", use_ln=True,
             rows.append(dict(name=name + suffix, counter=name, route="cuda",
                              source="acmgnn_tpu_torch/csrc/coo.cu",
                              replaces=replaces, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=lib_ms))
-            print(f"  {name + suffix}: {ms:.4f} ms (plain {plain_ms:.3f}, "
-                  f"torch.sparse.mm f32 {lib_ms:.4f}, bound {b_ms:.4f} "
-                  f"{b_by}); bit-identical reruns")
+                             device_ms=dev_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             library_device_ms=lib_dev))
+            print(f"  {name + suffix}: {ms:.4f} ms, device {_ms(dev_ms)} "
+                  f"(plain {plain_ms:.3f}, torch.sparse.mm f32 {lib_ms:.4f}, "
+                  f"device {_ms(lib_dev)}; bound {b_ms:.4f} {b_by}); "
+                  f"bit-identical reruns")
+        # K5's slice size: the input gather at other slice sizes, each
+        # checked against the plain version and its own rerun
+        fwd = coo.fwd.to("cpu")
+        d = x_in.shape[1]
+        ones, zeros = (1.0,) * d, (0.0,) * d
+        sweep = []
+        for size in sorted({128, 256, 512, 1024, SLICE_NNZ}):
+            h = make_coo_half(fwd.row.numpy(), fwd.col.numpy(),
+                              fwd.val.numpy(), n, slice_nnz=size).to(dev)
+            got = coo_spmm(h, x_in)
+            if not torch.equal(got, coo_spmm(h, x_in)):
+                fail(f"K5 slice {size}: two launches differ")
+            spmm_err(got, coo_spmm_plain(h, x_in, None, zeros, ones),
+                     coo_spmm_plain(dataclasses.replace(h, val=h.val.abs()),
+                                    x_in.abs(), None, zeros, ones),
+                     _coo_row_terms(h), f"k5_coo_w{d} slice {size}")
+            sweep.append(f"{size}: {h.span_rows.numel()} spanning rows, "
+                         f"{time_ms(lambda: coo_spmm(h, x_in), 50):.4f} ms, "
+                         f"device {_ms(device_ms(lambda: coo_spmm(h, x_in)))}")
+        print(f"  k5_coo_w{d}{suffix} by slice size (SLICE_NNZ "
+              f"{SLICE_NNZ}): " + "; ".join(sweep))
 
     rows += attention_rows(n, gen, use_ln=use_ln,
                            suffix=suffix + ("" if use_ln else "_noln"))
@@ -480,17 +582,21 @@ def phase_rocauc_kernel(labels, masks_np, suffix="@genius"):
             fail(f"K4 ({what}) disagrees with the host reference")
         err = max(err, diff)
     ms = time_ms(lambda: auc_rank_pass(s_sorted, order, packed, 2), 50)
+    dev_ms = device_ms(lambda: auc_rank_pass(s_sorted, order, packed, 2))
     plain_ms = time_ms(
         lambda: auc_rank_pass_plain(s_sorted, order, packed, 2), 5)
     lib_ms = time_ms(lambda: torch.sort(scores, dim=-1), 50)
+    lib_dev = device_ms(lambda: torch.sort(scores, dim=-1))
     b_ms, b_by = bound(n * (4 + 8 + 1) + 2 * 3 * 8, 0)
-    print(f"  k4_auc_m2{suffix}: {ms:.4f} ms (plain {plain_ms:.3f}, "
-          f"torch.sort of the scores {lib_ms:.4f}, bound {b_ms:.4f} {b_by})")
+    print(f"  k4_auc_m2{suffix}: {ms:.4f} ms, device {_ms(dev_ms)} (plain "
+          f"{plain_ms:.3f}, torch.sort of the scores {lib_ms:.4f}, device "
+          f"{_ms(lib_dev)}; bound {b_ms:.4f} {b_by})")
     return [dict(name="k4_auc_m2" + suffix, counter="k4_auc_m2",
                  route="cuda", source="acmgnn_tpu_torch/csrc/rocauc.cu",
                  replaces="acmgnn_tpu/train/metrics.py:68", max_abs_err=err,
-                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 library_ms=lib_ms)]
+                 ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib_ms,
+                 library_device_ms=lib_dev)]
 
 
 def attention_rows(n: int, gen, use_ln: bool, suffix: str = ""):
@@ -516,6 +622,7 @@ def attention_rows(n: int, gen, use_ln: bool, suffix: str = ""):
         fwd = dict(
             counter=f"k2_attn_fwd_d{d}", err=err,
             ms=time_ms(lambda: layers.attention_mix_forward(*args), 50),
+            device_ms=device_ms(lambda: layers.attention_mix_forward(*args)),
             plain_ms=time_ms(
                 lambda: layers.attention_mix_forward_plain(*args), 10),
             bound=bound(16 * n * d, 23 * n * d))
@@ -526,6 +633,8 @@ def attention_rows(n: int, gen, use_ln: bool, suffix: str = ""):
         bwd = dict(
             counter=f"k3_attn_bwd_d{d}", err=err,
             ms=time_ms(lambda: layers.attention_mix_backward(*bargs), 50),
+            device_ms=device_ms(
+                lambda: layers.attention_mix_backward(*bargs)),
             plain_ms=time_ms(
                 lambda: layers.attention_mix_backward_plain(*bargs), 10),
             bound=bound(28 * n * d + 60 * n, 50 * n * d))
@@ -534,12 +643,13 @@ def attention_rows(n: int, gen, use_ln: bool, suffix: str = ""):
                 name=k["counter"] + suffix, counter=k["counter"],
                 route="cuda", source="acmgnn_tpu_torch/csrc/attention.cu",
                 replaces="acmgnn_tpu/models/layers.py:191",
-                max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"],
-                bound_ms=k["bound"][0], bound_by=k["bound"][1],
-                library_ms=None))
-            print(f"  {rows[-1]['name']}: {k['ms']:.4f} ms (plain "
-                  f"{k['plain_ms']:.3f}, bound {k['bound'][0]:.4f} "
-                  f"{k['bound'][1]})")
+                max_abs_err=k["err"], ms=k["ms"], device_ms=k["device_ms"],
+                plain_ms=k["plain_ms"], bound_ms=k["bound"][0],
+                bound_by=k["bound"][1], library_ms=None,
+                library_device_ms=None))
+            print(f"  {rows[-1]['name']}: {k['ms']:.4f} ms, device "
+                  f"{_ms(k['device_ms'])} (plain {k['plain_ms']:.3f}, bound "
+                  f"{k['bound'][0]:.4f} {k['bound'][1]})")
     return rows
 
 
@@ -1049,10 +1159,12 @@ def phase_sharded_kernels(adj, feats):
 
     from acmgnn_tpu_torch.data.registry import row_normalize_features
     from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain
-    from acmgnn_tpu_torch.ops.ell import row_gather_spmm, \
-        row_gather_spmm_plain
+    from acmgnn_tpu_torch.ops.ell import (
+        k1_order_replay,
+        row_gather_spmm,
+        row_gather_spmm_plain,
+    )
     from acmgnn_tpu_torch.ops.graph import row_normalized_adjacency
-    from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain
     from acmgnn_tpu_torch.parallel.sharded import (
         make_sharded_coo_op,
         make_sharded_ell_op,
@@ -1145,10 +1257,13 @@ def phase_sharded_kernels(adj, feats):
                          else coo_spmm_plain)
                 ms = time_ms(lambda: kern(half, recv, z=zs, alpha=alpha,
                                           beta=beta), 50)
+                dev_ms = device_ms(lambda: kern(half, recv, z=zs,
+                                                alpha=alpha, beta=beta))
                 plain_ms = time_ms(lambda: plain(half, recv, zs, a, b), 5)
                 lib = _local_csr(half)
                 recv_f = recv.float()
                 lib_ms = time_ms(lambda: torch.sparse.mm(lib, recv_f), 20)
+                lib_dev = device_ms(lambda: torch.sparse.mm(lib, recv_f))
                 nnz, ncols = int(terms.sum()), half.num_cols
                 gsz = recv.element_size()
                 if fmt == "ell":
@@ -1171,12 +1286,14 @@ def phase_sharded_kernels(adj, feats):
                             else "acmgnn_tpu_torch/csrc/coo.cu"),
                     replaces=(K1_LOCAL_REPLACES if fmt == "ell"
                               else K5_LOCAL_REPLACES),
-                    max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    max_abs_err=worst, ms=ms, device_ms=dev_ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, library_device_ms=lib_dev,
                     run=(exchange, fmt)))
                 print(f"  {name}{tag} (rank 0, {rpp} x {ncols} local half): "
-                      f"{ms:.4f} ms (plain {plain_ms:.3f}, torch.sparse.mm "
-                      f"f32 {lib_ms:.4f}, bound {b_ms:.4f} {b_by})")
+                      f"{ms:.4f} ms, device {_ms(dev_ms)} (plain "
+                      f"{plain_ms:.3f}, torch.sparse.mm f32 {lib_ms:.4f}, "
+                      f"device {_ms(lib_dev)}; bound {b_ms:.4f} {b_by})")
                 if fmt == "ell":
                     rows.append(_k6_row(ops[0], x, bnd, rpp, tr, case_sign,
                                         tag, (exchange, fmt), k6_err))
@@ -1210,26 +1327,33 @@ def _k6_row(op, x, bnd, rpp, tr, path_sign, tag, run, err):
                                          f"k6_pack_w{d}{tag} combinations")[2])
     pre = op.bwd.pre_scale if tr else None
     own = torch.empty(rpp, d, dtype=op.gather_dtype, device=xs.device)
-    ms = time_ms(lambda: halo_pack(xs, own, pre_scale=pre, sign=path_sign,
-                                   send_idx=send_idx), 50)
+    def pack():
+        return halo_pack(xs, own, pre_scale=pre, sign=path_sign,
+                         send_idx=send_idx)
+
+    ms = time_ms(pack, 50)
+    dev_ms = device_ms(pack)
     plain_ms = time_ms(lambda: halo_pack_plain(xs, own, pre, path_sign,
                                                send_idx), 5)
-    lib_ms = None
+    lib_ms = lib_dev = None
     if pre is None and path_sign is None and send_idx is None:
         lib_ms = time_ms(lambda: xs.to(op.gather_dtype), 50)
+        lib_dev = device_ms(lambda: xs.to(op.gather_dtype))
     n_send = 0 if send_idx is None else send_idx.numel()
     b_ms, b_by = _k6_bound(rpp, d, n_send, own.element_size(),
                            pre is not None)
+    lib = ("none" if lib_ms is None
+           else f"x.to(bf16) {lib_ms:.4f}, device {_ms(lib_dev)}")
     print(f"  k6_pack_w{d}{tag} (rank 0: {rpp} rows, {n_send} send rows): "
-          f"{ms:.4f} ms (plain {plain_ms:.3f}, library "
-          f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}, bound "
-          f"{b_ms:.4f} {b_by}); bit-equal to its plain version with and "
-          f"without pre-scale and sign, bf16 and f32")
+          f"{ms:.4f} ms, device {_ms(dev_ms)} (plain {plain_ms:.3f}, "
+          f"library {lib}; bound {b_ms:.4f} {b_by}); bit-equal to its plain "
+          f"version with and without pre-scale and sign, bf16 and f32")
     return dict(name=f"k6_pack_w{d}{tag}", counter=f"k6_pack_w{d}",
                 route="cuda", source="acmgnn_tpu_torch/csrc/halo.cu",
                 replaces=K6_REPLACES, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, run=run)
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev,
+                run=run)
 
 
 def _free_port() -> int:
@@ -1655,13 +1779,20 @@ def phase_probe():
             fail(f"[7a] {name}: K7 differs from its plain version")
         del got, want
         ms = time_ms(lambda: panel_gather(x, idx), 20)
+        dev_ms = device_ms(lambda: panel_gather(x, idx), 5)
         plain_ms = time_ms(lambda: panel_gather_plain(x, idx), 5)
         if per_row:
-            lib_ms = time_ms(lambda: torch.index_select(x, 0, idx), 20)
+            def lib():
+                return torch.index_select(x, 0, idx)
         else:
             idx64 = idx.long()
-            lib_ms = time_ms(lambda: torch.take_along_dim(x, idx64, 0), 20)
-            del idx64
+
+            def lib():
+                return torch.take_along_dim(x, idx64, 0)
+        lib_ms = time_ms(lib, 20)
+        lib_dev = device_ms(lib, 5)
+        del lib
+        idx64 = None    # the per-element form's int64 indices: 1 GiB
         nbytes = 4 * idx.numel() + m * d * s + p * d * s
         b_ms, b_by = bound(nbytes, 0)
         form = "p2" if per_row else "p1"
@@ -1671,13 +1802,15 @@ def phase_probe():
               f"{panel_columns(p, d, s)} columns; {ms:.4f} ms "
               f"({m / ms * 1e3 / 1e6:.1f} M rows/s; plain {plain_ms:.3f}, "
               f"{'index_select' if per_row else 'take_along_dim'} "
-              f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by})")
+              f"{lib_ms:.4f}, device {_ms(lib_dev)}; K7 device "
+              f"{_ms(dev_ms)}; bound {b_ms:.4f} {b_by})")
         rows.append(dict(
             name=row_name, counter="K7", route="cuda",
             source="acmgnn_tpu_torch/csrc/panel_gather.cu",
             replaces=PROBE_REPLACES[form], launches=per_config,
-            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms,
+            max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library_device_ms=lib_dev,
             path=f"probe, not on a training path (python -m "
                  f"acmgnn_tpu_torch.tools.gather_probe): {per_config} "
                  f"launches per configuration, 1 per probe call"))
@@ -1920,8 +2053,8 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f}" for k, v in steady.items())
           + f"; stepwise {entry['stepwise']['epoch_ms_steady']:.3f}")
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "path")
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in rows + g_rows + s_rows + p_rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,11 @@ Tolerance: ``1e-5·sqrt(reduction length)·max(1, max|plain|)``: kernel
 and plain version sum the same f32 (or bf16-rounded) terms in different
 orders.  K4 counts integers, so it must agree exactly.
 
-Without a card, the tests below check what K5 and K4 rely on: K5's host
-partition of the triplets into slices, and the exact counts of K4's plain
-version; the card tests hold the compiled kernels to those.
+Without a card, the tests below check what K1, K5 and K4 rely on: K1's
+summation order replayed in PyTorch and its lane groups (a function of
+the row's degree alone, also on a rank's local half), K5's host
+partition of the triplets into slices, and the exact counts of K4's
+plain version; the card tests hold the compiled kernels to those.
 """
 
 from __future__ import annotations
@@ -37,9 +39,19 @@ from acmgnn_tpu_torch.models.layers import (
     bf16_matmul,
 )
 from acmgnn_tpu_torch.ops import kernels
-from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain, make_coo_half
+from acmgnn_tpu_torch.ops.coo import (
+    SLICE_NNZ,
+    coo_spmm,
+    coo_spmm_plain,
+    make_coo_half,
+)
 from acmgnn_tpu_torch.ops.ell import (
+    K1_LANES,
     _build_half,
+    k1_lanes,
+    k1_operand,
+    k1_operand_ld,
+    k1_order_replay,
     make_ell_op,
     row_gather_spmm,
     row_gather_spmm_plain,
@@ -56,6 +68,7 @@ from acmgnn_tpu_torch.ops.panel_gather import (
     panel_gather_plain,
 )
 from acmgnn_tpu_torch.ops.spmm import spmm_multi
+from acmgnn_tpu_torch.parallel.sharded import make_sharded_ell_op
 from acmgnn_tpu_torch.train.metrics import (
     auc_rank_pass,
     auc_rank_pass_plain,
@@ -182,14 +195,24 @@ def cuda():
     return torch.device("cuda")
 
 
+def _k1_matrix(kind):
+    """``_matrices()[kind]``, or "hub": rows of the hub class (degree >
+    256), of each lane group and without entries."""
+    return _hub_matrix(600) if kind == "hub" else _matrices()[kind]
+
+
+K1_KINDS = ("lowpass_sym", "binary_sym", "lowpass_directed", "weighted",
+            "hub")
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ("lowpass_sym", "binary_sym",
-                                  "lowpass_directed", "weighted"))
+@pytest.mark.parametrize("kind", K1_KINDS)
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
 @pytest.mark.parametrize("width,hp", [(7, None), (8, (0, 0, 1, 1, 0, 0, 1, 1)),
-                                      (4, (0, 0, 1, 1)), (20, None)])
+                                      (4, (0, 0, 1, 1)), (12, None),
+                                      (20, None)])
 def test_k1_matches_plain(cuda, kind, dtype, width, hp):
-    mat = _matrices()[kind]
+    mat = _k1_matrix(kind)
     op = make_ell_op(mat, gather_dtype=dtype).to(cuda)
     gen = torch.Generator(device=cuda).manual_seed(width)
     z = torch.randn(op.num_nodes, width, generator=gen, device=cuda)
@@ -206,6 +229,28 @@ def test_k1_matches_plain(cuda, kind, dtype, width, hp):
             tuple(beta or (1.0,) * width))
         torch.cuda.synchronize()
         assert_close(got, want, n_terms, f"{kind} w{width}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", K1_KINDS)
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+@pytest.mark.parametrize("width", (4, 7, 8, 12, 20))
+@pytest.mark.parametrize("padded", (False, True))
+def test_k1_equals_its_order_replay(cuda, kind, dtype, width, padded):
+    """K1 bit for bit against ``k1_order_replay``, on both halves, with a
+    high-pass epilogue, on a contiguous operand and on K1's row-padded
+    layout (the same values, so the same bits)."""
+    op = make_ell_op(_k1_matrix(kind), gather_dtype=dtype).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    z = torch.randn(op.num_nodes, width, generator=gen, device=cuda)
+    x = k1_operand(z, dtype) if padded else z.to(dtype)
+    alpha = tuple(float(j % 2) for j in range(width))
+    beta = tuple(-1.0 if j % 2 else 1.0 for j in range(width))
+    for half in (op.fwd, op.bwd):
+        got = row_gather_spmm(half, x, z=z, alpha=alpha, beta=beta)
+        want = k1_order_replay(half, x, z, alpha, beta)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -389,8 +434,120 @@ def test_k6_matches_plain(cuda, dtype, width, with_scale, with_sign):
 
 
 # ---------------------------------------------------------------------------
-# What K5 and K4 rely on, checked without a card
+# What K1, K5 and K4 rely on, checked without a card
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", K1_KINDS)
+@pytest.mark.parametrize("width", (4, 7, 8, 12, 20))
+def test_k1_replay_matches_plain(kind, width):
+    """K1's summation order replayed (lane groups, butterflies, the hub
+    rows' warp partials) sums the same terms as the plain version, on
+    both halves, with a per-column epilogue."""
+    mat = _k1_matrix(kind)
+    op = make_ell_op(mat)
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.normal(size=(op.num_nodes, width))
+                         .astype(np.float32))
+    z = torch.from_numpy(rng.normal(size=(op.num_nodes, width))
+                         .astype(np.float32))
+    alpha = tuple(float(j % 2) for j in range(width))
+    beta = tuple(-1.0 if j % 2 else 2.0 for j in range(width))
+    csr = sp.csr_matrix(mat)
+    n_terms = int(max(np.diff(csr.indptr).max(),
+                      np.diff(csr.T.tocsr().indptr).max())) + 1
+    for half in (op.fwd, op.bwd):
+        assert_close(k1_order_replay(half, x, z, alpha, beta),
+                     row_gather_spmm_plain(half, x, z, alpha, beta),
+                     n_terms, f"{kind} w{width}")
+
+
+def _sorted_lanes(half):
+    """Lanes of each sorted row, read from the half's class table."""
+    cls = np.searchsorted(np.asarray(half.lane_classes),
+                          np.arange(half.num_rows), side="right")
+    return np.asarray(K1_LANES)[cls]
+
+
+def _row_lanes(half):
+    """Lanes K1 gives each output row of a half."""
+    out = np.empty(half.num_rows, np.int64)
+    out[half.row_ids.numpy()] = _sorted_lanes(half)
+    return out
+
+
+@pytest.mark.parametrize("kind", K1_KINDS)
+def test_k1_lane_classes_cover_the_rows_once(kind):
+    """Each half's class table splits its sorted rows into consecutive
+    ranges, one per entry of ``K1_LANES``, that cover every row once; each
+    row's range is the one ``k1_lanes`` gives its degree; a half sharing
+    the forward structure shares its table."""
+    op = make_ell_op(_k1_matrix(kind))
+    halves = [op.fwd, op.bwd]
+    halves += [_build_half(_rectangular(), None, "post")]
+    for half in halves:
+        ends = np.asarray(half.lane_classes)
+        assert len(ends) == len(K1_LANES)
+        assert ends[-1] == half.num_rows
+        assert np.all(np.diff(np.concatenate([[0], ends])) >= 0)
+        sizes = np.diff(np.concatenate([[0], ends]))
+        assert sizes.sum() == half.num_rows
+        deg = np.diff(half.indptr.numpy())
+        np.testing.assert_array_equal(_sorted_lanes(half), k1_lanes(deg))
+    if op.bwd is not op.fwd and op.bwd.indptr is op.fwd.indptr:
+        assert op.bwd.lane_classes == op.fwd.lane_classes
+    if kind == "hub":
+        assert all(np.any(_sorted_lanes(op.fwd) == g)
+                   for g in (K1_LANES[0], 1))
+
+
+@pytest.mark.parametrize("exchange", ("allgather", "halo"))
+@pytest.mark.parametrize("kind", ("lowpass_sym", "lowpass_directed", "hub"))
+def test_k1_lane_groups_follow_the_degree_on_local_halves(kind, exchange):
+    """Every row gets the lane group of its degree, in the whole half and
+    in each rank's local half (rectangular, over the receive buffer), so
+    K1 sums each row of a rank in the single-chip order."""
+    mat = row_normalized_adjacency(_k1_matrix(kind))
+    whole = make_ell_op(mat)
+    ops, bnd = make_sharded_ell_op(mat, 4, None, exchange=exchange)
+    for tr in (False, True):
+        half = whole.bwd if tr else whole.fwd
+        lanes = _row_lanes(half)
+        deg = np.zeros(half.num_rows, np.int64)
+        deg[half.row_ids.numpy()] = np.diff(half.indptr.numpy())
+        np.testing.assert_array_equal(lanes, k1_lanes(deg))
+        for p, op in enumerate(ops):
+            local = op.bwd if tr else op.fwd
+            r0, r1 = int(bnd[p]), int(bnd[p + 1])
+            got = _row_lanes(local)
+            np.testing.assert_array_equal(got[: r1 - r0], lanes[r0:r1])
+            assert np.all(got[r1 - r0:] == 1)   # padding rows, degree 0
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+@pytest.mark.parametrize("width", (4, 7, 8, 12, 20))
+def test_k1_operand_layout(dtype, width):
+    """K1's operand: the values of ``x.to(dtype)`` (pre-scaled in f32 and
+    rounded once where a pre-scale is given) at row stride
+    ``k1_operand_ld`` (rows of < 32 bytes padded to a power of two of
+    bytes); K1 on the padded view sums what it sums on the contiguous
+    operand."""
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.normal(size=(700, width)).astype(np.float32))
+    pre = torch.from_numpy(rng.random(700).astype(np.float32))
+    for scale, want in ((None, x.to(dtype)),
+                        (pre, (x * pre[:, None]).to(dtype))):
+        got = k1_operand(x, dtype, scale)
+        ld = k1_operand_ld(width, dtype)
+        assert got.shape == x.shape and got.dtype == dtype
+        assert got.stride() == (ld, 1)
+        assert torch.equal(got, want)
+        row_bytes = ld * got.element_size()
+        assert row_bytes >= 32 or row_bytes & (row_bytes - 1) == 0
+    half = make_ell_op(_matrices()["lowpass_sym"]).fwd
+    xg = k1_operand(x, dtype)
+    assert torch.equal(row_gather_spmm(half, xg),
+                       row_gather_spmm(half, xg.contiguous()))
 
 
 def _hub_matrix(n=120, seed=0):
@@ -404,7 +561,7 @@ def _hub_matrix(n=120, seed=0):
 
 @pytest.mark.parametrize("kind", ("lowpass_sym", "lowpass_directed",
                                   "weighted", "hub"))
-@pytest.mark.parametrize("slice_nnz", (1, 4, 16))
+@pytest.mark.parametrize("slice_nnz", (1, 4, 16, SLICE_NNZ))
 def test_coo_half_partition_matches_its_definition(kind, slice_nnz):
     """K5's host partition against a row-by-row definition: a row whose
     triplets lie in more than one slice is a spanning row with its first
@@ -412,9 +569,7 @@ def test_coo_half_partition_matches_its_definition(kind, slice_nnz):
     starts or ends more than one spanning row (the carry buffer holds one
     head and one tail partial per slice)."""
     mat = _hub_matrix() if kind == "hub" else _matrices()[kind]
-    half = make_coo_op(mat).fwd
-    half = make_coo_half(half.row.numpy(), half.col.numpy(),
-                         half.val.numpy(), half.num_rows, slice_nnz=slice_nnz)
+    half = _coo_half(mat, slice_nnz)
     slices = np.arange(half.nnz) // slice_nnz
     row = half.row.numpy()
     spans, empty = {}, []
@@ -431,7 +586,7 @@ def test_coo_half_partition_matches_its_definition(kind, slice_nnz):
     firsts = [f for f, _ in spans.values()]
     lasts = [last for _, last in spans.values()]
     assert len(set(firsts)) == len(firsts) and len(set(lasts)) == len(lasts)
-    if kind == "hub":
+    if kind == "hub" and np.bincount(row).max() > 2 * slice_nnz:
         assert max(last - f for f, last in spans.values()) >= 2
 
 
@@ -441,16 +596,26 @@ def _row_block(whole, r0: int):
     lo = int(np.searchsorted(whole.row.numpy(), r0))
     block = make_coo_half(whole.row.numpy()[lo:] - r0, whole.col.numpy()[lo:],
                           whole.val.numpy()[lo:], whole.num_rows - r0,
-                          num_cols=whole.num_cols, nnz_offset=lo)
+                          slice_nnz=whole.slice_nnz, num_cols=whole.num_cols,
+                          nnz_offset=lo)
     return block, lo
 
 
+def _coo_half(mat, slice_nnz=SLICE_NNZ):
+    """The forward half of ``make_coo_op(mat)`` cut into slices of
+    ``slice_nnz``."""
+    half = make_coo_op(mat).fwd
+    return make_coo_half(half.row.numpy(), half.col.numpy(),
+                         half.val.numpy(), half.num_rows, slice_nnz=slice_nnz)
+
+
+@pytest.mark.parametrize("slice_nnz", (1, 4, 16, SLICE_NNZ))
 @pytest.mark.parametrize("r0", (1, 4, 37, 101))
-def test_coo_row_block_keeps_the_whole_slice_grid(r0):
+def test_coo_row_block_keeps_the_whole_slice_grid(r0, slice_nnz):
     """A block of rows built with ``nnz_offset`` cuts its slices where the
     whole half does: the same spanning rows over the same slices (shifted
     by the slices before the block) and the same empty rows."""
-    whole = make_coo_op(_hub_matrix()).fwd
+    whole = _coo_half(_hub_matrix(), slice_nnz)
     block, lo = _row_block(whole, r0)
     shift = lo // whole.slice_nnz
     keep = whole.span_rows.numpy() >= r0
@@ -545,10 +710,12 @@ def test_k5_matches_plain(cuda, kind, width, hp):
 @pytest.mark.gpu
 @pytest.mark.parametrize("r0", (1, 4, 1777))
 @pytest.mark.parametrize("width", (4, 8, 12))
-def test_k5_row_block_sums_as_the_whole(cuda, r0, width):
+@pytest.mark.parametrize("slice_nnz", (16, 100, SLICE_NNZ))
+def test_k5_row_block_sums_as_the_whole(cuda, r0, width, slice_nnz):
     """K5 on a block of rows with its ``nnz_offset`` gives the whole
-    half's rows bit for bit (a rank's block of a sharded operator)."""
-    whole = make_coo_op(_hub_matrix(3000)).fwd
+    half's rows bit for bit (a rank's block of a sharded operator), also
+    at slice sizes that are no multiple of a warp."""
+    whole = _coo_half(_hub_matrix(3000), slice_nnz)
     block, _ = _row_block(whole, r0)
     x = torch.randn(whole.num_cols, width,
                     generator=torch.Generator(device=cuda).manual_seed(r0),
