@@ -74,13 +74,16 @@ _SIGNATURES = {
         "acm_k4_auc_rank_pass": [_P, _P, _P, _L, _I, _I, _L, _P, _P, _P],
     },
     "halo": {
-        # x, sign, pre_scale, rows, d, out_bf16, own, send_idx, n_send_rows,
-        # send, stream
-        "acm_k6_halo_pack": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
+        # x, sign, pre_scale, rows, d, ld, out_bf16, own, send_idx,
+        # n_send_rows, send, stream
+        "acm_k6_halo_pack": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P,
+                             _P],
     },
     "panel_gather": {
-        # x, idx, out, p, d, dc, m_rows, elem_bytes, per_row, stream
-        "acm_k7_panel_gather": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _P],
+        # x, idx, out, p, d, elem_bytes, m_rows, per_row, form,
+        # grid_blocks, active (out), stream
+        "acm_k7_panel_gather": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _IP,
+                                _P],
     },
 }
 

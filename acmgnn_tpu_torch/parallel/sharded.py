@@ -13,7 +13,9 @@ and the exchange schedule that fills that buffer.
 A product ``Â x`` (or ``Âᵀ g``) on the rank's slab ``x`` is three steps:
 
 1. K6 (``ops/halo.py``) packs the slab: optional per-column sign and
-   pre-scale in f32, one rounding into the gather dtype;
+   pre-scale in f32, one rounding into the gather dtype, rows written at
+   the receive buffer's row stride (an ELL operator's is K1's padded
+   stride, ``k1_operand_ld``: bf16 rows of 7 columns take 16 bytes);
 2. the collective fills the receive buffer: an all-gather of every
    rank's packed slab (``P·rows_per_part`` rows), or in halo mode an
    ``all_to_all`` of the deduplicated boundary rows, written in place
@@ -56,10 +58,11 @@ from acmgnn_tpu_torch.ops.ell import (
     EllHalf,
     _build_half,
     _row_uniform_values,
+    k1_operand_ld,
     row_gather_spmm,
 )
 from acmgnn_tpu_torch.ops.graph import Operators, row_normalized_adjacency
-from acmgnn_tpu_torch.ops.halo import halo_pack
+from acmgnn_tpu_torch.ops.halo import halo_pack, padded_rows
 from acmgnn_tpu_torch.parallel.multihost import (
     all_gather_rows,
     all_to_all_rows,
@@ -121,6 +124,11 @@ class ShardedEllOp(_ShardedOp):
 
     gather_dtype: torch.dtype = torch.float32
 
+    def row_stride(self, d: int) -> int:
+        """The receive buffer's row stride: K1's (``k1_operand_ld``), so
+        K6 writes and the collectives move whole padded rows."""
+        return k1_operand_ld(d, self.gather_dtype)
+
     def _move_halves(self, device):
         memo: dict = {}     # a shared transpose stays shared
         fwd = self.fwd.to(device, memo)
@@ -134,6 +142,12 @@ class ShardedCooOp(_ShardedOp):
     package's sharded COO path."""
 
     gather_dtype: ClassVar[torch.dtype] = torch.float32
+
+    def row_stride(self, d: int) -> int:
+        """Rows of ``d``: ``coo_spmm`` makes its operand contiguous
+        (``ops/coo.py``), so a padded receive buffer would be copied
+        once more; giving K5 a row stride is a later item (ROADMAP)."""
+        return d
 
 
 ShardedOp = Union[ShardedEllOp, ShardedCooOp]
@@ -351,29 +365,31 @@ def shard_node_array(arr: np.ndarray, boundaries, rows_per_part: int,
 def receive_buffer(op: ShardedOp, x: torch.Tensor, transpose: bool = False,
                    sign=None) -> torch.Tensor:
     """The rows the local half gathers from: this rank's slab ``x``
-    (f32 ``[rows_per_part, d]``) packed by K6 and exchanged."""
+    (f32 ``[rows_per_part, d]``) packed by K6 and exchanged, as a
+    ``[exchange_rows, d]`` view with the operator's row stride
+    (``row_stride``): K1's row-padded operand for an ELL operator."""
     rpp, world = op.rows_per_part, op.world_size
     if x.shape[0] != rpp:
         raise ValueError(f"slab has {x.shape[0]} rows, partition {rpp}")
     half = op.bwd if transpose else op.fwd
     pre_scale = getattr(half, "pre_scale", None)
     send_idx = op.send_idx_t if transpose else op.send_idx
-    d = x.shape[1]
-    recv = torch.empty(op.exchange_rows(transpose), d, dtype=op.gather_dtype,
-                       device=x.device)
+    d, ld = x.shape[1], op.row_stride(x.shape[1])
+    # whole padded rows: K6 writes them, the collectives move them
+    recv = torch.empty(op.exchange_rows(transpose), ld,
+                       dtype=op.gather_dtype, device=x.device)
     if send_idx is not None:
         # own slab at the head, the halo slabs written in place behind it
-        send = halo_pack(x, recv[:rpp], pre_scale=pre_scale, sign=sign,
-                         send_idx=send_idx)
-        all_to_all_rows(recv[rpp:], send, op.group)
-        return recv
-    if world == 1:
-        halo_pack(x, recv, pre_scale=pre_scale, sign=sign)
-        return recv
-    own = torch.empty(rpp, d, dtype=op.gather_dtype, device=x.device)
-    halo_pack(x, own, pre_scale=pre_scale, sign=sign)
-    all_gather_rows(recv, own, op.group)
-    return recv
+        send = halo_pack(x, recv[:rpp, :d], pre_scale=pre_scale, sign=sign,
+                         send_idx=send_idx, ld=ld)
+        all_to_all_rows(recv[rpp:], padded_rows(send), op.group)
+    elif world == 1:
+        halo_pack(x, recv[:, :d], pre_scale=pre_scale, sign=sign, ld=ld)
+    else:
+        own = torch.empty(rpp, ld, dtype=op.gather_dtype, device=x.device)
+        halo_pack(x, own[:, :d], pre_scale=pre_scale, sign=sign, ld=ld)
+        all_gather_rows(recv, own, op.group)
+    return recv[:, :d]
 
 
 def sharded_ell_spmm(op: ShardedEllOp, x: torch.Tensor,

@@ -53,24 +53,28 @@ Phases (any failure exits non-zero and prints no result):
    half):
    a. the headline graph partitioned over 4 ranks in this process, with
       all-gather and with halo exchange: K6 bit-equal to its plain
-      version on every rank's slabs (widths 7, 8, 4, with and without
-      pre-scale and sign, bf16 and f32); each rank's receive buffer
-      assembled by hand from the four packs, then K1 and K5 on every
-      local half per element as in phase 2; rank 0 timed against the
-      plain versions and ``torch.sparse.mm``; then K6 at world size 1
-      (phase b's shapes);
+      version on every rank's slabs, whole padded buffers (padding
+      included; widths 7, 8, 4, with and without pre-scale and sign,
+      bf16 and f32, at K1's row stride and at rows of d); each rank's
+      receive buffer assembled by hand from the four packs in whole
+      padded rows (K1's stride for ELL, rows of d for COO), then K1 and
+      K5 on every local half per element as in phase 2; rank 0 timed
+      against the plain versions and ``torch.sparse.mm``, with the rows
+      and bytes it receives per SpMM; then K6 at world size 1 (phase b's
+      shapes);
    b. world size 1 over NCCL: ``run_experiment_sharded`` against the
       single-chip port (f32, dropout 0, 10 epochs, parameters within
       1e-4), then the headline configuration timed with launch counts and
-      a profiler window, beside phase 3;
+      a profiler window (K1's and K6's ms/epoch beside the rows and bytes
+      exchanged), beside phase 3;
    c. world size 4 on the one card (four processes, gloo on CUDA tensors
       staged through the host, a ``FileStore``) on a 20k-node
       twitch-shaped graph (labels a function of the features, lr 1e-3,
       no weight decay: a configuration that does not amplify rounding):
       every rank's bf16 halo receive buffer against the four ranks' packs
-      bit for bit; all-gather and halo × ELL and COO in f32, 20 epochs
-      each, against the single-chip port (parameters within 1e-4, equal
-      epochs); each halo run against the all-gather run of its format and
+      bit for bit, whole padded rows; all-gather and halo × ELL and COO
+      in f32, 20 epochs each, against the single-chip port (parameters
+      within 1e-4, equal epochs); each halo run against the all-gather run of its format and
       dtype, bf16 ELL included (within 1e-4); the rows each rank sends and
       receives per SpMM; how far two summation orders of the single-chip
       port part there after 20 epochs; and, for the record, gloo's own
@@ -79,8 +83,10 @@ Phases (any failure exits non-zero and prints no result):
    a. K7, the panel gather of ``tools/pallas_gather_probe.py`` (P1
       per-element, P2 per-row indices): the port's probe
       (``python -m acmgnn_tpu_torch.tools.gather_probe``) with its
-      launches counted, then each of its six configurations bit-equal to
-      the plain version, with K7, plain and library ms, the bytes bound
+      launches counted, then each of its six configurations: the host
+      plan (block or L2 form) and the blocks resident per launch, K7
+      bit-equal to the plain version (at P=8 in the L2 form too, the two
+      forms timed in turns), K7, plain and library ms, the bytes bound
       and M rows/s, and the HBM ``index_select`` yardstick;
    b. ``run_experiment`` on the headline configuration at full size (2
       splits, joint loop) and ``run_experiment_stepwise`` (1 split,
@@ -732,7 +738,8 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
     slabs), ``build_model``, a warm-up run (``cfg.epochs``), then a timed
     run of ``timed_epochs``; steady ms per loop body, finite losses, the
     best split result, every launch count against ``expected(bodies)``,
-    and a profiler window.  Returns (counts, ms per body, timed result)."""
+    and a profiler window.  Returns (counts, ms per body, timed result,
+    the profile's ms per body by kernel group)."""
     import torch
 
     from acmgnn_tpu_torch.ops import kernels
@@ -789,20 +796,21 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
     print(f"{tag} launches {json.dumps(counts, sort_keys=True)}")
     if counts != want:
         fail(f"{tag} launch counts {counts} != expected {want}")
+    groups = {}
     if profile:
         prof_cfg = dataclasses.replace(cfg, epochs=PROFILE_EPOCHS)
-        phase_profile(tag, lambda: make_split_runner(
+        groups = phase_profile(tag, lambda: make_split_runner(
             model, prof_cfg, group=group)(ops, x, y, masks, seed=3,
                                           labels_onehot=y1h),
             PROFILE_EPOCHS + (1 if cfg.joint else 0))
-    return counts, ms_epoch, res
+    return counts, ms_epoch, res, groups
 
 
 def phase_main_path(adj, feats, labels):
     from acmgnn_tpu_torch.ops.graph import GraphData
 
     data = GraphData("twitch-gamers-scale-uniform", adj, feats, labels)
-    counts, ms_epoch, _ = drive_path(
+    counts, ms_epoch, _, _ = drive_path(
         "[3]", data, headline_config(), _masks(adj.shape[0]), TIMED_EPOCHS,
         lambda it: joint_counts(it, "k1_spmm", 7))
     return counts, ms_epoch
@@ -916,7 +924,8 @@ def _kernel_group(name: str) -> str:
 
 def phase_profile(tag, run, bodies):
     """Device time by kernel group over a few steady loop bodies, and the
-    device's busy share of that window (torch.profiler)."""
+    device's busy share of that window (torch.profiler); returns the
+    groups' ms per loop body ({} where nothing was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -947,7 +956,7 @@ def phase_profile(tag, run, bodies):
     busy = sum(groups.values())
     if busy == 0:
         print(f"{tag} profile: no device time recorded (not measured)")
-        return
+        return {}
     print(f"{tag} profile over {bodies} loop bodies (profiler on): wall "
           f"{1e3 * wall / bodies:.3f} ms/epoch, device busy "
           f"{busy / 1e3 / bodies:.3f} ms/epoch, busy share "
@@ -972,6 +981,7 @@ def phase_profile(tag, run, bodies):
     print(f"{tag} host waits for the device per epoch: " + ("; ".join(
         f"{key} x{cnt / bodies:.1f} {us / 1e3 / bodies:.3f} ms"
         for us, cnt, key in waits) or "none"))
+    return {g: us / 1e3 / bodies for g, us in groups.items()}
 
 
 def card_vs_cpu(tag, data, cfg, masks_np, tol=1e-4, seed=3):
@@ -1099,11 +1109,12 @@ def _slab_of(t, boundaries, rpp, p):
     return out
 
 
-def _k6_bound(rows, d, n_send, gsz, pre):
+def _k6_bound(rows, d, ld, n_send, gsz, pre):
     """K6's bytes: the slab (and pre-scale) and send lists read once, own
-    and send rows written once; one multiply per element."""
+    and send rows written once at the row stride ``ld`` (the padding is
+    written too); one multiply per element."""
     nbytes = 4 * rows * d + (4 * rows if pre else 0) + 4 * n_send \
-        + gsz * (rows + n_send) * d
+        + gsz * (rows + n_send) * ld
     return bound(nbytes, 2 * rows * d)
 
 
@@ -1125,24 +1136,35 @@ def _local_csr(half):
                                    check_invariants=False)
 
 
-def _check_k6(xs, out_dtype, pre, sign, send_idx, what):
-    """K6 against ``halo_pack_plain``, bit for bit; returns (own, send,
-    max |K6 - plain|)."""
+def _check_k6(xs, out_dtype, ld, pre, sign, send_idx, what):
+    """K6 against ``halo_pack_plain`` into rows of stride ``ld``, bit for
+    bit on the whole padded buffers (they start as NaN, so padding K6
+    leaves unwritten fails); returns (own, send, max |K6 - plain|), own
+    and send as ``[rows, d]`` views of their padded rows."""
     import torch
 
-    from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain
+    from acmgnn_tpu_torch.ops.halo import (
+        halo_pack,
+        halo_pack_plain,
+        padded_rows,
+    )
 
-    own = torch.empty(xs.shape, dtype=out_dtype, device=xs.device)
-    send = halo_pack(xs, own, pre_scale=pre, sign=sign, send_idx=send_idx)
-    own_p = torch.empty_like(own)
-    send_p = halo_pack_plain(xs, own_p, pre, sign, send_idx)
+    rows, d = xs.shape
+    bufs = [torch.full((rows, ld), float("nan"), dtype=out_dtype,
+                       device=xs.device) for _ in range(2)]
+    own, own_p = bufs[0][:, :d], bufs[1][:, :d]
+    send = halo_pack(xs, own, pre_scale=pre, sign=sign, send_idx=send_idx,
+                     ld=ld)
+    send_p = halo_pack_plain(xs, own_p, pre, sign, send_idx, ld=ld)
     torch.cuda.synchronize()
-    err = float((own.float() - own_p.float()).abs().max())
+    pairs = [tuple(bufs)]
     if send is not None:
-        err = max(err, float((send.float() - send_p.float()).abs().max()))
-    if not torch.equal(own, own_p) or (
-            send is not None and not torch.equal(send, send_p)):
-        fail(f"{what}: K6 differs from its plain version")
+        pairs.append((padded_rows(send), padded_rows(send_p)))
+    if not all(torch.equal(a, b) for a, b in pairs):
+        fail(f"{what}: K6 differs from its plain version (padding "
+             f"included)")
+    err = max(float((a.float() - b.float()).abs().max()) if a.numel()
+              else 0.0 for a, b in pairs)
     return own, send, err
 
 
@@ -1165,6 +1187,7 @@ def phase_sharded_kernels(adj, feats):
         row_gather_spmm_plain,
     )
     from acmgnn_tpu_torch.ops.graph import row_normalized_adjacency
+    from acmgnn_tpu_torch.ops.halo import padded_rows
     from acmgnn_tpu_torch.parallel.sharded import (
         make_sharded_coo_op,
         make_sharded_ell_op,
@@ -1205,26 +1228,31 @@ def phase_sharded_kernels(adj, feats):
                 a = tuple(alpha or (0.0,) * d)
                 b = tuple(beta or (1.0,) * d)
                 packs, k6_err = [], 0.0
+                ld = ops[0].row_stride(d)
                 for p, op in enumerate(ops):
                     half = op.bwd if tr else op.fwd
                     own, send, err = _check_k6(
-                        _slab_of(x, bnd, rpp, p), op.gather_dtype,
+                        _slab_of(x, bnd, rpp, p), op.gather_dtype, ld,
                         getattr(half, "pre_scale", None), case_sign,
                         op.send_idx_t if tr else op.send_idx,
                         f"k6_pack_w{d}{tag} rank {p}")
-                    packs.append((own, send))
+                    packs.append((padded_rows(own),
+                                  None if send is None
+                                  else padded_rows(send)))
                     k6_err = max(k6_err, err)
                 worst = 0.0
                 for p, op in enumerate(ops):
                     half = op.bwd if tr else op.fwd
                     send_idx = op.send_idx_t if tr else op.send_idx
+                    # the receive buffer as the exchange fills it: whole
+                    # padded rows, a [:, :d] view for the local half
                     if send_idx is None:
-                        recv = torch.cat([own for own, _ in packs])
+                        recv = torch.cat([own for own, _ in packs])[:, :d]
                     else:    # slot q holds what rank q sent to rank p
                         pad = op.halo_pad_t if tr else op.halo_pad
                         recv = torch.cat([packs[p][0]] + [
-                            packs[q][1].view(SHARDED_P, pad, d)[p]
-                            for q in range(SHARDED_P)])
+                            packs[q][1].view(SHARDED_P, pad, ld)[p]
+                            for q in range(SHARDED_P)])[:, :d]
                     zs = None if z is None else _slab_of(z, bnd, rpp, p)
                     if fmt == "ell":
                         got = row_gather_spmm(half, recv, z=zs, alpha=alpha,
@@ -1290,10 +1318,14 @@ def phase_sharded_kernels(adj, feats):
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms, library_device_ms=lib_dev,
                     run=(exchange, fmt)))
-                print(f"  {name}{tag} (rank 0, {rpp} x {ncols} local half): "
-                      f"{ms:.4f} ms, device {_ms(dev_ms)} (plain "
-                      f"{plain_ms:.3f}, torch.sparse.mm f32 {lib_ms:.4f}, "
-                      f"device {_ms(lib_dev)}; bound {b_ms:.4f} {b_by})")
+                got_rows = ops[0].rows_received
+                print(f"  {name}{tag} (rank 0, {rpp} x {ncols} local half, "
+                      f"row stride {ld}): {ms:.4f} ms, device {_ms(dev_ms)} "
+                      f"(plain {plain_ms:.3f}, torch.sparse.mm f32 "
+                      f"{lib_ms:.4f}, device {_ms(lib_dev)}; bound "
+                      f"{b_ms:.4f} {b_by}); rank 0 receives {got_rows} "
+                      f"rows, {got_rows * ld * gsz} bytes per SpMM "
+                      f"({got_rows * d * gsz} at rows of {d})")
                 if fmt == "ell":
                     rows.append(_k6_row(ops[0], x, bnd, rpp, tr, case_sign,
                                         tag, (exchange, fmt), k6_err))
@@ -1306,12 +1338,14 @@ def phase_sharded_kernels(adj, feats):
 
 
 def _k6_row(op, x, bnd, rpp, tr, path_sign, tag, run, err):
-    """K6 on rank 0's slab of ``x``: every combination of pre-scale and
-    sign bit-equal to the plain version in bf16 and f32, then the path's
-    own combination timed.  ``err``: the largest |K6 - plain| read on the
-    other ranks' slabs."""
+    """K6 on rank 0's slab of ``x``: every combination of pre-scale, sign
+    and dtype bit-equal to the plain version on the whole buffers, at
+    K1's row stride (the ELL receive buffer's) and at rows of d (the COO
+    one's), then the path's own combination timed.  ``err``: the largest
+    |K6 - plain| read on the other ranks' slabs."""
     import torch
 
+    from acmgnn_tpu_torch.ops.ell import k1_operand_ld
     from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain
 
     xs = _slab_of(x, bnd, rpp, 0)
@@ -1321,33 +1355,40 @@ def _k6_row(op, x, bnd, rpp, tr, path_sign, tag, run, err):
         else op.fwd.row_scale
     sign = [(-1.0) ** j for j in range(d)]
     for dtype in (torch.bfloat16, torch.float32):
-        for pre in (None, slab_scale):
-            for sg in (None, sign):
-                err = max(err, _check_k6(xs, dtype, pre, sg, send_idx,
-                                         f"k6_pack_w{d}{tag} combinations")[2])
+        for ld in sorted({d, k1_operand_ld(d, dtype)}):
+            for pre in (None, slab_scale):
+                for sg in (None, sign):
+                    err = max(err, _check_k6(
+                        xs, dtype, ld, pre, sg, send_idx,
+                        f"k6_pack_w{d}{tag} combinations")[2])
     pre = op.bwd.pre_scale if tr else None
-    own = torch.empty(rpp, d, dtype=op.gather_dtype, device=xs.device)
+    ld = op.row_stride(d)
+    own = torch.empty(rpp, ld, dtype=op.gather_dtype,
+                      device=xs.device)[:, :d]
+
     def pack():
         return halo_pack(xs, own, pre_scale=pre, sign=path_sign,
-                         send_idx=send_idx)
+                         send_idx=send_idx, ld=ld)
 
     ms = time_ms(pack, 50)
     dev_ms = device_ms(pack)
     plain_ms = time_ms(lambda: halo_pack_plain(xs, own, pre, path_sign,
-                                               send_idx), 5)
+                                               send_idx, ld=ld), 5)
     lib_ms = lib_dev = None
     if pre is None and path_sign is None and send_idx is None:
         lib_ms = time_ms(lambda: xs.to(op.gather_dtype), 50)
         lib_dev = device_ms(lambda: xs.to(op.gather_dtype))
     n_send = 0 if send_idx is None else send_idx.numel()
-    b_ms, b_by = _k6_bound(rpp, d, n_send, own.element_size(),
+    b_ms, b_by = _k6_bound(rpp, d, ld, n_send, own.element_size(),
                            pre is not None)
     lib = ("none" if lib_ms is None
            else f"x.to(bf16) {lib_ms:.4f}, device {_ms(lib_dev)}")
-    print(f"  k6_pack_w{d}{tag} (rank 0: {rpp} rows, {n_send} send rows): "
-          f"{ms:.4f} ms, device {_ms(dev_ms)} (plain {plain_ms:.3f}, "
-          f"library {lib}; bound {b_ms:.4f} {b_by}); bit-equal to its plain "
-          f"version with and without pre-scale and sign, bf16 and f32")
+    print(f"  k6_pack_w{d}{tag} (rank 0: {rpp} rows, {n_send} send rows, "
+          f"row stride {ld}): {ms:.4f} ms, device {_ms(dev_ms)} (plain "
+          f"{plain_ms:.3f}, library {lib}; bound {b_ms:.4f} {b_by}); "
+          f"bit-equal to its plain version on the whole buffers (padding "
+          f"included) with and without pre-scale and sign, bf16 and f32, "
+          f"at K1's row stride and at rows of {d}")
     return dict(name=f"k6_pack_w{d}{tag}", counter=f"k6_pack_w{d}",
                 route="cuda", source="acmgnn_tpu_torch/csrc/halo.cu",
                 replaces=K6_REPLACES, max_abs_err=err, ms=ms,
@@ -1429,9 +1470,14 @@ def phase_sharded_main_path(adj, feats, labels, ms_single):
         compare_to_single("[6b]", result, {
             k: p.detach().cpu() for k, p in model.named_parameters()},
             single_chip_reference(data, cfg))
-        counts, ms_epoch, _ = drive_path(
+        counts, ms_epoch, _, groups = drive_path(
             "[6b]", data, headline_config(), _masks(adj.shape[0]),
             TIMED_EPOCHS, sharded_counts, group=dist.group.WORLD)
+        print(f"[6b] K1 {_ms(groups.get('K1 spmm'))} ms/epoch (profile "
+              f"above), K6 {_ms(groups.get('K6 halo pack'))}; the receive "
+              f"buffer's rows are K1's padded stride (bf16 w7 16 bytes); "
+              f"exchanged per SpMM at world size 1: 0 rows, 0 bytes (P=4: "
+              f"phase 6a)")
         pairs = phase_sharded_overhead(data)
     finally:
         dist.destroy_process_group()
@@ -1548,11 +1594,12 @@ def _gloo_unstaged(rank, world):
 def _halo_exchange_rows(data, rank, world):
     """This rank's bf16 halo receive buffers, filled by the path's staged
     ``all_to_all``, against the same rows assembled from every rank's K6
-    pack in this process: the rows that differ, forward and transpose."""
+    pack in this process, whole padded rows (K1's row stride, padding
+    included): the rows that differ, forward and transpose."""
     import torch
 
     from acmgnn_tpu_torch.ops.graph import row_normalized_adjacency
-    from acmgnn_tpu_torch.ops.halo import halo_pack
+    from acmgnn_tpu_torch.ops.halo import halo_pack, padded_rows
     from acmgnn_tpu_torch.parallel.sharded import (
         make_sharded_ell_op,
         receive_buffer,
@@ -1565,22 +1612,26 @@ def _halo_exchange_rows(data, rank, world):
     rpp = ops[0].rows_per_part
     gen = torch.Generator().manual_seed(6)     # the same x on every rank
     bad = []
-    for tr, sign in ((False, None), (True, [1.0, 1.0, -1.0, -1.0])):
-        x = torch.randn(data.num_nodes, 4 if tr else 8, generator=gen).cuda()
-        got = receive_buffer(ops[rank], _slab_of(x, b, rpp, rank), tr, sign)
+    for tr, sign in ((False, None), (True, [1.0, 1.0, -1.0, -1.0, 1.0, 1.0,
+                                            -1.0])):
+        x = torch.randn(data.num_nodes, 7 if tr else 8, generator=gen).cuda()
+        got = padded_rows(receive_buffer(ops[rank], _slab_of(x, b, rpp, rank),
+                                         tr, sign))
+        ld = ops[rank].row_stride(x.shape[1])
         packs = []
         for q, op in enumerate(ops):
-            own = torch.empty(rpp, x.shape[1], dtype=torch.bfloat16,
-                              device="cuda")
-            send = halo_pack(_slab_of(x, b, rpp, q), own,
+            own = torch.empty(rpp, ld, dtype=torch.bfloat16, device="cuda")
+            send = halo_pack(_slab_of(x, b, rpp, q), own[:, :x.shape[1]],
                              pre_scale=(op.bwd if tr else op.fwd).pre_scale,
                              sign=sign,
-                             send_idx=op.send_idx_t if tr else op.send_idx)
-            packs.append((own, send))
+                             send_idx=op.send_idx_t if tr else op.send_idx,
+                             ld=ld)
+            packs.append((own, padded_rows(send)))
         pad = ops[0].halo_pad_t if tr else ops[0].halo_pad
         want = torch.cat([packs[rank][0]] + [
-            packs[q][1].view(world, pad, -1)[rank] for q in range(world)])
-        bad.append(int((got != want).any(dim=1).sum()))
+            packs[q][1].view(world, pad, ld)[rank] for q in range(world)])
+        bad.append(int((got != want).any(dim=1).sum())
+                   + int(got[:, x.shape[1]:].float().any(dim=1).sum()))
     return bad
 
 
@@ -1657,8 +1708,9 @@ def phase_sharded_gloo():
         checks = [torch.load(f"{tmp}/checks-rank{r}.pt")
                   for r in range(SHARDED_P)]
         bad = [c["exchange"] for c in checks]
-        print(f"[6c] bf16 halo receive buffers (forward, transpose) against "
-              f"the four ranks' K6 packs: rows differing by rank {bad}")
+        print(f"[6c] bf16 halo receive buffers (forward w8, transpose w7 at "
+              f"K1's row stride 8), whole padded rows against the four "
+              f"ranks' K6 packs: rows differing by rank {bad}")
         if any(any(b) for b in bad):
             fail("[6c] the halo exchange delivered wrong rows")
         print(f"[6c] gloo's own handling of CUDA tensors, not staged (the "
@@ -1742,16 +1794,23 @@ EXPERIMENT_EPOCHS, STEPWISE_EPOCHS, KNOB_EPOCHS = 20, 20, 10
 def phase_probe():
     """[7a] The probe's entry point (``gather_probe.main``) on the card,
     its K7 launches counted; then each of its six panel configurations:
-    K7 equal to its plain version bit for bit, K7, plain and library
-    (``take_along_dim`` for P1, ``index_select`` for P2) ms, the bytes
-    bound and M rows/s; and the HBM yardstick's ms beside its bound."""
+    the host plan (block or L2 form) and the blocks resident per launch;
+    K7 in the plan's form, and at the panel a block holds (P=8) in the
+    L2 form too, each equal to its plain version bit for bit; where both
+    forms run, their device ms in turns (plan, L2, L2, plan); K7, plain
+    and library (``take_along_dim`` for P1, ``index_select`` for P2) ms
+    and device ms, each device time one reading of the same
+    ``device_ms``; the bytes bound and M rows/s; and the HBM yardstick's
+    ms beside its bound."""
     import torch
 
     from acmgnn_tpu_torch.ops import kernels
     from acmgnn_tpu_torch.ops.panel_gather import (
-        panel_columns,
+        _launch,
         panel_gather,
         panel_gather_plain,
+        panel_plan,
+        resident,
     )
     from acmgnn_tpu_torch.tools import gather_probe as probe
 
@@ -1772,12 +1831,21 @@ def phase_probe():
     for name, _, x, idx in configs[1:]:
         p, s = x.shape[0], x.element_size()
         per_row = idx.dim() == 1
-        got = panel_gather(x, idx)
+        forms = ["block", "l2"] if panel_plan(p, d, s) == "block" else ["l2"]
         want = panel_gather_plain(x, idx)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"[7a] {name}: K7 differs from its plain version")
-        del got, want
+        for form in forms:
+            got = _launch(x, idx, form)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"[7a] {name}: K7 ({form} form) differs from its "
+                     f"plain version")
+            del got
+        del want
+        form_ms = {}
+        if len(forms) > 1:
+            for form in forms + forms[::-1]:
+                form_ms.setdefault(form, []).append(device_ms(
+                    lambda form=form: _launch(x, idx, form), 5))
         ms = time_ms(lambda: panel_gather(x, idx), 20)
         dev_ms = device_ms(lambda: panel_gather(x, idx), 5)
         plain_ms = time_ms(lambda: panel_gather_plain(x, idx), 5)
@@ -1798,8 +1866,14 @@ def phase_probe():
         form = "p2" if per_row else "p1"
         dtype = "bf16" if s == 2 else "f32"
         row_name = f"k7_panel_gather_{form}_{dtype}_P{p}"
-        print(f"  {row_name}: bit-equal to its plain version; slice "
-              f"{panel_columns(p, d, s)} columns; {ms:.4f} ms "
+        held = ", ".join(f"{f} {resident(f, x, per_row)}" for f in forms)
+        print(f"  {row_name}: panel {p * d * s} bytes, plan: {forms[0]} "
+              f"form; blocks resident at once: {held}")
+        turns = "; device ms in turns: " + ", ".join(
+            f"{f} {' / '.join(f'{v:.4f}' for v in vs)}"
+            for f, vs in form_ms.items()) if form_ms else ""
+        print(f"  {row_name}: bit-equal to its plain version in "
+              f"{' and '.join(forms)} form{turns}; {ms:.4f} ms "
               f"({m / ms * 1e3 / 1e6:.1f} M rows/s; plain {plain_ms:.3f}, "
               f"{'index_select' if per_row else 'take_along_dim'} "
               f"{lib_ms:.4f}, device {_ms(lib_dev)}; K7 device "
@@ -1813,7 +1887,8 @@ def phase_probe():
             library_device_ms=lib_dev,
             path=f"probe, not on a training path (python -m "
                  f"acmgnn_tpu_torch.tools.gather_probe): {per_config} "
-                 f"launches per configuration, 1 per probe call"))
+                 f"launches per configuration, 1 per probe call; "
+                 f"{forms[0]} form"))
     _, _, xb, idxb = configs[0]
     ms = time_ms(lambda: torch.index_select(xb, 0, idxb), 20)
     b_ms, _ = bound(4 * m + 2 * m * d * 4, 0)

@@ -61,11 +61,13 @@ from acmgnn_tpu_torch.ops.graph import (
     make_coo_op,
     row_normalized_adjacency,
 )
-from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain
+from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain, padded_rows
 from acmgnn_tpu_torch.ops.panel_gather import (
     SMEM_BYTES,
+    _launch,
     panel_gather,
     panel_gather_plain,
+    panel_plan,
 )
 from acmgnn_tpu_torch.ops.spmm import spmm_multi
 from acmgnn_tpu_torch.parallel.sharded import make_sharded_ell_op
@@ -412,25 +414,35 @@ def _halo_inputs(width, with_scale, with_sign, device, rows=1000, n_dest=4,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("padded", (False, True))
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
-@pytest.mark.parametrize("width", (4, 7, 8, 64))
+@pytest.mark.parametrize("width", (4, 7, 8, 12, 64))
 @pytest.mark.parametrize("with_scale,with_sign", [(False, False), (True, False),
                                                   (False, True), (True, True)])
-def test_k6_matches_plain(cuda, dtype, width, with_scale, with_sign):
+def test_k6_matches_plain(cuda, dtype, width, with_scale, with_sign, padded):
     """K6 against its plain version bit for bit: one f32 multiply per
     factor, one rounding into the gather dtype, and the send rows copied
-    from the same values."""
+    from the same values; into contiguous rows and into K1's row-padded
+    layout (``k1_operand_ld``), whose padding it writes as 0 (the buffers
+    start as NaN, and are compared whole)."""
     x, pre, sign, send_idx = _halo_inputs(width, with_scale, with_sign, cuda)
-    own = torch.empty(x.shape, dtype=dtype, device=cuda)
-    own_plain = torch.empty_like(own)
-    send = halo_pack(x, own, pre_scale=pre, sign=sign, send_idx=send_idx)
-    send_plain = halo_pack_plain(x, own_plain, pre, sign, send_idx)
-    alone = torch.empty_like(own)
-    assert halo_pack(x, alone, pre_scale=pre, sign=sign) is None
+    ld = k1_operand_ld(width, dtype) if padded else width
+    bufs = [torch.full((x.shape[0], ld), float("nan"), dtype=dtype,
+                       device=cuda) for _ in range(3)]
+    own, own_plain, alone = (b[:, :width] for b in bufs)
+    send = halo_pack(x, own, pre_scale=pre, sign=sign, send_idx=send_idx,
+                     ld=ld)
+    send_plain = halo_pack_plain(x, own_plain, pre, sign, send_idx, ld=ld)
+    assert halo_pack(x, alone, pre_scale=pre, sign=sign, ld=ld) is None
     torch.cuda.synchronize()
-    assert torch.equal(own, own_plain) and torch.equal(alone, own_plain)
+    assert torch.equal(bufs[0], bufs[1]) and torch.equal(bufs[2], bufs[1])
     assert send.shape == (send_idx.numel(), width)
-    assert torch.equal(send, send_plain)
+    assert send.stride(0) == ld
+    assert torch.equal(padded_rows(send), padded_rows(send_plain))
+    assert not bufs[0][:, width:].float().any()
+    if padded and ld > width:   # a padded view the caller did not declare
+        with pytest.raises(ValueError, match="pass ld"):
+            halo_pack(x, own, pre_scale=pre, sign=sign)
 
 
 # ---------------------------------------------------------------------------
@@ -551,7 +563,9 @@ def test_k1_operand_layout(dtype, width):
 
 
 def _hub_matrix(n=120, seed=0):
-    """A hub row of degree n-1, rows without triplets, uneven values."""
+    """A hub row of degree n-1, rows without triplets, uneven values
+    (``n=700``: a hub row of 699 nonzeros spans three or more slices of
+    ``SLICE_NNZ``)."""
     rng = np.random.default_rng(seed)
     dense = (rng.random((n, n)) < 0.05) * rng.uniform(0.1, 2.0, (n, n))
     dense[3, :] = rng.uniform(0.1, 2.0, n)
@@ -560,7 +574,7 @@ def _hub_matrix(n=120, seed=0):
 
 
 @pytest.mark.parametrize("kind", ("lowpass_sym", "lowpass_directed",
-                                  "weighted", "hub"))
+                                  "weighted", "hub", "wide_hub"))
 @pytest.mark.parametrize("slice_nnz", (1, 4, 16, SLICE_NNZ))
 def test_coo_half_partition_matches_its_definition(kind, slice_nnz):
     """K5's host partition against a row-by-row definition: a row whose
@@ -568,7 +582,8 @@ def test_coo_half_partition_matches_its_definition(kind, slice_nnz):
     and last slice, a row without one is listed as empty, and no slice
     starts or ends more than one spanning row (the carry buffer holds one
     head and one tail partial per slice)."""
-    mat = _hub_matrix() if kind == "hub" else _matrices()[kind]
+    mat = (_hub_matrix() if kind == "hub" else _hub_matrix(700)
+           if kind == "wide_hub" else _matrices()[kind])
     half = _coo_half(mat, slice_nnz)
     slices = np.arange(half.nnz) // slice_nnz
     row = half.row.numpy()
@@ -586,7 +601,9 @@ def test_coo_half_partition_matches_its_definition(kind, slice_nnz):
     firsts = [f for f, _ in spans.values()]
     lasts = [last for _, last in spans.values()]
     assert len(set(firsts)) == len(firsts) and len(set(lasts)) == len(lasts)
-    if kind == "hub" and np.bincount(row).max() > 2 * slice_nnz:
+    if kind == "wide_hub":
+        assert np.bincount(row).max() > 2 * SLICE_NNZ
+    if kind.endswith("hub") and np.bincount(row).max() > 2 * slice_nnz:
         assert max(last - f for f, last in spans.values()) >= 2
 
 
@@ -748,14 +765,18 @@ def test_k4_matches_plain(cuda, kind, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p", (8, 512, 4096))
+@pytest.mark.parametrize("p", (8, 512, 1000, 4096, 16 * SMEM_BYTES // 512 + 1))
 @pytest.mark.parametrize("d", (128, 7))
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("per_row", (False, True))
-def test_k7_matches_plain(cuda, p, d, dtype, per_row):
+@pytest.mark.parametrize("form", (None, "l2"))
+def test_k7_matches_plain(cuda, p, d, dtype, per_row, form):
     """K7 equal to its plain version bit for bit (a gather copies bits),
-    on a ragged M (no multiple of any block's row chunk) and on indices
-    that differ across a row for the per-element form."""
+    on a ragged M (no multiple of any warp's row range) and on indices
+    that differ across a row for the per-element form; in the host plan's
+    form (a panel one block holds: the block form; larger: L2, up to a
+    panel no cluster of 16 blocks' shared memory would hold) and in the
+    L2 form."""
     gen = torch.Generator(device=cuda).manual_seed(p + d)
     m = 10_007
     x = torch.randn(p, d, generator=gen, device=cuda).to(dtype)
@@ -763,7 +784,7 @@ def test_k7_matches_plain(cuda, p, d, dtype, per_row):
     idx = torch.randint(0, p, shape, generator=gen, device=cuda,
                         dtype=torch.int32)
     kernels.reset_launches()
-    got = panel_gather(x, idx)
+    got = panel_gather(x, idx) if form is None else _launch(x, idx, form)
     torch.cuda.synchronize()
     assert kernels.launches["K7"] == 1
     assert got.dtype == dtype and got.shape == (m, d)
@@ -772,12 +793,11 @@ def test_k7_matches_plain(cuda, p, d, dtype, per_row):
 
 @pytest.mark.gpu
 def test_k7_refuses_what_it_cannot_take(cuda):
-    """A panel that no column slice fits is refused by name with its
-    bytes; CPU and CUDA operands are not mixed; indices must be int32."""
+    """CPU and CUDA operands are not mixed; indices must be int32; the
+    per-element indices' vector loads need them 16-byte aligned, so an
+    offset view is refused (a per-row view is taken); the block form is
+    refused for a panel a block cannot hold, naming its bytes."""
     idx = torch.zeros(16, dtype=torch.int32, device=cuda)
-    big = torch.zeros(SMEM_BYTES // 4 + 1, 8, device=cuda)
-    with pytest.raises(ValueError, match="bytes"):
-        panel_gather(big, idx)
     x = torch.zeros(64, 8)
     with pytest.raises(ValueError, match="CUDA"):
         panel_gather(x, idx)
@@ -785,6 +805,17 @@ def test_k7_refuses_what_it_cannot_take(cuda):
         panel_gather(x.to(cuda), idx.cpu())
     with pytest.raises(TypeError, match="int32"):
         panel_gather(x.to(cuda), idx.long())
+    xc = x.to(cuda)
+    flat = torch.zeros(16 * 8 + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        panel_gather(xc, flat[1:].view(16, 8))
+    got = panel_gather(xc, idx[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, panel_gather_plain(xc, idx[1:]))
+    big = torch.zeros(SMEM_BYTES // 32 + 1, 8, device=cuda)
+    with pytest.raises(ValueError, match=f"{big.numel() * 4} bytes"):
+        _launch(big, idx, "block")
+    assert panel_plan(*big.shape, 4) == "l2"
 
 
 @pytest.mark.gpu

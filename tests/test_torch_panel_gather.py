@@ -29,9 +29,9 @@ import torch
 
 from acmgnn_tpu_torch.ops.panel_gather import (
     SMEM_BYTES,
-    panel_columns,
     panel_gather,
     panel_gather_plain,
+    panel_plan,
 )
 from acmgnn_tpu_torch.tools import gather_probe
 
@@ -170,19 +170,54 @@ def test_probe_configurations_are_the_tpu_probes(port_configs):
         assert torch.equal(idx, idx[:, :1].expand_as(idx))
 
 
-@pytest.mark.parametrize("p,elem_bytes,want", [
-    (8, 4, 128), (512, 4, 64), (4096, 4, 8), (4096, 2, 16)])
-def test_column_slices_of_the_probe_panels(p, elem_bytes, want):
-    """K7's slice widths at the probe's panels: the widest power of two
-    whose slice fits a block's shared memory."""
-    dc = panel_columns(p, D, elem_bytes)
-    assert dc == want
-    assert p * dc * elem_bytes <= SMEM_BYTES < p * 2 * dc * elem_bytes \
-        or dc == D
+# the probe's six panel configurations: (P, element bytes, per-row
+# indices) and K7's plan for each
+PROBE_PLANS = [
+    ((8, 4, False), "block"),
+    ((512, 4, False), "l2"),
+    ((4096, 4, False), "l2"),
+    ((512, 4, True), "l2"),
+    ((4096, 4, True), "l2"),
+    ((4096, 2, True), "l2"),
+]
 
 
-def test_a_panel_no_slice_fits_is_refused():
-    with pytest.raises(ValueError, match="bytes"):
-        panel_columns(SMEM_BYTES // 4 + 1, D, 4)
-    assert panel_columns(SMEM_BYTES // 4, D, 4) == 1
-    assert panel_columns(8, 7, 4) == 8       # one slice covers 7 columns
+def test_plans_cover_the_probe_configurations(port_configs):
+    """``PROBE_PLANS`` lists the probe's six panel configurations in
+    order."""
+    got = [(x.shape[0], x.element_size(), idx.dim() == 1)
+           for _, _, x, idx in port_configs[1:]]
+    assert got == [cfg for cfg, _ in PROBE_PLANS]
+
+
+@pytest.mark.parametrize("cfg,want", PROBE_PLANS)
+def test_panel_plan_of_the_probe_configurations(cfg, want):
+    """K7's host plan: the block form, the whole panel in each block's
+    shared memory within ``SMEM_BYTES``, where the panel fits there (P=8);
+    else the L2 form, which takes no shared memory."""
+    p, elem_bytes, _ = cfg
+    assert panel_plan(p, D, elem_bytes) == want
+    assert (want == "block") == (p * D * elem_bytes <= SMEM_BYTES)
+
+
+@pytest.mark.parametrize("d", (128, 12, 7))
+@pytest.mark.parametrize("elem_bytes", (4, 2))
+def test_panel_plan_size_rule_at_its_edge(d, elem_bytes):
+    """The largest panel a block's shared memory holds takes the block
+    form; one row more is read through L2."""
+    rows = SMEM_BYTES // (d * elem_bytes)
+    assert panel_plan(rows, d, elem_bytes) == "block"
+    assert panel_plan(rows + 1, d, elem_bytes) == "l2"
+
+
+def test_a_panel_beyond_any_cluster_is_planned_for_l2():
+    """A panel larger than 16 blocks' shared memory (the largest thread-
+    block cluster) still has a plan: the L2 form, no refusal; and the
+    wrapper on CPU tensors gathers from it as the plain version does."""
+    rows = 16 * SMEM_BYTES // (D * 4) + 1
+    assert panel_plan(rows, D, 4) == "l2"
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((rows, D), dtype=np.float32))
+    for kind in ("per_element", "per_row"):
+        idx = torch.from_numpy(_indices(kind, 257, rows, D, rng))
+        assert torch.equal(panel_gather(x, idx), panel_gather_plain(x, idx))

@@ -61,14 +61,14 @@ from acmgnn_tpu_torch.data.splits import (
 )
 from acmgnn_tpu_torch.data.synthetic_scale import twitch_gamers_scale_graph
 from acmgnn_tpu_torch.models.convert import params_from_flax
-from acmgnn_tpu_torch.ops.ell import make_ell_op
+from acmgnn_tpu_torch.ops.ell import k1_operand, make_ell_op, row_gather_spmm
 from acmgnn_tpu_torch.ops.graph import (
     GraphData,
     make_coo_op,
     permute_graph,
     row_normalized_adjacency,
 )
-from acmgnn_tpu_torch.ops.halo import halo_pack_plain
+from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain, padded_rows
 from acmgnn_tpu_torch.parallel import partition as tpart
 from acmgnn_tpu_torch.parallel import sharded as tsharded
 from acmgnn_tpu_torch.parallel.multihost import init_distributed
@@ -337,13 +337,16 @@ def test_halo_schedule_matches_jax(graphs, name):
                                           want["col_h" + sfx][p, :k])
 
 
+@pytest.mark.parametrize("ld", (7, 8))
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 @pytest.mark.parametrize("with_scale,with_sign", [(False, False), (True, True),
                                                   (True, False)])
-def test_halo_pack_plain_matches_jax(dtype, with_scale, with_sign):
+def test_halo_pack_plain_matches_jax(dtype, with_scale, with_sign, ld):
     """K6's plain version against ``_pre_scale_block`` and the send-slab
     ``take``, bit for bit (the sign is the cotangent's negation JAX's
-    autodiff applies before the block)."""
+    autodiff applies before the block), into contiguous rows of d = 7
+    and into K1's row-padded layout (row stride 8), whose padding columns
+    it writes as 0 in the own and the send rows."""
     rng = np.random.default_rng(2)
     rows, d, halo_pad = 50, 7, 8
     x = (rng.normal(size=(rows, d)) * 100).astype(np.float32)
@@ -356,14 +359,67 @@ def test_halo_pack_plain_matches_jax(dtype, with_scale, with_sign):
                             None if pre is None else jnp.asarray(pre)[None],
                             jdt)
     want_send = jnp.take(want, jnp.asarray(send_idx).reshape(-1), axis=0)
-    own = torch.empty(rows, d, dtype=getattr(torch, dtype))
+    buf = torch.full((rows, ld), float("nan"), dtype=getattr(torch, dtype))
+    own = buf[:, :d]
     send = halo_pack_plain(torch.from_numpy(x), own,
                            None if pre is None else torch.from_numpy(pre),
-                           sign, torch.from_numpy(send_idx))
+                           sign, torch.from_numpy(send_idx), ld=ld)
+    assert own.stride(0) == send.stride(0) == ld
     np.testing.assert_array_equal(own.float().numpy(),
                                   np.asarray(want, np.float32))
     np.testing.assert_array_equal(send.float().numpy(),
                                   np.asarray(want_send, np.float32))
+    for t in (buf, padded_rows(send)):
+        assert t.shape[1] == ld and not t[:, d:].float().any()
+
+
+@pytest.mark.parametrize("pack", (halo_pack, halo_pack_plain))
+@pytest.mark.parametrize("ld", (None, 8, 12))
+def test_halo_pack_refuses_a_column_slice(pack, ld):
+    """The pack zeroes the columns ``d`` to ``ld`` of every row only where
+    the caller names ``ld``: a column slice of a wider tensor (rows of 12)
+    whose stride is not the ``ld`` passed, or that is passed without one,
+    is refused, and its neighbouring columns keep their values."""
+    x = torch.ones(5, 7)
+    wide = torch.full((5, 12), 3.0)
+    with pytest.raises(ValueError, match="pass ld"):
+        pack(x, wide[:, 2:9], ld=ld)
+    if ld != 12:
+        with pytest.raises(ValueError, match="pass ld"):
+            pack(x, wide[:, :7], ld=ld)
+    assert torch.equal(wide, torch.full((5, 12), 3.0))
+
+
+def test_world_size_1_receive_buffer_is_k1s_padded_operand(model_graph):
+    """World size 1 (no group): a bf16 w7 ELL operator's receive buffer
+    is a ``[:, :7]`` view of rows of 8 (K1's ``k1_operand`` layout) with
+    zero padding, holding what ``k1_operand`` holds; the sharded product
+    and its transpose (sign and pre-scale applied in f32, one rounding)
+    equal the single-chip port's K1 on the same operand bit for bit."""
+    adj = row_normalized_adjacency(sp.csr_matrix(model_graph[0]))
+    n = adj.shape[0]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(n, 7)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, 4)).astype(np.float32))
+    sign = [1.0, 1.0, -1.0, -1.0]
+    op, _ = tsharded.make_sharded_ell_op(adj, 1, 0,
+                                         gather_dtype=torch.bfloat16)
+    one = make_ell_op(adj, gather_dtype=torch.bfloat16)
+    assert op.bwd.pre_scale is not None      # the column-uniform transpose
+    recv = tsharded.receive_buffer(op, x)
+    assert recv.shape == (n, 7) and recv.stride() == (8, 1)
+    assert not padded_rows(recv)[:, 7:].float().any()
+    assert torch.equal(recv, k1_operand(x, torch.bfloat16))
+    assert torch.equal(tsharded.sharded_ell_spmm(op, x),
+                       row_gather_spmm(one.fwd, k1_operand(x,
+                                                           torch.bfloat16)))
+    signed = g * torch.tensor(sign)
+    recv_t = tsharded.receive_buffer(op, g, True, sign)
+    assert recv_t.stride() == (4, 1)        # bf16 rows of 4 are 8 bytes
+    want_t = k1_operand(signed, torch.bfloat16, one.bwd.pre_scale)
+    assert torch.equal(recv_t, want_t)
+    assert torch.equal(tsharded.sharded_ell_spmm_transpose(op, g, sign),
+                       row_gather_spmm(one.bwd, want_t))
 
 
 # ---------------------------------------------------------------------------
