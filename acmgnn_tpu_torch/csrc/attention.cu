@@ -1,16 +1,27 @@
-// K2/K3 — ACM channel attention + mix, forward and backward (sm_90a).
+// K2/K3 — ACM channel ReLU, attention and mix, forward and backward
+// (sm_90a).
 //
-// Replaces the projected-LayerNorm channel attention of
-// acmgnn_tpu/models/layers.py (ACMConv._attention, proj branch) and the
-// channel mix that follows it (ACMConv.__call__'s `3 * sum_i att_i h_i`).
-// Per row, for the T = 3 channels h_i (already ReLU'd, [N, d] f32):
+// Replaces, in acmgnn_tpu/models/layers.py, the channel ReLU and the mix
+// of ACMConv.__call__ (:450-480: relu of the low, high and MLP channels,
+// then `3 * sum_i att_i h_i`), the projected-LayerNorm channel attention
+// ACMConv._attention (:191-232, the `proj` branch and the branch without
+// LayerNorm), and the row reductions that JAX's autodiff made of them for
+// the parameter gradients.  Per row, for the T = 3 channels z_i ([N, d]
+// f32, before the ReLU):
 //
+//   h_i = relu(z_i)
 //   mu_i = mean(h_i), var_i = max(mean(h_i^2) - mu_i^2, 0)   (fast variance)
 //   score_i = pc_i * rsqrt(var_i + 1e-5) + c_i,  pc_i = sum_j (h_ij - mu_i) v_ij
 //             with v_i = scale_i * a_i, c_i = bias_i . a_i
 //   (without LayerNorm: score_i = h_i . v_i, v_i = a_i)
 //   att = softmax(sigmoid(score) @ W / 3)
 //   out = K * (att_0 h_0 + att_1 h_1 + att_2 h_2)
+//
+// K3 returns dz_i = dh_i [z_i > 0] (the ReLU's gradient, 0 at 0) and the
+// parameter gradients summed over the rows: dv_ij = sum_rows dp_i h_ij +
+// sum_rows dS_i (dS_i = -dp_i mu_i is the row's share of d sum_j v_ij),
+// dc_i = sum_rows dscore_i (with LayerNorm; 0 without), dW_ij = sum_rows
+// g_i dl_j / 3.
 //
 // pc_i equals the JAX form h_i . v_i - mu_i * sum(v_i); it is summed
 // centred because the uncentred difference cancels on near-constant rows,
@@ -19,19 +30,50 @@
 // by 1e-3).  For the same reason the fast variance is rounded one
 // operation at a time, without fused multiply-adds.
 //
-// K2 writes only `out`; nothing [N, T] or [N, d] goes to memory besides.
-// K3 recomputes the row scalars from the h_i (nothing was saved) and
-// writes dh_i plus 15 scalars per row; the row reductions for the
-// parameter gradients are left to the caller (matrix-vector products).
-//
 // What bounds them on an H100: bytes.  K2 reads 3 [N, d] f32 channels and
-// writes one (~172 MB at N = 168,114, d = 64); K3 reads 4 and writes 3.
-// The arithmetic is a few operations per byte.  Design: a group of G
-// lanes (a power of two, G = min(32, next_pow2(d))) owns a row, each lane
-// strides over columns so a group's loads are contiguous, the row sums
-// reduce with xor shuffles inside the group, every lane then holds the
-// row scalars, and the later passes over the row (L1 hits) finish the
-// centred projection and write the outputs.
+// writes one (16 N d bytes: 172 MB, 0.051 ms at 3.35 TB/s for N =
+// 168,114, d = 64); K3 reads 4 and writes 3 (28 N d: 301 MB, 0.090 ms)
+// plus a [grid, 3 d + 15] partials tensor of a few hundred KB.  The first
+// form of these kernels gave a row a whole warp at d = 64 (scalar loads,
+// five shuffle steps per row sum, the row's scalar tail issued by all 32
+// lanes for one row) and read every element three times: about 300 warp
+// instructions a row made it issue-bound at 31-44% of the bytes bound,
+// and at d = 2 two lanes computed the same tail.  This design:
+// - A group of G lanes owns a row and a lane holds E floats of it in
+//   registers (d = 64: G = 4, E = 16, four float4 a channel, eight rows
+//   a warp, two shuffle steps; d <= 8: one lane a row, no shuffles).
+//   Chunk k of lane l covers columns (k G + l) V .. (k G + l) V + V - 1,
+//   so each vector load of a group is contiguous.  Vector loads (V = 4,
+//   or 2 at d = 2) where d and every row stride allow it, else scalar
+//   loads (V = 1) with the same arithmetic.  Channels may be column
+//   views of a wider tensor: each has its own row stride.
+// - Every element is read once from device memory: the ReLU, the
+//   moments, the centred projection, the mix, dz and the dv share all run
+//   on the registers.
+// - Persistent blocks: the grid is at most the card's SMs times the
+//   resident blocks (asked once, before the first launch, so that a
+//   launch captures in a CUDA graph) and warps stride over the rows.  v
+//   (zero-padded to G E columns), S_i = sum_j v_ij, c and W are loaded
+//   into shared memory once a block; v there, not in registers, leaves
+//   K3's registers to the row and the dv share.
+// - K3 keeps each lane's share of dv in registers across all its rows,
+//   and each row group its 15 row sums (dS, dscore, g_i dl_j) in shared
+//   memory (at 8 floats a lane and two blocks an SM, 128 registers had
+//   spilled).  At
+//   the end each warp folds its groups with xor shuffles, the warps add
+//   into shared memory in warp order, the row sums add over the groups
+//   in order, and the block writes one row of the partials; a second kernel sums the partials over the blocks in a fixed
+//   order into dv, dc and dW.  No atomics: on one card (a fixed grid) a
+//   run is bit-reproducible.
+// - The row sums add products rounded on their own (no fused
+//   multiply-add), as the plain version does: at d = 2 with LayerNorm,
+//   where one lane sums a whole row, fused products moved the fast
+//   variance of near-constant rows enough to put dz at 2.7x its
+//   tolerance against the plain version (the first card run).  x / d is a multiply where d is a power
+//   of two (exact, so equal to the division); the fast variance and the
+//   LayerNorm score are rounded one operation at a time; the gates and the softmax use
+//   __expf and __frcp_rn (a correctly rounded reciprocal, equal to 1 / x);
+//   rsqrtf as in the first form.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -39,8 +81,44 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kT = 3;  // channels
+constexpr int kWarps = kThreads / 32;
+constexpr int kT = 3;           // channels
+constexpr int kRowSums = 15;    // per row: dS (3), dscore (3), g_i dl_j (9)
+constexpr int kFinishThreads = 1024;
 constexpr float kEps = 1e-5f;
+
+struct Args {
+  const float* z[kT];
+  int64_t ld[kT];   // row strides of the channels, in floats
+  const float* gout;
+  int64_t ldg;
+  const float* v;
+  const float* c;
+  const float* W;
+  float* out;       // K2: [n, d]
+  float* dz[kT];    // K3: [n, d] each
+  float* partials;  // K3: [grid, 3 d + 15]
+  int n, d, use_ln;
+  float scale;
+};
+
+template <int GE>
+struct Params {
+  float v[kT][GE];  // zero beyond d
+  float S[kT], c[kT], W[kT * kT];
+};
+
+// x / d: a multiply where d is a power of two (exact), else the division
+struct DivD {
+  float fd, inv;
+  bool pow2;
+  __device__ explicit DivD(int d)
+      : fd(static_cast<float>(d)), inv(1.f / static_cast<float>(d)),
+        pow2((d & (d - 1)) == 0) {}
+  __device__ __forceinline__ float operator()(float x) const {
+    return pow2 ? __fmul_rn(x, inv) : __fdiv_rn(x, fd);
+  }
+};
 
 template <int G>
 __device__ __forceinline__ float group_sum(float x) {
@@ -50,59 +128,152 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-struct RowScalars {
+template <int V>
+__device__ __forceinline__ void load_vec(float* dst, const float* src) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(src));
+    dst[0] = t.x; dst[1] = t.y;
+  } else {
+    dst[0] = __ldg(src);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* dst, const float* src) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2],
+                                                  src[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+  } else {
+    dst[0] = src[0];
+  }
+}
+
+// The block's copy of v, S, c and W.
+template <int GE>
+__device__ void load_params(Params<GE>& p, const Args& a) {
+  for (int t = threadIdx.x; t < kT * GE; t += kThreads) {
+    const int i = t / GE, j = t % GE;
+    p.v[i][j] = j < a.d ? __ldg(a.v + i * a.d + j) : 0.f;
+  }
+  if (threadIdx.x < kT) p.c[threadIdx.x] = __ldg(a.c + threadIdx.x);
+  if (threadIdx.x < kT * kT) p.W[threadIdx.x] = __ldg(a.W + threadIdx.x);
+  __syncthreads();
+  if (threadIdx.x < kT) {
+    float acc = 0.f;
+    for (int j = 0; j < a.d; ++j) acc += p.v[threadIdx.x][j];
+    p.S[threadIdx.x] = acc;
+  }
+  __syncthreads();
+}
+
+// Loads one row's E floats of each channel (and of gout in K3) for this
+// lane, ReLU applied to the channels; zeros past the row's end or n.
+template <int V, int G, int E, bool kGrad>
+__device__ __forceinline__ void load_row(float (&h)[kT][E], float (&go)[E],
+                                         const Args& a, int64_t row,
+                                         bool valid, int lane) {
+#pragma unroll
+  for (int k = 0; k < E / V; ++k) {
+    const int col = (k * G + lane) * V;
+    const bool ok = valid && col < a.d;
+#pragma unroll
+    for (int i = 0; i < kT; ++i) {
+      if (ok) {
+        load_vec<V>(&h[i][k * V], a.z[i] + row * a.ld[i] + col);
+      } else {
+#pragma unroll
+        for (int u = 0; u < V; ++u) h[i][k * V + u] = 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < V; ++u)
+        h[i][k * V + u] = fmaxf(h[i][k * V + u], 0.f);
+    }
+    if constexpr (kGrad) {
+      if (ok) {
+        load_vec<V>(&go[k * V], a.gout + row * a.ldg + col);
+      } else {
+#pragma unroll
+        for (int u = 0; u < V; ++u) go[k * V + u] = 0.f;
+      }
+    }
+  }
+}
+
+struct Row {
   float mu[kT], diff[kT], r[kT], pc[kT], g[kT], att[kT];
 };
 
 // Row moments, centred projections, scores, gates and softmax weights of
-// one row; `q` (optional) also collects gout . h_i.  Every lane of the
-// group calls it (the shuffles need the whole warp); `valid` guards the
-// loads of rows past the end.
-template <int G>
+// one row; K3 (kGrad) also sums q_i = gout . h_i.  Every lane of the
+// warp calls it (the shuffles need the whole warp).
+template <int V, int G, int E, bool kGrad>
 __device__ __forceinline__ void row_scalars(
-    RowScalars& s, const float* const (&h)[kT], const float* go,
-    float* q, const float* __restrict__ v, const float* __restrict__ c,
-    const float* __restrict__ W, int d, int lane, bool valid, int use_ln) {
-  float s1[kT] = {0.f, 0.f, 0.f}, s2[kT] = {0.f, 0.f, 0.f},
-        p[kT] = {0.f, 0.f, 0.f};
-  if (valid) {
-    for (int j = lane; j < d; j += G) {
-      const float gj = go != nullptr ? go[j] : 0.f;
+    Row& s, float (&q)[kT], const float (&h)[kT][E], const float (&go)[E],
+    const Params<G * E>& p, int lane, const DivD& div, int use_ln) {
+  float pj[kT];
+  if (use_ln) {
 #pragma unroll
-      for (int i = 0; i < kT; ++i) {
-        const float x = h[i][j];
-        s1[i] += x;
-        s2[i] += x * x;
-        if (q != nullptr) q[i] += x * gj;
-        if (!use_ln) p[i] += x * v[i * d + j];
+    for (int i = 0; i < kT; ++i) {
+      float s1 = 0.f, s2 = 0.f, qi = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float x = h[i][e];
+        s1 += x;
+        s2 += __fmul_rn(x, x);
+        if constexpr (kGrad) qi += __fmul_rn(x, go[e]);
       }
+      s1 = group_sum<G>(s1);
+      s2 = group_sum<G>(s2);
+      if constexpr (kGrad) q[i] = group_sum<G>(qi);
+      s.mu[i] = div(s1);
+      s.diff[i] = __fsub_rn(div(s2), __fmul_rn(s.mu[i], s.mu[i]));
+    }
+#pragma unroll
+    for (int i = 0; i < kT; ++i) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < E / V; ++k) {
+#pragma unroll
+        for (int u = 0; u < V; ++u)
+          acc += __fmul_rn(h[i][k * V + u] - s.mu[i],
+                           p.v[i][(k * G + lane) * V + u]);
+      }
+      pj[i] = acc;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kT; ++i) {
+      float acc = 0.f, qi = 0.f;
+#pragma unroll
+      for (int k = 0; k < E / V; ++k) {
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const float x = h[i][k * V + u];
+          acc += __fmul_rn(x, p.v[i][(k * G + lane) * V + u]);
+          if constexpr (kGrad) qi += __fmul_rn(x, go[k * V + u]);
+        }
+      }
+      pj[i] = acc;
+      if constexpr (kGrad) q[i] = group_sum<G>(qi);
+      s.mu[i] = 0.f;
+      s.diff[i] = 0.f;
     }
   }
-  const float fd = static_cast<float>(d);
 #pragma unroll
   for (int i = 0; i < kT; ++i) {
-    s1[i] = group_sum<G>(s1[i]);
-    s2[i] = group_sum<G>(s2[i]);
-    if (q != nullptr) q[i] = group_sum<G>(q[i]);
-    s.mu[i] = __fdiv_rn(s1[i], fd);
-    s.diff[i] = __fsub_rn(__fdiv_rn(s2[i], fd), __fmul_rn(s.mu[i], s.mu[i]));
-  }
-  if (use_ln && valid) {
-    for (int j = lane; j < d; j += G) {
-#pragma unroll
-      for (int i = 0; i < kT; ++i) p[i] += (h[i][j] - s.mu[i]) * v[i * d + j];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kT; ++i) {
-    s.pc[i] = group_sum<G>(p[i]);
+    s.pc[i] = group_sum<G>(pj[i]);
     s.r[i] = 1.f;
     float score = s.pc[i];
     if (use_ln) {
       s.r[i] = rsqrtf(__fadd_rn(fmaxf(s.diff[i], 0.f), kEps));
-      score = __fadd_rn(__fmul_rn(s.pc[i], s.r[i]), c[i]);
+      score = __fadd_rn(__fmul_rn(s.pc[i], s.r[i]), p.c[i]);
     }
-    s.g[i] = 1.f / (1.f + expf(-score));
+    s.g[i] = __frcp_rn(1.f + __expf(-score));
   }
   float l[kT];
   float m = -INFINITY;
@@ -110,199 +281,357 @@ __device__ __forceinline__ void row_scalars(
   for (int j = 0; j < kT; ++j) {
     float acc = 0.f;
 #pragma unroll
-    for (int i = 0; i < kT; ++i) acc += s.g[i] * W[i * kT + j];
+    for (int i = 0; i < kT; ++i) acc += s.g[i] * p.W[i * kT + j];
     l[j] = acc / static_cast<float>(kT);
     m = fmaxf(m, l[j]);
   }
   float tot = 0.f;
 #pragma unroll
   for (int j = 0; j < kT; ++j) {
-    l[j] = expf(l[j] - m);
+    l[j] = __expf(l[j] - m);
     tot += l[j];
   }
+  const float inv = __frcp_rn(tot);
 #pragma unroll
-  for (int j = 0; j < kT; ++j) s.att[j] = l[j] / tot;
+  for (int j = 0; j < kT; ++j) s.att[j] = l[j] * inv;
 }
 
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const float* __restrict__ h0, const float* __restrict__ h1,
-                const float* __restrict__ h2, const float* __restrict__ v,
-                const float* __restrict__ c, const float* __restrict__ W,
-                float* __restrict__ out, int n, int d, int use_ln,
-                float scale) {
-  const int lane = threadIdx.x % G;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / G) +
-                      threadIdx.x / G;
-  const bool valid = row < n;  // no early exit: all lanes shuffle
-  const float* const h[kT] = {h0 + row * d, h1 + row * d, h2 + row * d};
-  RowScalars s;
-  row_scalars<G>(s, h, nullptr, nullptr, v, c, W, d, lane, valid, use_ln);
-  if (!valid) return;
-  for (int j = lane; j < d; j += G)
-    out[row * d + j] =
-        scale * (s.att[0] * h[0][j] + s.att[1] * h[1][j] + s.att[2] * h[2][j]);
-}
-
-// aux row layout: [dp(3), dS(3), dscore(3), g(3), dl(3)]; dS_i = -dp_i mu_i
-// is the row's share of d(sum_j v_ij).
-constexpr int kAux = 15;
-
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ h1,
-                const float* __restrict__ h2, const float* __restrict__ gout,
-                const float* __restrict__ v, const float* __restrict__ S,
-                const float* __restrict__ c, const float* __restrict__ W,
-                float* __restrict__ dh0, float* __restrict__ dh1,
-                float* __restrict__ dh2, float* __restrict__ aux, int n,
-                int d, int use_ln, float scale) {
-  const int lane = threadIdx.x % G;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / G) +
-                      threadIdx.x / G;
-  const bool valid = row < n;
-  const float* const h[kT] = {h0 + row * d, h1 + row * d, h2 + row * d};
-  float* dh[kT] = {dh0 + row * d, dh1 + row * d, dh2 + row * d};
-  const float* go = gout + row * d;
-  float q[kT] = {0.f, 0.f, 0.f};
-  RowScalars s;
-  row_scalars<G>(s, h, go, q, v, c, W, d, lane, valid, use_ln);
-  if (!valid) return;
-
-  // out = K sum_i att_i h_i  ->  d att_i = K (g . h_i); softmax backward
-  float datt[kT], dl[kT];
-  float sum_ad = 0.f;
+template <int V, int G, int E>
+__global__ void __launch_bounds__(kThreads, E >= 16 ? 1 : 2)
+attn_fwd_kernel(const Args a) {
+  constexpr int kRowsPerWarp = 32 / G;
+  __shared__ Params<G * E> p;
+  load_params<G * E>(p, a);
+  const int lane32 = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = lane32 % G, grp = lane32 / G;
+  const DivD div(a.d);
+  const int64_t step =
+      static_cast<int64_t>(gridDim.x) * kWarps * kRowsPerWarp;
+  // the loop's bounds are the warp's, so all its lanes shuffle together
+  for (int64_t base =
+           (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kRowsPerWarp;
+       base < a.n; base += step) {
+    const int64_t row = base + grp;
+    const bool valid = row < a.n;
+    float h[kT][E], go[E], q[kT];
+    load_row<V, G, E, false>(h, go, a, row, valid, lane);
+    Row s;
+    row_scalars<V, G, E, false>(s, q, h, go, p, lane, div, a.use_ln);
+    if (!valid) continue;
 #pragma unroll
-  for (int i = 0; i < kT; ++i) {
-    datt[i] = scale * q[i];
-    sum_ad += s.att[i] * datt[i];
-  }
+    for (int k = 0; k < E / V; ++k) {
+      const int col = (k * G + lane) * V;
+      if (col >= a.d) continue;
+      float o[V];
 #pragma unroll
-  for (int j = 0; j < kT; ++j) dl[j] = s.att[j] * (datt[j] - sum_ad);
-
-  const float fd = static_cast<float>(d);
-  float dp[kT], dS[kT], dscore[kT], dmu[kT], dm2[kT];
-#pragma unroll
-  for (int i = 0; i < kT; ++i) {
-    float dg = 0.f;
-#pragma unroll
-    for (int j = 0; j < kT; ++j) dg += W[i * kT + j] * dl[j];
-    dg /= static_cast<float>(kT);
-    dscore[i] = dg * s.g[i] * (1.f - s.g[i]);
-    if (use_ln) {
-      dp[i] = dscore[i] * s.r[i];
-      dS[i] = -dp[i] * s.mu[i];
-      const float r3 = __fmul_rn(__fmul_rn(s.r[i], s.r[i]), s.r[i]);
-      const float dvar = __fmul_rn(-0.5f * (dscore[i] * s.pc[i]), r3);
-      // max(diff, 0): full gradient above 0, half at the tie, none below
-      const float f = s.diff[i] > 0.f ? 1.f : (s.diff[i] == 0.f ? 0.5f : 0.f);
-      dm2[i] = dvar * f;
-      dmu[i] = -dp[i] * S[i] - 2.f * s.mu[i] * dm2[i];
-    } else {
-      dp[i] = dscore[i];
-      dS[i] = 0.f;
-      dm2[i] = 0.f;
-      dmu[i] = 0.f;
+      for (int u = 0; u < V; ++u) {
+        const int e = k * V + u;
+        o[u] = a.scale * (s.att[0] * h[0][e] + s.att[1] * h[1][e] +
+                          s.att[2] * h[2][e]);
+      }
+      store_vec<V>(a.out + row * a.d + col, o);
     }
   }
-  for (int j = lane; j < d; j += G) {
-    const float gj = go[j];
+}
+
+template <int V, int G, int E>
+__global__ void __launch_bounds__(kThreads, E >= 16 ? 1 : 2)
+attn_bwd_kernel(const Args a) {
+  constexpr int kRowsPerWarp = 32 / G;
+  constexpr int GE = G * E;
+  __shared__ Params<GE> p;
+  __shared__ float red[kT * GE + kRowSums];
+  __shared__ float rsum[kThreads / G][kRowSums];  // each row group's sums
+  for (int t = threadIdx.x; t < kThreads / G * kRowSums; t += kThreads)
+    (&rsum[0][0])[t] = 0.f;
+  load_params<GE>(p, a);
+  const int lane32 = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = lane32 % G, grp = lane32 / G;
+  float* const slot = rsum[warp * kRowsPerWarp + grp];
+  const DivD div(a.d);
+  float dv[kT][E];
 #pragma unroll
-    for (int i = 0; i < kT; ++i)
-      dh[i][j] = scale * s.att[i] * gj + dp[i] * v[i * d + j] + dmu[i] / fd +
-                 dm2[i] * 2.f * h[i][j] / fd;
+  for (int i = 0; i < kT; ++i) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) dv[i][e] = 0.f;
   }
-  if (lane == 0) {
-    float* a = aux + row * kAux;
+
+  const int64_t step =
+      static_cast<int64_t>(gridDim.x) * kWarps * kRowsPerWarp;
+  for (int64_t base =
+           (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kRowsPerWarp;
+       base < a.n; base += step) {
+    const int64_t row = base + grp;
+    const bool valid = row < a.n;
+    float h[kT][E], go[E], q[kT];
+    load_row<V, G, E, true>(h, go, a, row, valid, lane);
+    Row s;
+    row_scalars<V, G, E, true>(s, q, h, go, p, lane, div, a.use_ln);
+    if (!valid) continue;
+
+    // out = K sum_i att_i h_i  ->  d att_i = K (g . h_i); softmax backward
+    float datt[kT], dl[kT];
+    float sum_ad = 0.f;
 #pragma unroll
     for (int i = 0; i < kT; ++i) {
-      a[i] = dp[i];
-      a[3 + i] = dS[i];
-      a[6 + i] = dscore[i];
-      a[9 + i] = s.g[i];
-      a[12 + i] = dl[i];
+      datt[i] = a.scale * q[i];
+      sum_ad += s.att[i] * datt[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kT; ++j) dl[j] = s.att[j] * (datt[j] - sum_ad);
+
+    // dh = K att_i gout + dp_i v_i + dmu_i / d + (2 dm2_i / d) h
+    float dp[kT], dS[kT], dscore[kT], add[kT], mul[kT];
+#pragma unroll
+    for (int i = 0; i < kT; ++i) {
+      float dg = 0.f;
+#pragma unroll
+      for (int j = 0; j < kT; ++j) dg += p.W[i * kT + j] * dl[j];
+      dg = dg / static_cast<float>(kT);
+      dscore[i] = dg * s.g[i] * (1.f - s.g[i]);
+      if (a.use_ln) {
+        dp[i] = dscore[i] * s.r[i];
+        dS[i] = -dp[i] * s.mu[i];
+        const float r3 = __fmul_rn(__fmul_rn(s.r[i], s.r[i]), s.r[i]);
+        const float dvar = __fmul_rn(-0.5f * (dscore[i] * s.pc[i]), r3);
+        // max(diff, 0): full gradient above 0, half at the tie, none below
+        const float f =
+            s.diff[i] > 0.f ? 1.f : (s.diff[i] == 0.f ? 0.5f : 0.f);
+        const float dm2 = dvar * f;
+        const float dmu = -dp[i] * p.S[i] - 2.f * s.mu[i] * dm2;
+        add[i] = div(dmu);
+        mul[i] = div(2.f * dm2);
+      } else {
+        dp[i] = dscore[i];
+        dS[i] = 0.f;
+        add[i] = 0.f;
+        mul[i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < E / V; ++k) {
+      const int col = (k * G + lane) * V;
+      if (col >= a.d) continue;
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        float o[V];
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const int e = k * V + u;
+          const float x = h[i][e];
+          const float dh = a.scale * s.att[i] * go[e] +
+                           dp[i] * p.v[i][col + u] + add[i] + mul[i] * x;
+          o[u] = x > 0.f ? dh : 0.f;
+          dv[i][e] += dp[i] * x;
+        }
+        store_vec<V>(a.dz[i] + row * a.d + col, o);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        slot[i] += dS[i];
+        slot[kT + i] += dscore[i];
+#pragma unroll
+        for (int j = 0; j < kT; ++j)
+          slot[2 * kT + i * kT + j] += s.g[i] * dl[j];
+      }
     }
   }
-}
 
-int group_size(int d) {
-  int g = 1;
-  while (g < d && g < 32) g <<= 1;
-  return g;
-}
-
-template <template <int> class Launch, typename... Args>
-void dispatch(int g, Args... args) {
-  switch (g) {
-    case 1: Launch<1>::run(args...); break;
-    case 2: Launch<2>::run(args...); break;
-    case 4: Launch<4>::run(args...); break;
-    case 8: Launch<8>::run(args...); break;
-    case 16: Launch<16>::run(args...); break;
-    default: Launch<32>::run(args...); break;
+  // Fold the warp's row groups (xor shuffles), then add the warps into
+  // shared memory in warp order; lanes 0..G-1 then hold their columns.
+  // The row sums add over the block's row groups in order.
+#pragma unroll
+  for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < kT; ++i) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        dv[i][e] += __shfl_xor_sync(0xffffffffu, dv[i][e], off);
+    }
+  }
+  for (int w = 0; w < kWarps; ++w) {
+    if (warp == w && lane32 < G) {
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+#pragma unroll
+        for (int k = 0; k < E / V; ++k) {
+#pragma unroll
+          for (int u = 0; u < V; ++u) {
+            const int idx = i * GE + (k * G + lane32) * V + u;
+            red[idx] = (w == 0 ? 0.f : red[idx]) + dv[i][k * V + u];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < kRowSums) {
+    float acc = 0.f;
+    for (int r = 0; r < kThreads / G; ++r) acc += rsum[r][threadIdx.x];
+    red[kT * GE + threadIdx.x] = acc;
+  }
+  __syncthreads();
+  const int cols = kT * a.d + kRowSums;
+  float* prow = a.partials + static_cast<int64_t>(blockIdx.x) * cols;
+  for (int t = threadIdx.x; t < cols; t += kThreads) {
+    prow[t] = t < kT * a.d ? red[(t / a.d) * GE + t % a.d]
+                           : red[kT * GE + t - kT * a.d];
   }
 }
 
-template <int G>
-struct FwdLaunch {
-  static void run(const float* h0, const float* h1, const float* h2,
-                  const float* v, const float* c, const float* W, float* out,
-                  int n, int d, int use_ln, float scale,
-                  cudaStream_t stream) {
-    const int rows = kThreads / G;
-    attn_fwd_kernel<G><<<(n + rows - 1) / rows, kThreads, 0, stream>>>(
-        h0, h1, h2, v, c, W, out, n, d, use_ln, scale);
+// Sums the partials' rows in a fixed order: 32 row slices per column,
+// then the slices in order.  dv = the dv share + dS, dc = dscore (0
+// without LayerNorm), dW = g (x) dl / 3.
+__global__ void __launch_bounds__(kFinishThreads)
+attn_bwd_finish_kernel(const float* __restrict__ partials, int grid, int d,
+                       int use_ln, float* __restrict__ dv,
+                       float* __restrict__ dc, float* __restrict__ dW) {
+  extern __shared__ float tot[];  // [3 d + 15]
+  __shared__ float part[32][33];
+  const int cols = kT * d + kRowSums;
+  const int x = threadIdx.x & 31, y = threadIdx.x >> 5;
+  for (int c0 = 0; c0 < cols; c0 += 32) {
+    const int col = c0 + x;
+    float acc = 0.f;
+    if (col < cols) {
+      for (int b = y; b < grid; b += 32)
+        acc += partials[static_cast<int64_t>(b) * cols + col];
+    }
+    part[y][x] = acc;
+    __syncthreads();
+    if (y == 0 && col < cols) {
+      float sum = 0.f;
+      for (int k = 0; k < 32; ++k) sum += part[k][x];
+      tot[col] = sum;
+    }
+    __syncthreads();
   }
-};
+  for (int t = threadIdx.x; t < kT * d; t += kFinishThreads)
+    dv[t] = tot[t] + tot[kT * d + t / d];
+  if (threadIdx.x < kT)
+    dc[threadIdx.x] = use_ln ? tot[kT * d + kT + threadIdx.x] : 0.f;
+  if (threadIdx.x < kT * kT)
+    dW[threadIdx.x] =
+        tot[kT * d + 2 * kT + threadIdx.x] / static_cast<float>(kT);
+}
 
-template <int G>
-struct BwdLaunch {
-  static void run(const float* h0, const float* h1, const float* h2,
-                  const float* gout, const float* v, const float* S,
-                  const float* c, const float* W, float* dh0, float* dh1,
-                  float* dh2, float* aux, int n, int d, int use_ln,
-                  float scale, cudaStream_t stream) {
-    const int rows = kThreads / G;
-    attn_bwd_kernel<G><<<(n + rows - 1) / rows, kThreads, 0, stream>>>(
-        h0, h1, h2, gout, v, S, c, W, dh0, dh1, dh2, aux, n, d, use_ln,
-        scale);
-  }
-};
+// Blocks of `kernel` the card holds at once (SMs x resident per SM).
+template <typename Kernel>
+cudaError_t resident(Kernel kernel, int* active) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  if (err == cudaSuccess) *active = sms * per_sm;
+  return err;
+}
+
+// grid <= 0: ask the residency of the instance (no launch)
+template <int V, int G, int E>
+cudaError_t run_fwd(const Args& a, int grid, int* active, cudaStream_t st) {
+  if (grid <= 0) return resident(attn_fwd_kernel<V, G, E>, active);
+  attn_fwd_kernel<V, G, E><<<grid, kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int V, int G, int E>
+cudaError_t run_bwd(const Args& a, float* dv, float* dc, float* dW, int grid,
+                    int* active, cudaStream_t st) {
+  if (grid <= 0) return resident(attn_bwd_kernel<V, G, E>, active);
+  attn_bwd_kernel<V, G, E><<<grid, kThreads, 0, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int cols = kT * a.d + kRowSums;
+  attn_bwd_finish_kernel<<<1, kFinishThreads, cols * sizeof(float), st>>>(
+      a.partials, grid, a.d, a.use_ln, dv, dc, dW);
+  return cudaGetLastError();
+}
+
+// (V, G, E) instances; attention_plan in models/layers.py picks one (the
+// last two, 8 and 16 lanes a row at d = 64, only chip_smoke.py's sweep
+// runs, through layers._launch_forward / _launch_backward)
+#define ACM_K23_INSTANCES(X)                                             \
+  X(2, 1, 2) X(1, 1, 2) X(4, 1, 8) X(1, 1, 8) X(4, 1, 16) X(1, 1, 16)    \
+  X(4, 2, 16) X(1, 2, 16) X(4, 4, 16) X(1, 4, 16) X(4, 8, 16)            \
+  X(1, 8, 16) X(4, 16, 16) X(1, 16, 16) X(4, 32, 16) X(1, 32, 16)        \
+  X(4, 32, 32) X(1, 32, 32) X(4, 8, 8) X(4, 16, 4)
 
 }  // namespace
 
-extern "C" int acm_k2_attn_fwd(const void* h0, const void* h1, const void* h2,
+extern "C" int acm_k2_attn_fwd(const void* z0, const void* z1, const void* z2,
+                               int64_t ld0, int64_t ld1, int64_t ld2,
                                const void* v, const void* c, const void* W,
                                void* out, int n, int d, int use_ln,
-                               float scale, void* stream) {
-  if (n > 0 && d > 0) {
-    dispatch<FwdLaunch>(
-        group_size(d), static_cast<const float*>(h0),
-        static_cast<const float*>(h1), static_cast<const float*>(h2),
-        static_cast<const float*>(v), static_cast<const float*>(c),
-        static_cast<const float*>(W), static_cast<float*>(out), n, d, use_ln,
-        scale, static_cast<cudaStream_t>(stream));
-  }
-  return static_cast<int>(cudaGetLastError());
+                               float scale, int vec, int lanes, int elems,
+                               int grid, int* active, void* stream) {
+  Args a{};
+  a.z[0] = static_cast<const float*>(z0);
+  a.z[1] = static_cast<const float*>(z1);
+  a.z[2] = static_cast<const float*>(z2);
+  a.ld[0] = ld0;
+  a.ld[1] = ld1;
+  a.ld[2] = ld2;
+  a.v = static_cast<const float*>(v);
+  a.c = static_cast<const float*>(c);
+  a.W = static_cast<const float*>(W);
+  a.out = static_cast<float*>(out);
+  a.n = n;
+  a.d = d;
+  a.use_ln = use_ln;
+  a.scale = scale;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;  // no such instance
+#define ACM_FWD(V, G, E)                              \
+  if (vec == V && lanes == G && elems == E) {         \
+    err = run_fwd<V, G, E>(a, grid, active, st);      \
+  } else
+  ACM_K23_INSTANCES(ACM_FWD) {}
+#undef ACM_FWD
+  return static_cast<int>(err);
 }
 
-extern "C" int acm_k3_attn_bwd(const void* h0, const void* h1, const void* h2,
-                               const void* gout, const void* v, const void* S,
-                               const void* c, const void* W, void* dh0,
-                               void* dh1, void* dh2, void* aux, int n, int d,
-                               int use_ln, float scale, void* stream) {
-  if (n > 0 && d > 0) {
-    dispatch<BwdLaunch>(
-        group_size(d), static_cast<const float*>(h0),
-        static_cast<const float*>(h1), static_cast<const float*>(h2),
-        static_cast<const float*>(gout), static_cast<const float*>(v),
-        static_cast<const float*>(S), static_cast<const float*>(c),
-        static_cast<const float*>(W), static_cast<float*>(dh0),
-        static_cast<float*>(dh1), static_cast<float*>(dh2),
-        static_cast<float*>(aux), n, d, use_ln, scale,
-        static_cast<cudaStream_t>(stream));
-  }
-  return static_cast<int>(cudaGetLastError());
+extern "C" int acm_k3_attn_bwd(
+    const void* z0, const void* z1, const void* z2, int64_t ld0, int64_t ld1,
+    int64_t ld2, const void* gout, int64_t ldg, const void* v, const void* c,
+    const void* W, void* dz0, void* dz1, void* dz2, void* partials, void* dv,
+    void* dc, void* dW, int n, int d, int use_ln, float scale, int vec,
+    int lanes, int elems, int grid, int* active, void* stream) {
+  Args a{};
+  a.z[0] = static_cast<const float*>(z0);
+  a.z[1] = static_cast<const float*>(z1);
+  a.z[2] = static_cast<const float*>(z2);
+  a.ld[0] = ld0;
+  a.ld[1] = ld1;
+  a.ld[2] = ld2;
+  a.gout = static_cast<const float*>(gout);
+  a.ldg = ldg;
+  a.v = static_cast<const float*>(v);
+  a.c = static_cast<const float*>(c);
+  a.W = static_cast<const float*>(W);
+  a.dz[0] = static_cast<float*>(dz0);
+  a.dz[1] = static_cast<float*>(dz1);
+  a.dz[2] = static_cast<float*>(dz2);
+  a.partials = static_cast<float*>(partials);
+  a.n = n;
+  a.d = d;
+  a.use_ln = use_ln;
+  a.scale = scale;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;  // no such instance
+#define ACM_BWD(V, G, E)                                                  \
+  if (vec == V && lanes == G && elems == E) {                             \
+    err = run_bwd<V, G, E>(a, static_cast<float*>(dv),                    \
+                           static_cast<float*>(dc), static_cast<float*>(dW), \
+                           grid, active, st);                             \
+  } else
+  ACM_K23_INSTANCES(ACM_BWD) {}
+#undef ACM_BWD
+  return static_cast<int>(err);
 }
 
 extern "C" const char* acm_error_string(int code) {

@@ -9,8 +9,9 @@
   its projected form when ``use_layernorm``;
 - output ``3 · Σ att_i H_i``.
 
-The attention and mix of each branch is one launch of K2 (forward) and K3
-(backward), ``csrc/attention.cu``; ``attention_mix_forward_plain`` and
+The channel ReLU, attention and mix of each branch is one launch of K2
+(forward) and K3 (backward, with the parameter gradients summed over the
+rows), ``csrc/attention.cu``; ``attention_mix_forward_plain`` and
 ``attention_mix_backward_plain`` are their plain PyTorch versions.  The
 channel projections ``X W`` follow ``gemm_dtype`` (``make_mm``): f32, or
 bf16 operands with an f32 result and JAX's backward (``bf16_matmul``);
@@ -22,6 +23,7 @@ flax parameter tree copies over flat (``models/convert.py``).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -41,13 +43,26 @@ CHANNELS = ("low", "high", "mlp")
 
 
 # ---------------------------------------------------------------------------
-# K2 / K3: channel attention + mix
+# K2 / K3: channel ReLU, attention and mix
 # ---------------------------------------------------------------------------
+
+# Floats of a row one lane of K2/K3 holds in registers at d > 8 (lanes per
+# row = d / ATTN_LANE_FLOATS, rounded up to a power of two, at most 32):
+# at d = 64, 4 lanes a row, four float4 loads a channel.  chip_smoke.py
+# sweeps 4, 8 and 16 lanes a row at d = 64: 4 lanes took 0.4-2% less of
+# K2 + K3's device time per epoch than 8 in each of six readings (three
+# runs, both training graphs), 16 the most (K3 +21% on the headline;
+# PERF.md's kernel findings).
+ATTN_LANE_FLOATS = 16
+ATTN_MAX_D = 1024          # 32 lanes x 32 floats: the widest instance
+ATTN_THREADS = 256         # threads of a K2/K3 block (csrc/attention.cu)
+ROW_SUMS = 15              # K3's row sums a block keeps: dS, dscore, g dl
 
 
 def _row_scalars(hs, v, c, W, use_ln: bool):
     """Per-row moments, centred projections, scores, gates and softmax
-    weights (the kernels' arithmetic, in the same order)."""
+    weights of the ReLU'd channels ``hs`` (the kernels' arithmetic, in the
+    same order)."""
     d = hs[0].shape[1]
     mus, diffs, rs, pcs, scores = [], [], [], [], []
     for i, h in enumerate(hs):
@@ -69,21 +84,24 @@ def _row_scalars(hs, v, c, W, use_ln: bool):
     return mus, diffs, rs, pcs, g, att
 
 
-def attention_mix_forward_plain(h0, h1, h2, v, c, W, use_ln: bool,
+def attention_mix_forward_plain(z0, z1, z2, v, c, W, use_ln: bool,
                                 scale: float):
-    """Plain PyTorch version of K2: ``scale · Σ att_i h_i``."""
-    *_, att = _row_scalars((h0, h1, h2), v, c, W, use_ln)
-    return scale * (att[:, 0:1] * h0 + att[:, 1:2] * h1 + att[:, 2:3] * h2)
+    """Plain PyTorch version of K2: ``scale · Σ att_i relu(z_i)``."""
+    hs = [torch.relu(z) for z in (z0, z1, z2)]
+    *_, att = _row_scalars(hs, v, c, W, use_ln)
+    return scale * (att[:, 0:1] * hs[0] + att[:, 1:2] * hs[1]
+                    + att[:, 2:3] * hs[2])
 
 
-def attention_mix_backward_plain(h0, h1, h2, gout, v, c, W, use_ln: bool,
-                                 scale: float):
-    """Plain PyTorch version of K3: ``(dh0, dh1, dh2, aux)``; ``aux`` rows
-    hold ``[dp(3), dS(3), dscore(3), g(3), dl(3)]`` where ``dS = −dp·mu`` is
-    the row's share of the gradient of ``Σ_j v_ij``."""
-    hs = (h0, h1, h2)
+def attention_backward_rows(z0, z1, z2, gout, v, c, W, use_ln: bool,
+                            scale: float):
+    """K3's per-row quantities, in its arithmetic: ``(hs, dhs, dp, dS,
+    dscore, g, dl)`` with ``hs = relu(z)``, ``dhs`` the gradients of the
+    ReLU'd channels, and ``[N, 3]`` row terms of the parameter gradients
+    (``dS = −dp·mu`` is the row's share of the gradient of ``Σ_j v_ij``)."""
+    hs = [torch.relu(z) for z in (z0, z1, z2)]
     t = len(hs)
-    d = h0.shape[1]
+    d = hs[0].shape[1]
     S = v.sum(dim=1)
     mus, diffs, rs, pcs, g, att = _row_scalars(hs, v, c, W, use_ln)
     datt = torch.stack([scale * (gout * h).sum(dim=1) for h in hs], dim=1)
@@ -99,98 +117,216 @@ def attention_mix_backward_plain(h0, h1, h2, gout, v, c, W, use_ln: bool,
             f = torch.where(diffs[i] > 0, 1.0,
                             torch.where(diffs[i] == 0, 0.5, 0.0))
             dm2 = dvar * f
-            dmu = -dp * S[i] - 2.0 * mus[i] * dm2
+            add = (-dp * S[i] - 2.0 * mus[i] * dm2) / d
+            mul = (2.0 * dm2) / d
         else:
             dp, dS = ds, torch.zeros_like(ds)
-            dm2 = dmu = torch.zeros_like(ds)
+            add = mul = torch.zeros_like(ds)
         dhs.append(scale * att[:, i:i + 1] * gout + dp[:, None] * v[i]
-                   + dmu[:, None] / d + dm2[:, None] * 2.0 * h / d)
+                   + add[:, None] + mul[:, None] * h)
         dps.append(dp), dSs.append(dS)
-    aux = torch.cat([torch.stack(dps, 1), torch.stack(dSs, 1), dscore, g, dl],
-                    dim=1)
-    return (*dhs, aux)
+    return (hs, dhs, torch.stack(dps, 1), torch.stack(dSs, 1), dscore, g,
+            dl)
 
 
-def _check_attention_operands(hs, v, c, W):
-    n, d = hs[0].shape
-    for h in hs:
-        if h.dtype != torch.float32 or h.shape != (n, d):
+def attention_mix_backward_plain(z0, z1, z2, gout, v, c, W, use_ln: bool,
+                                 scale: float):
+    """Plain PyTorch version of K3: ``(dz0, dz1, dz2, dv, dc, dW)``, the
+    ReLU's gradient (0 at 0) applied and the parameter gradients summed
+    over the rows (``dc`` is 0 without LayerNorm, where ``c`` is unused)."""
+    hs, dhs, dp, dS, dscore, g, dl = attention_backward_rows(
+        z0, z1, z2, gout, v, c, W, use_ln, scale)
+    dzs = [torch.where(h > 0, dh, 0.0) for h, dh in zip(hs, dhs)]
+    dv = torch.stack([h.T @ dp[:, i] for i, h in enumerate(hs)]) \
+        + dS.sum(dim=0)[:, None]
+    dc = dscore.sum(dim=0) if use_ln else torch.zeros_like(c)
+    return (*dzs, dv, dc, (g.T @ dl) / len(hs))
+
+
+def attention_grad_scales(z0, z1, z2, gout, v, c, W, use_ln: bool,
+                          scale: float):
+    """``Σ_rows |term|`` of each element of ``dv``, ``dc`` and ``dW``: the
+    scale of their rounding error, for checking K3 against its plain
+    version (chip_smoke.py, the card tests)."""
+    hs, _, dp, dS, dscore, g, dl = attention_backward_rows(
+        z0, z1, z2, gout, v, c, W, use_ln, scale)
+    dv = torch.stack([h.T @ dp[:, i].abs() for i, h in enumerate(hs)]) \
+        + dS.abs().sum(dim=0)[:, None]
+    return dv, dscore.abs().sum(dim=0), (g.T @ dl.abs()) / len(hs)
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def attention_plan(d: int):
+    """``(lanes per row, floats per lane)`` of K2/K3 at width ``d``: one
+    lane a row up to d = 8 (2 or 8 floats), else ``ATTN_LANE_FLOATS``
+    floats a lane (32 past 512 columns)."""
+    if d > ATTN_MAX_D:
+        raise ValueError(f"K2/K3 hold a row in registers: d <= "
+                         f"{ATTN_MAX_D}, got {d}")
+    if d <= 8:
+        return 1, 2 if d <= 2 else 8
+    lanes = min(32, _next_pow2(-(-d // ATTN_LANE_FLOATS)))
+    return lanes, max(2, _next_pow2(-(-d // lanes)))
+
+
+def _row_major(z):
+    """``z`` with unit column stride (a column view of a wider tensor
+    stays a view) and its row stride."""
+    if z.stride(1) != 1 or z.stride(0) < z.shape[1]:
+        z = z.contiguous()
+    return z, z.stride(0)
+
+
+_resident: dict = {}
+
+
+def attention_config(kind: str, zs, lds, d: int, plan):
+    """``(vec, lanes, elems, resident blocks)`` of K2 (``kind`` "fwd") or
+    K3 ("bwd") at ``plan`` = ``(lanes, elems)`` on the row-major operands
+    ``zs`` with row strides ``lds``: 16-byte loads (8-byte where a lane holds 2 floats) where d, the row
+    strides and the base pointers allow, else scalar loads.  The residency
+    is asked of the occupancy API once per instance and card (an instance
+    attention.cu does not compile fails the query)."""
+    g, e = plan
+    vec = 2 if e == 2 else 4
+    if d % vec or any(ld % vec or z.data_ptr() % (4 * vec)
+                      for z, ld in zip(zs, lds)):
+        vec = 1
+    key = (kind, vec, g, e, zs[0].device)
+    n = _resident.get(key)
+    if n is None:
+        lib = kernels.library("attention")
+        active = ctypes.c_int(0)
+        if kind == "fwd":
+            rc = lib.acm_k2_attn_fwd(
+                *[None] * 3, *[0] * 3, *[None] * 4, 0, d, 0, 1.0, vec, g, e,
+                0, ctypes.byref(active), None)
+        else:
+            rc = lib.acm_k3_attn_bwd(
+                *[None] * 3, *[0] * 3, None, 0, *[None] * 10, 0, d, 0, 1.0,
+                vec, g, e, 0, ctypes.byref(active), None)
+        kernels.check(lib, rc, f"K{2 if kind == 'fwd' else 3} occupancy "
+                               f"query")
+        n = active.value
+        if n <= 0:
+            raise RuntimeError(f"K2/K3 {kind} {(vec, g, e)}: no block fits")
+        _resident[key] = n
+    return vec, g, e, n
+
+
+def attention_grid(n_rows: int, lanes: int, resident: int) -> int:
+    """Blocks of a launch: at most the resident ones, none idle."""
+    return max(1, min(resident, -(-n_rows // (ATTN_THREADS // lanes))))
+
+
+def _check_attention_operands(zs, v, c, W):
+    n, d = zs[0].shape
+    for z in zs:
+        if z.dtype != torch.float32 or tuple(z.shape) != (n, d):
             raise ValueError("attention channels must be f32 and [N, d]")
     want = {"v": (v, (3, d)), "c": (c, (3,)), "W": (W, (3, 3))}
     for name, (t, shape) in want.items():
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"attention {name} must be f32 {shape}")
-    kernels.require_cuda(*hs, v, c, W)
+    kernels.require_cuda(v, c, W, strided=zs)
     return n, d
 
 
-def attention_mix_forward(h0, h1, h2, v, c, W, use_ln: bool, scale: float):
-    """K2 on CUDA tensors; the plain version on CPU tensors."""
-    if h0.device.type == "cpu":
-        return attention_mix_forward_plain(h0, h1, h2, v, c, W, use_ln,
+def attention_mix_forward(z0, z1, z2, v, c, W, use_ln: bool, scale: float):
+    """K2 on CUDA tensors, the plain version on CPU tensors:
+    ``scale · Σ att_i relu(z_i)``.  The channels may be column views
+    (unit column stride)."""
+    if z0.device.type == "cpu":
+        return attention_mix_forward_plain(z0, z1, z2, v, c, W, use_ln,
                                            scale)
-    hs = [h.contiguous() for h in (h0, h1, h2)]
+    return _launch_forward((z0, z1, z2), v, c, W, use_ln, scale,
+                           attention_plan(z0.shape[1]))
+
+
+def _launch_forward(zs, v, c, W, use_ln: bool, scale: float, plan):
+    """K2 at ``plan`` = ``(lanes, elems)`` (``attention_plan``'s, or
+    another compiled instance: chip_smoke.py's sweep)."""
     v, c, W = (t.contiguous() for t in (v, c, W))
-    n, d = _check_attention_operands(hs, v, c, W)
-    out = torch.empty_like(hs[0])
+    n, d = _check_attention_operands(zs, v, c, W)
+    zs, lds = zip(*(_row_major(z) for z in zs))
+    vec, g, e, resident = attention_config("fwd", zs, lds, d, plan)
+    out = torch.empty(n, d, dtype=torch.float32, device=zs[0].device)
     lib = kernels.library("attention")
     rc = lib.acm_k2_attn_fwd(
-        *(kernels.ptr(t) for t in (*hs, v, c, W, out)), n, d,
-        int(use_ln), float(scale), kernels.stream(),
-    )
+        *(kernels.ptr(z) for z in zs), *lds,
+        *(kernels.ptr(t) for t in (v, c, W, out)), n, d, int(use_ln),
+        float(scale), vec, g, e, attention_grid(n, g, resident), None,
+        kernels.stream())
     kernels.check(lib, rc, "K2 attention forward")
     kernels.count(f"k2_attn_fwd_d{d}")
     return out
 
 
-def attention_mix_backward(h0, h1, h2, gout, v, c, W, use_ln: bool,
+def attention_mix_backward(z0, z1, z2, gout, v, c, W, use_ln: bool,
                            scale: float):
-    """K3 on CUDA tensors; the plain version on CPU tensors."""
-    if h0.device.type == "cpu":
-        return attention_mix_backward_plain(h0, h1, h2, gout, v, c, W,
+    """K3 on CUDA tensors, the plain version on CPU tensors: ``(dz0, dz1,
+    dz2, dv, dc, dW)``, the parameter gradients summed over the rows in a
+    fixed order (bit-reproducible on one card)."""
+    if z0.device.type == "cpu":
+        return attention_mix_backward_plain(z0, z1, z2, gout, v, c, W,
                                             use_ln, scale)
-    hs = [h.contiguous() for h in (h0, h1, h2)]
-    gout = gout.contiguous()
+    return _launch_backward((z0, z1, z2), gout, v, c, W, use_ln, scale,
+                            attention_plan(z0.shape[1]))[:6]
+
+
+def _launch_backward(zs, gout, v, c, W, use_ln: bool, scale: float, plan):
+    """K3 at ``plan`` = ``(lanes, elems)``: ``(dz0, dz1, dz2, dv, dc, dW,
+    partials)``, ``partials`` the ``[grid, 3 d + ROW_SUMS]`` block sums
+    that the finishing kernel added up."""
     v, c, W = (t.contiguous() for t in (v, c, W))
-    n, d = _check_attention_operands([*hs, gout], v, c, W)
-    S = v.sum(dim=1)
-    dhs = [torch.empty_like(hs[0]) for _ in range(3)]
-    aux = torch.empty(n, 15, dtype=torch.float32, device=gout.device)
+    n, d = _check_attention_operands((*zs, gout), v, c, W)
+    zs, lds = zip(*(_row_major(z) for z in (*zs, gout)))
+    vec, g, e, resident = attention_config("bwd", zs, lds, d, plan)
+    grid = attention_grid(n, g, resident)
+    dev = zs[0].device
+    dzs = [torch.empty(n, d, dtype=torch.float32, device=dev)
+           for _ in range(3)]
+    partials = torch.empty(grid, 3 * d + ROW_SUMS, dtype=torch.float32,
+                           device=dev)
+    dv = torch.empty(3, d, dtype=torch.float32, device=dev)
+    dc = torch.empty(3, dtype=torch.float32, device=dev)
+    dW = torch.empty(3, 3, dtype=torch.float32, device=dev)
     lib = kernels.library("attention")
     rc = lib.acm_k3_attn_bwd(
-        *(kernels.ptr(t) for t in (*hs, gout, v, S, c, W, *dhs, aux)), n, d,
-        int(use_ln), float(scale), kernels.stream(),
-    )
+        *(kernels.ptr(z) for z in zs[:3]), *lds[:3], kernels.ptr(zs[3]),
+        lds[3], *(kernels.ptr(t) for t in (v, c, W, *dzs, partials, dv, dc,
+                                           dW)),
+        n, d, int(use_ln), float(scale), vec, g, e, grid, None,
+        kernels.stream())
     kernels.check(lib, rc, "K3 attention backward")
     kernels.count(f"k3_attn_bwd_d{d}")
-    return (*dhs, aux)
+    return (*dzs, dv, dc, dW, partials)
 
 
 class _AttentionMix(torch.autograd.Function):
-    """Saves only its inputs; K3 recomputes the row scalars."""
+    """Saves only its inputs (the channels before the ReLU); K3 recomputes
+    the row scalars and returns every gradient, the parameters' summed."""
 
     @staticmethod
-    def forward(ctx, h0, h1, h2, v, c, W, use_ln, scale):
-        ctx.save_for_backward(h0, h1, h2, v, c, W)
+    def forward(ctx, z0, z1, z2, v, c, W, use_ln, scale):
+        ctx.save_for_backward(z0, z1, z2, v, c, W)
         ctx.use_ln, ctx.scale = use_ln, scale
-        return attention_mix_forward(h0, h1, h2, v, c, W, use_ln, scale)
+        return attention_mix_forward(z0, z1, z2, v, c, W, use_ln, scale)
 
     @staticmethod
     def backward(ctx, gout):
-        h0, h1, h2, v, c, W = ctx.saved_tensors
-        dh0, dh1, dh2, aux = attention_mix_backward(
-            h0, h1, h2, gout, v, c, W, ctx.use_ln, ctx.scale)
-        dp, dS, dscore, g, dl = aux.split(3, dim=1)
-        # row reductions for the parameter gradients: [N, d] x [N] products
-        dv = torch.stack([h.T @ dp[:, i] for i, h in enumerate((h0, h1, h2))])
-        dv = dv + dS.sum(dim=0)[:, None]
-        dW = (g.T @ dl) / 3
-        return dh0, dh1, dh2, dv, dscore.sum(dim=0), dW, None, None
+        z0, z1, z2, v, c, W = ctx.saved_tensors
+        return (*attention_mix_backward(z0, z1, z2, gout, v, c, W,
+                                        ctx.use_ln, ctx.scale), None, None)
 
 
-def attention_mix(hs, v, c, W, use_ln: bool, scale: float):
-    """Differentiable ``scale · Σ att_i h_i`` over the three channels."""
-    return _AttentionMix.apply(*hs, v, c, W, use_ln, scale)
+def attention_mix(zs, v, c, W, use_ln: bool, scale: float):
+    """Differentiable ``scale · Σ att_i relu(z_i)`` over the three
+    channels, given before the ReLU."""
+    return _AttentionMix.apply(*zs, v, c, W, use_ln, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -377,8 +513,8 @@ class ACMConv(nn.Module):
                     z_low, z_high = mm(y, w_low), mm(xb - y, w_high)
             else:
                 z_low, z_high = proj_aggs[b]
-            hs = (torch.relu(z_low), torch.relu(z_high),
-                  torch.relu(mm(xb, w_mlp)))
-            results.append(attention_mix(hs, *att_ops, self.use_layernorm,
+            # K2 applies the channel ReLU itself
+            zs = (z_low, z_high, mm(xb, w_mlp))
+            results.append(attention_mix(zs, *att_ops, self.use_layernorm,
                                          3.0))
         return tuple(results) if paired else results[0]

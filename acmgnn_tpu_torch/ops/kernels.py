@@ -53,12 +53,17 @@ _SIGNATURES = {
                         _I, _IP, _P],
     },
     "attention": {
-        # h0, h1, h2, v, c, W, out, n, d, use_ln, scale, stream
-        "acm_k2_attn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-        # h0, h1, h2, gout, v, S, c, W, dh0, dh1, dh2, aux, n, d, use_ln,
-        # scale, stream
-        "acm_k3_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _F, _P],
+        # z0, z1, z2, ld0, ld1, ld2, v, c, W, out, n, d, use_ln, scale,
+        # vec, lanes, elems, grid (0: residency query into active),
+        # active, stream
+        "acm_k2_attn_fwd": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I,
+                            _I, _F, _I, _I, _I, _I, _IP, _P],
+        # z0, z1, z2, ld0, ld1, ld2, gout, ldg, v, c, W, dz0, dz1, dz2,
+        # partials, dv, dc, dW, n, d, use_ln, scale, vec, lanes, elems,
+        # grid, active, stream
+        "acm_k3_attn_bwd": [_P, _P, _P, _L, _L, _L, _P, _L, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                            _I, _I, _IP, _P],
     },
     "coo": {
         # row, col, val, nnz, slice_nnz, slice_offset, span_rows,

@@ -15,7 +15,13 @@ Phases (any failure exits non-zero and prints no result):
    (events around a loop of calls) and device ms (events around a
    CUDA-graph replay of the same calls), plain ms, and one PyTorch
    library call's ms and device ms where one computes the same product;
-   K1 also at 4, 8 and 16 entries a lane.
+   K1 also at 4, 8 and 16 entries a lane.  K2/K3 take channels before the
+   ReLU (with rows that have no positive entry and exact zeros); K3's
+   dz_i are held per element, its summed dv, dc and dW per element to
+   ``1e-6·max(1, Σ_rows|term|)``, and that check must fail two planted
+   faults (one block's partials left out of the sum, dv = 0); K3 must be
+   bit-equal across two launches; at d=64 K2/K3 also run at 4, 8 and 16
+   lanes a row.
    Sparse products are held per element to ``1e-5·sqrt(row terms)·max(1,
    Σ|terms|)``; the input gather is checked on the path's features and on
    a randn operand; K1 must also equal its own summation order replayed
@@ -106,6 +112,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -605,8 +612,120 @@ def phase_rocauc_kernel(labels, masks_np, suffix="@genius"):
                  library_device_ms=lib_dev)]
 
 
+ROW_SUM_TOL = 1e-6     # dv, dc, dW: per element, times max(1, Σ_rows|term|)
+
+
+def _sum_ratios(got, want, absref):
+    """``(|got - want|, that over ROW_SUM_TOL·max(1, absref), max(1,
+    absref))`` per element, flattened; ``absref`` is the sum of the
+    terms' absolute values (the scale of the rounding error)."""
+    err = (got - want).abs()
+    ref = absref.clamp_min(1.0).expand_as(err).flatten()
+    err = err.flatten()
+    return err, err / (ROW_SUM_TOL * ref), ref
+
+
+def sum_err(got, want, absref, what: str):
+    """Max |got - want| of a sum over the rows against
+    ``ROW_SUM_TOL·max(1, Σ_rows|term|)`` per element: rounding reads ~1e-8
+    of Σ_rows|term|, while a sum that lost a block of b rows is off by
+    ~sqrt(b/N) of |Σ term| ~ Σ|term|/sqrt(N), so the tolerance does not
+    grow with N."""
+    import torch
+
+    torch.cuda.synchronize()
+    err, ratio, _ = _sum_ratios(got, want, absref)
+    worst = float(ratio.max())
+    ok = worst <= 1.0 and bool(torch.isfinite(got).all())
+    print(f"  {what}: max_abs_err {float(err.max()):.3e}, worst "
+          f"err/tolerance {worst:.3e} (per element {ROW_SUM_TOL:g}·max(1, "
+          f"Σ_rows|term|)) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{what} disagrees with its plain version")
+    return float(err.max())
+
+
+def _planted_faults(got, want, scales, partials, n, use_ln, what):
+    """The row-sum check must fail K3's (dv, dc, dW) with one block's row
+    of the partials left out of the finishing sum (every block tried; the
+    least visible one printed) and with dv = 0.  Prints each fault's worst
+    err/tolerance, and what the looser 1e-5·sqrt(N) form would have
+    read."""
+    import torch
+
+    d = got[0].shape[1]
+    p = partials
+    lost = (p[:, :3 * d].view(-1, 3, d) + p[:, 3 * d:3 * d + 3, None],
+            p[:, 3 * d + 3:3 * d + 6] * use_ln,
+            p[:, 3 * d + 6:].view(-1, 3, 3) / 3)
+    new = torch.zeros(p.shape[0], device=p.device)
+    old = torch.zeros_like(new)
+    for g_, w_, s_, l_ in zip(got, want, scales, lost):
+        err, ratio, ref = _sum_ratios(g_[None] - l_, w_[None], s_[None])
+        new = torch.maximum(new, ratio.view(p.shape[0], -1).max(1).values)
+        loose = err / (1e-5 * n ** 0.5 * ref)
+        old = torch.maximum(old, loose.view(p.shape[0], -1).max(1).values)
+    b = int(new.argmin())
+    zero_err, zero_new, zero_ref = _sum_ratios(torch.zeros_like(got[0]),
+                                               want[0], scales[0])
+    zero_old = float((zero_err / (1e-5 * n ** 0.5 * zero_ref)).max())
+    print(f"  {what} planted faults: block {b} of {p.shape[0]} left out "
+          f"(the least visible) worst err/tolerance {float(new[b]):.3e} "
+          f"(1e-5·sqrt(N) form {float(old[b]):.3e}); dv = 0 "
+          f"{float(zero_new.max()):.3e} (1e-5·sqrt(N) form "
+          f"{zero_old:.3e})")
+    if float(new[b]) <= 1.0 or float(zero_new.max()) <= 1.0:
+        fail(f"{what}: the row-sum check passes a planted fault")
+
+
+ATTN_SWEEP_LANES = (4, 8, 16)    # lanes a row of K2/K3 swept at d=64
+
+
+def _attention_case(n, d, gen, dev):
+    """Channels before the ReLU (randn, with rows that have no positive
+    entry, all-zero rows and scattered exact zeros), parameters and an
+    output gradient."""
+    import torch
+
+    zs = [torch.randn(n, d, generator=gen, device=dev) for _ in range(3)]
+    zs[2][:1000] = -zs[2][:1000].abs()
+    zs[1][1000:2000] = 0.0
+    zs[0][::7, 0] = 0.0
+    v = torch.randn(3, d, generator=gen, device=dev)
+    c = torch.randn(3, generator=gen, device=dev)
+    W = torch.rand(3, 3, generator=gen, device=dev) * 2 - 1
+    gout = torch.randn(n, d, generator=gen, device=dev)
+    return zs, v, c, W, gout
+
+
+def _check_attention(layers, args, bargs, tag, plan, faults=False):
+    """K2 and K3 at ``plan`` (lanes a row, floats a lane) against their
+    plain versions: the output and dz_i per element, dv, dc and dW as
+    sums over the rows (with ``faults``, the check's planted faults too).
+    Returns the largest error of each kernel."""
+    n, d = args[0].shape
+    zs, rest = args[:3], args[3:]
+    got = layers._launch_forward(zs, *rest, plan)
+    e_fwd = max_err(got, layers.attention_mix_forward_plain(*args), d,
+                    f"k2_attn_fwd_d{d}{tag}")
+    *got, partials = layers._launch_backward(zs, *bargs[3:], plan)
+    want = layers.attention_mix_backward_plain(*bargs)
+    errs = [max_err(got[i], want[i], d, f"k3_attn_bwd_d{d}{tag} dz{i}")
+            for i in range(3)]
+    scales = layers.attention_grad_scales(*bargs)
+    errs += [sum_err(g_, w_, s_, f"k3_attn_bwd_d{d}{tag} {name}")
+             for name, g_, w_, s_ in zip(("dv", "dc", "dW"), got[3:],
+                                         want[3:], scales)]
+    if faults:
+        _planted_faults(got[3:], want[3:], scales, partials, n, args[-2],
+                        f"k3_attn_bwd_d{d}{tag}")
+    return e_fwd, max(errs)
+
+
 def attention_rows(n: int, gen, use_ln: bool, suffix: str = ""):
-    """K2/K3 against their plain versions at d=64 and d=2 on n rows."""
+    """K2/K3 against their plain versions at d=64 and d=2 on n rows of
+    channels before the ReLU; K3 twice on the same inputs (bit-equal);
+    at d=64 also 4, 8 and 16 lanes a row, each checked and timed."""
     import torch
 
     from acmgnn_tpu_torch.models import layers
@@ -614,36 +733,55 @@ def attention_rows(n: int, gen, use_ln: bool, suffix: str = ""):
     dev = torch.device("cuda")
     rows = []
     for d in (64, 2):
-        hs = [torch.relu(torch.randn(n, d, generator=gen, device=dev))
-              for _ in range(3)]
-        v = torch.randn(3, d, generator=gen, device=dev)
-        c = torch.randn(3, generator=gen, device=dev)
-        W = torch.rand(3, 3, generator=gen, device=dev) * 2 - 1
-        gout = torch.randn(n, d, generator=gen, device=dev)
-        args = (*hs, v, c, W, use_ln, 3.0)
-        bargs = (*hs, gout, v, c, W, use_ln, 3.0)
-        got = layers.attention_mix_forward(*args)
-        err = max_err(got, layers.attention_mix_forward_plain(*args), d,
-                      f"k2_attn_fwd_d{d}{suffix}")
+        zs, v, c, W, gout = _attention_case(n, d, gen, dev)
+        args = (*zs, v, c, W, use_ln, 3.0)
+        bargs = (*zs, gout, v, c, W, use_ln, 3.0)
+        e_fwd, e_bwd = _check_attention(layers, args, bargs, suffix,
+                                        layers.attention_plan(d), True)
+        first = layers.attention_mix_backward(*bargs)
+        again = layers.attention_mix_backward(*bargs)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"k3_attn_bwd_d{d}{suffix}: two launches differ")
+        vec, g, e, resident = layers.attention_config(
+            "bwd", zs, [d] * 3, d, layers.attention_plan(d))
+        grid = layers.attention_grid(n, g, resident)
+        print(f"  k3_attn_bwd_d{d}{suffix}: bit-equal across two launches; "
+              f"{g} lanes a row x {e} floats, {vec}-float loads, grid "
+              f"{grid} of {resident} resident blocks")
+        if d == 64:
+            sweep = []
+            for lanes in ATTN_SWEEP_LANES:
+                plan = (lanes, 64 // lanes)
+                _check_attention(layers, args, bargs,
+                                 f"{suffix} {lanes} lanes", plan)
+                t_fwd = device_ms(lambda: layers._launch_forward(
+                    zs, *args[3:], plan))
+                t_bwd = device_ms(lambda: layers._launch_backward(
+                    zs, *bargs[3:], plan))
+                sweep.append(f"{lanes}: K2 {_ms(t_fwd)}, K3 {_ms(t_bwd)}")
+            print(f"  k2/k3 d64{suffix} device ms by lanes a row (the "
+                  f"plan uses {layers.attention_plan(64)[0]}): "
+                  + "; ".join(sweep))
+        # v, c and W in (K3: and dv, dc and dW out); K3 writes its
+        # partials and the finishing kernel reads them
+        params = 4 * (3 * d + 12)
+        k3_bytes = (28 * n * d + 2 * 4 * grid * (3 * d + layers.ROW_SUMS)
+                    + 2 * params)
         fwd = dict(
-            counter=f"k2_attn_fwd_d{d}", err=err,
+            counter=f"k2_attn_fwd_d{d}", err=e_fwd,
             ms=time_ms(lambda: layers.attention_mix_forward(*args), 50),
             device_ms=device_ms(lambda: layers.attention_mix_forward(*args)),
             plain_ms=time_ms(
                 lambda: layers.attention_mix_forward_plain(*args), 10),
-            bound=bound(16 * n * d, 23 * n * d))
-        got = layers.attention_mix_backward(*bargs)
-        want = layers.attention_mix_backward_plain(*bargs)
-        err = max(max_err(g_, w_, d, f"k3_attn_bwd_d{d}{suffix}[{i}]")
-                  for i, (g_, w_) in enumerate(zip(got, want)))
+            bound=bound(16 * n * d + params, 23 * n * d))
         bwd = dict(
-            counter=f"k3_attn_bwd_d{d}", err=err,
+            counter=f"k3_attn_bwd_d{d}", err=e_bwd,
             ms=time_ms(lambda: layers.attention_mix_backward(*bargs), 50),
             device_ms=device_ms(
                 lambda: layers.attention_mix_backward(*bargs)),
             plain_ms=time_ms(
                 lambda: layers.attention_mix_backward_plain(*bargs), 10),
-            bound=bound(28 * n * d + 60 * n, 50 * n * d))
+            bound=bound(k3_bytes, 50 * n * d))
         for k in (fwd, bwd):
             rows.append(dict(
                 name=k["counter"] + suffix, counter=k["counter"],
@@ -897,7 +1035,7 @@ def _kernel_group(name: str) -> str:
         return "K1 spmm"
     if "attn_fwd_kernel" in name:
         return "K2 attention fwd"
-    if "attn_bwd_kernel" in name:
+    if "attn_bwd" in name:           # attn_bwd_kernel and its finish
         return "K3 attention bwd"
     if "auc_tiles_kernel" in name or "auc_scan_kernel" in name \
             or "auc_ranks_kernel" in name:
@@ -922,6 +1060,28 @@ def _kernel_group(name: str) -> str:
     return "other (ATen elementwise, reductions, Adam)"
 
 
+ANNOTATION = re.compile(r"[\w.]+#[\w.]+")
+
+
+def device_ops(prof):
+    """``[(device µs, count, name)]`` of the operations that ran on the
+    card in a torch.profiler window (each one counted once)."""
+    out = []
+    for e in prof.key_averages():
+        if "cuda" not in str(e.device_type).lower():
+            continue
+        # ranges such as Optimizer.step#Adam.step span kernels counted
+        # on their own already (a kernel's name may hold "#" too:
+        # ATen's lambda kernels, "...{lambda(float)#1}...")
+        if getattr(e, "is_user_annotation", False) \
+                or ANNOTATION.fullmatch(e.key):
+            continue
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0:
+            out.append((us, e.count, e.key))
+    return out
+
+
 def phase_profile(tag, run, bodies):
     """Device time by kernel group over a few steady loop bodies, and the
     device's busy share of that window (torch.profiler); returns the
@@ -938,21 +1098,11 @@ def phase_profile(tag, run, bodies):
         wall = time.perf_counter() - t0
     groups: dict = {}
     launches = 0
-    top = []
-    for e in prof.key_averages():
-        if "cuda" not in str(e.device_type).lower():
-            continue
-        # ranges such as Optimizer.step#Adam.step span kernels counted
-        # on their own already
-        if getattr(e, "is_user_annotation", False) or "#" in e.key:
-            continue
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us <= 0:
-            continue
-        g = _kernel_group(e.key)
+    top = device_ops(prof)
+    for us, count, key in top:
+        g = _kernel_group(key)
         groups[g] = groups.get(g, 0.0) + us
-        launches += e.count
-        top.append((us, e.count, e.key))
+        launches += count
     busy = sum(groups.values())
     if busy == 0:
         print(f"{tag} profile: no device time recorded (not measured)")

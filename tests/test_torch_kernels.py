@@ -21,6 +21,7 @@ plain version; the card tests hold the compiled kernels to those.
 
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +37,12 @@ from acmgnn_tpu_torch.models.layers import (
     attention_mix_backward_plain,
     attention_mix_forward,
     attention_mix_forward_plain,
+    ATTN_MAX_D,
+    ROW_SUMS,
+    _launch_backward,
+    _launch_forward,
+    attention_grad_scales,
+    attention_plan,
     bf16_matmul,
 )
 from acmgnn_tpu_torch.ops import kernels
@@ -112,15 +119,37 @@ def _matrices():
 
 
 def _attention_inputs(n, d, device):
+    """Channels before the ReLU: negative entries, exact zeros, rows with
+    no positive entry and flat rows (var == 0 after the ReLU)."""
     gen = torch.Generator().manual_seed(d)
-    hs = [torch.relu(torch.randn(n, d, generator=gen)) for _ in range(3)]
-    hs[2][:5] = 0.0                        # var == 0 rows
-    hs[1][5:9, :] = 0.5                     # flat rows: var == 0, r ~ 316
+    zs = [torch.randn(n, d, generator=gen) for _ in range(3)]
+    zs[2][:5] = -zs[2][:5].abs()            # no positive entry: var == 0
+    zs[1][5:9, :] = 0.5                     # flat rows: var == 0, r ~ 316
+    zs[0][9:12, :] = 0.0                    # exact zeros, the ReLU's tie
+    zs[0][::5, 0] = 0.0
     v = torch.randn(3, d, generator=gen)
     c = torch.randn(3, generator=gen)
     W = torch.rand(3, 3, generator=gen) * 2 - 1
     gout = torch.randn(n, d, generator=gen)
-    return [t.to(device) for t in (*hs, v, c, W, gout)]
+    return [t.to(device) for t in (*zs, v, c, W, gout)]
+
+
+def assert_attention_grads_close(got, want, bargs, msg=""):
+    """K3's six outputs against the plain version's: ``dz_i`` as
+    ``assert_close`` over a row of d; ``dv``, ``dc`` and ``dW``, sums over
+    the N rows, per element to ``1e-6·max(1, Σ_rows|term|)`` (rounding
+    reads ~1e-8 of Σ_rows|term|; a tolerance growing with sqrt(N) would
+    pass a sum that lost a block of rows)."""
+    d = bargs[0].shape[1]
+    for i in range(3):
+        assert_close(got[i], want[i], d, f"{msg} dz{i}")
+    scales = attention_grad_scales(*bargs)
+    for name, g, w, s in zip(("dv", "dc", "dW"), got[3:], want[3:], scales):
+        err = (g - w).abs()
+        tol = 1e-6 * s.clamp_min(1.0)
+        assert bool((err <= tol).all()), (
+            f"{msg} {name}: max_abs_err {float(err.max()):.3e}, worst "
+            f"err/tolerance {float((err / tol).max()):.3e}")
 
 
 def test_wrappers_refuse_a_device_without_kernel():
@@ -130,11 +159,11 @@ def test_wrappers_refuse_a_device_without_kernel():
     x = torch.empty(op.num_nodes, 4, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         row_gather_spmm(op.fwd, x)
-    h0, h1, h2, v, c, W, gout = _attention_inputs(20, 4, "meta")
+    z0, z1, z2, v, c, W, gout = _attention_inputs(20, 4, "meta")
     with pytest.raises(ValueError, match="CUDA"):
-        attention_mix_forward(h0, h1, h2, v, c, W, True, 3.0)
+        attention_mix_forward(z0, z1, z2, v, c, W, True, 3.0)
     with pytest.raises(ValueError, match="CUDA"):
-        attention_mix_backward(h0, h1, h2, gout, v, c, W, True, 3.0)
+        attention_mix_backward(z0, z1, z2, gout, v, c, W, True, 3.0)
     coo = make_coo_op(_matrices()["lowpass_sym"]).to("meta")
     with pytest.raises(ValueError, match="CUDA"):
         coo_spmm(coo.fwd, x)
@@ -257,16 +286,126 @@ def test_k1_equals_its_order_replay(cuda, kind, dtype, width, padded):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("use_ln", (False, True))
-@pytest.mark.parametrize("d", (2, 7, 64, 100))
+@pytest.mark.parametrize("d", (2, 7, 33, 64, 100))
 def test_k2_k3_match_plain(cuda, d, use_ln):
-    h0, h1, h2, v, c, W, gout = _attention_inputs(3000, d, cuda)
-    args = (h0, h1, h2, v, c, W, use_ln, 3.0)
+    z0, z1, z2, v, c, W, gout = _attention_inputs(3000, d, cuda)
+    args = (z0, z1, z2, v, c, W, use_ln, 3.0)
     assert_close(attention_mix_forward(*args),
                  attention_mix_forward_plain(*args), d, "K2")
-    bargs = (h0, h1, h2, gout, v, c, W, use_ln, 3.0)
-    for i, (a, b) in enumerate(zip(attention_mix_backward(*bargs),
-                                   attention_mix_backward_plain(*bargs))):
-        assert_close(a, b, d, f"K3 output {i}")
+    bargs = (z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+    assert_attention_grads_close(attention_mix_backward(*bargs),
+                                 attention_mix_backward_plain(*bargs), bargs,
+                                 "K3")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_ln", (False, True))
+@pytest.mark.parametrize("d", (2, 7, 64, 100))
+def test_k3_is_bit_reproducible(cuda, d, use_ln):
+    """Two K3 launches on the same inputs agree bit for bit: the
+    parameter gradients are summed in a fixed order, without atomics."""
+    z0, z1, z2, v, c, W, gout = _attention_inputs(30000, d, cuda)
+    bargs = (z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+    first = attention_mix_backward(*bargs)
+    for a, b in zip(first, attention_mix_backward(*bargs)):
+        assert torch.equal(a, b)
+
+
+def _without_block(out, partials, b, use_ln):
+    """K3's ``(dv, dc, dW)`` had the finishing kernel left out block
+    ``b``'s row of the partials."""
+    d = out[0].shape[1]
+    p = partials[b]
+    return (out[0] - p[:3 * d].view(3, d) - p[3 * d:3 * d + 3][:, None],
+            out[1] - p[3 * d + 3:3 * d + 6] * use_ln,
+            out[2] - p[3 * d + 6:].view(3, 3) / 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_ln", (False, True))
+@pytest.mark.parametrize("d", (2, 64))
+def test_k3_row_sum_check_catches_a_lost_block(cuda, d, use_ln):
+    """The check of dv, dc and dW fails a sum that lost any one block's
+    rows, or a dv of zeros, while it passes K3 itself."""
+    z0, z1, z2, v, c, W, gout = _attention_inputs(30000, d, cuda)
+    bargs = (z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+    *got, partials = _launch_backward((z0, z1, z2), gout, v, c, W, use_ln,
+                                      3.0, attention_plan(d))
+    want = attention_mix_backward_plain(*bargs)
+    assert partials.shape[1] == 3 * d + ROW_SUMS and partials.shape[0] > 1
+    assert_attention_grads_close(got, want, bargs, "K3")
+    for b in range(partials.shape[0]):
+        with pytest.raises(AssertionError, match="dv"):
+            lost = _without_block(got[3:], partials, b, use_ln)
+            assert_attention_grads_close((*got[:3], *lost), want, bargs)
+    with pytest.raises(AssertionError, match="dv"):
+        assert_attention_grads_close(
+            (*got[:3], torch.zeros_like(got[3]), *got[4:]), want, bargs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", (2, 7, 64))
+def test_k2_k3_take_column_views(cuda, d):
+    """Channels that are column views of one wider tensor (the layer's
+    fused gather output), read at their row stride without a copy."""
+    z0, z1, z2, v, c, W, gout = _attention_inputs(3000, d, cuda)
+    wide = torch.cat([z0, z1, z2, z0], dim=1)
+    views = [wide[:, i * d:(i + 1) * d] for i in range(3)]
+    for use_ln in (False, True):
+        args = (*views, v, c, W, use_ln, 3.0)
+        assert_close(attention_mix_forward(*args),
+                     attention_mix_forward_plain(z0, z1, z2, v, c, W,
+                                                 use_ln, 3.0), d, "K2 views")
+        bargs = (z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+        assert_attention_grads_close(
+            attention_mix_backward(*views, gout, v, c, W, use_ln, 3.0),
+            attention_mix_backward_plain(*bargs), bargs, "K3 views")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", (4, 8, 16))
+def test_k2_k3_lanes_per_row(cuda, lanes):
+    """Every lanes-per-row instance that chip_smoke.py sweeps at d=64."""
+    z0, z1, z2, v, c, W, gout = _attention_inputs(3000, 64, cuda)
+    for use_ln in (False, True):
+        args = (z0, z1, z2, v, c, W, use_ln, 3.0)
+        plan = (lanes, 64 // lanes)
+        assert_close(_launch_forward((z0, z1, z2), v, c, W, use_ln, 3.0,
+                                     plan),
+                     attention_mix_forward_plain(*args), 64, "K2")
+        bargs = (z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+        assert_attention_grads_close(
+            _launch_backward((z0, z1, z2), gout, v, c, W, use_ln, 3.0,
+                             plan)[:6],
+            attention_mix_backward_plain(*bargs), bargs, f"K3 {lanes}")
+
+
+def _compiled_attention_instances():
+    """The (vector width, lanes, floats) instances attention.cu compiles."""
+    src = (REPO / "acmgnn_tpu_torch" / "csrc" / "attention.cu").read_text()
+    table = src[src.index("#define ACM_K23_INSTANCES"):]
+    table = table[:table.index("\n\n")]
+    return {tuple(map(int, m)) for m in
+            re.findall(r"X\((\d+), (\d+), (\d+)\)", table)}
+
+
+def test_attention_plan_has_a_compiled_instance_at_every_width():
+    """``attention_plan`` at every width K2/K3 take, and the lanes swept at
+    d=64, names an instance attention.cu compiles, with its vector loads
+    and with the scalar fallback; a lane group covers the row."""
+    compiled = _compiled_attention_instances()
+    assert attention_plan(64) == (4, 16) and attention_plan(2) == (1, 2)
+    for d in range(1, ATTN_MAX_D + 1):
+        g, e = attention_plan(d)
+        assert g * e >= d and g in (1, 2, 4, 8, 16, 32), d
+        assert (1, g, e) in compiled, d
+        vec = 2 if e == 2 else 4
+        if d % vec == 0:
+            assert (vec, g, e) in compiled, d
+    for lanes in (4, 8, 16):
+        assert (4, lanes, 64 // lanes) in compiled
+    with pytest.raises(ValueError, match="registers"):
+        attention_plan(ATTN_MAX_D + 1)
 
 
 @pytest.mark.gpu

@@ -182,35 +182,106 @@ def test_acmgnn_logits_match_flax(model_type, hoist, both_ops):
 
 
 def _attention_inputs(n, d, seed):
-    gen = torch.Generator().manual_seed(seed)
-    hs = [torch.relu(torch.randn(n, d, generator=gen)) for _ in range(3)]
-    hs[2][:3] = 0.0                   # all-zero rows: var == 0 exactly
-    v = torch.randn(3, d, generator=gen)
-    c = torch.randn(3, generator=gen)
-    W = torch.rand(3, 3, generator=gen) * 2 - 1
-    gout = torch.randn(n, d, generator=gen)
-    return [*hs, v, c, W, gout]
+    """Channels before the ReLU: negative entries, exact zeros and rows
+    with no positive entry (var == 0 after the ReLU)."""
+    rng = np.random.default_rng(seed)
+    zs = [rng.normal(size=(n, d)).astype(np.float32) for _ in range(3)]
+    zs[2][:3] = -np.abs(zs[2][:3])      # all non-positive rows
+    zs[1][3:5] = 0.0                    # all-zero rows
+    zs[0][::7, 0] = 0.0                 # exact zeros: the ReLU's tie
+    v = rng.normal(size=(3, d)).astype(np.float32)
+    c = rng.normal(size=3).astype(np.float32)
+    W = rng.uniform(-1, 1, size=(3, 3)).astype(np.float32)
+    gout = rng.normal(size=(n, d)).astype(np.float32)
+    return [torch.from_numpy(t) for t in (*zs, v, c, W, gout)]
 
 
 @pytest.mark.parametrize("use_ln", (False, True))
 @pytest.mark.parametrize("d", (2, 7, 64))
 def test_attention_backward_plain_matches_autograd(d, use_ln):
-    """K3's plain version (the kernel's formulas) against autograd of K2's
-    plain version; the parameter-gradient row reductions as
-    ``_AttentionMix.backward`` does them."""
-    h0, h1, h2, v, c, W, gout = _attention_inputs(300, d, seed=d)
-    leaves = [t.clone().requires_grad_(True) for t in (h0, h1, h2, v, c, W)]
+    """K3's plain version (the kernel's formulas, the ReLU's gradient and
+    the row sums of the parameter gradients included) against autograd of
+    K2's plain version on channels before the ReLU."""
+    z0, z1, z2, v, c, W, gout = _attention_inputs(300, d, seed=d)
+    leaves = [t.clone().requires_grad_(True) for t in (z0, z1, z2, v, c, W)]
     attention_mix_forward_plain(*leaves, use_ln, 3.0).backward(gout)
-    dh0, dh1, dh2, aux = attention_mix_backward_plain(
-        h0, h1, h2, gout, v, c, W, use_ln, 3.0)
-    dp, dS, dscore, g, dl = aux.split(3, dim=1)
+    dz0, dz1, dz2, dv, dc, dW = attention_mix_backward_plain(
+        z0, z1, z2, gout, v, c, W, use_ln, 3.0)
     n_terms = 300
-    for i, dh in enumerate((dh0, dh1, dh2)):
-        assert_close(dh, leaves[i].grad.numpy(), d, f"dh{i}")
-    hs = (h0, h1, h2)
-    dv = torch.stack([hs[i].T @ dp[:, i] for i in range(3)]) \
-        + dS.sum(0)[:, None]
+    for i, dz in enumerate((dz0, dz1, dz2)):
+        assert_close(dz, leaves[i].grad.numpy(), d, f"dz{i}")
     assert_close(dv, leaves[3].grad.numpy(), n_terms, "dv")
     if use_ln:
-        assert_close(dscore.sum(0), leaves[4].grad.numpy(), n_terms, "dc")
-    assert_close(g.T @ dl / 3, leaves[5].grad.numpy(), n_terms, "dW")
+        assert_close(dc, leaves[4].grad.numpy(), n_terms, "dc")
+    else:                               # c is not used without LayerNorm
+        assert leaves[4].grad is None and not dc.any()
+    assert_close(dW, leaves[5].grad.numpy(), n_terms, "dW")
+
+
+@pytest.mark.parametrize("use_ln", (False, True))
+@pytest.mark.parametrize("d", (2, 7, 64))
+def test_fused_attention_plain_matches_jax(d, use_ln):
+    """The fused plain forward and backward against the JAX package:
+    ``jax.nn.relu``, then flax's own ``ACMConv._attention`` (its
+    parameters passed in: ``ln_mods`` and ``att_params``), then the mix of
+    ``ACMConv.__call__``; gradients from ``jax.vjp``.  The same parameter
+    tree is copied into the port with ``params_from_flax``; the port's
+    ``dv``, ``dc`` and ``dW`` reach it through ``ACMConv._branch_params``.
+
+    Both sides run in f64 (f32-valued inputs and parameters): this holds
+    the algorithm, and in f32 the rows that the ReLU leaves near-constant
+    are ill-conditioned, where JAX's uncentred score ``h·v − μΣv``
+    cancels and the port's centred one does not (ROADMAP §C)."""
+    n = 300
+    z0, z1, z2, *_, gout = (t.double() for t in _attention_inputs(
+        n, d, seed=100 + d))
+    rng = np.random.default_rng(d)
+    names = ("low", "high", "mlp")
+    params = {f"att_vec_{nm}": rng.uniform(-1, 1, (d, 1)) for nm in names}
+    params["att_vec"] = rng.uniform(-1, 1, (3, 3)) / np.sqrt(3)
+    if use_ln:
+        for nm in names:
+            params[f"layer_norm_{nm}"] = {"scale": np.ones(d),
+                                          "bias": np.zeros(d)}
+        params = _randomize_layernorms(params, rng)
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                    params)
+    model_type = "acmgcnp" if use_ln else "acmgcn"
+    jconv = JaxACMConv(d, model_type=model_type, use_layernorm=use_ln)
+
+    def mix(zs, p):
+        hs = [jax.nn.relu(z) for z in zs]
+        ln_mods = ([(p[f"layer_norm_{nm}"]["scale"],
+                     p[f"layer_norm_{nm}"]["bias"]) for nm in names]
+                   if use_ln else None)
+        att_params = ([p[f"att_vec_{nm}"] for nm in names], p["att_vec"])
+        att = jconv.apply({}, hs, ln_mods, att_params,
+                          method=JaxACMConv._attention)
+        return 3.0 * (att[:, 0:1] * hs[0] + att[:, 1:2] * hs[1]
+                      + att[:, 2:3] * hs[2])
+
+    with jax.enable_x64(True):
+        jout, vjp = jax.vjp(
+            mix, [jnp.asarray(z.numpy()) for z in (z0, z1, z2)],
+            jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                   params))
+        jdz, jdp = vjp(jnp.asarray(gout.numpy()))
+
+    conv = ACMConv(1, d, model_type=model_type, use_layernorm=use_ln)
+    state = params_from_flax(params)
+    conv.load_state_dict(state, strict=False)
+    _, (v, c, W) = conv._branch_params(detach=False)
+    v, c, W = v.double(), c.double(), W.double()
+    out = attention_mix_forward_plain(z0, z1, z2, v, c, W, use_ln, 3.0)
+    dz0, dz1, dz2, dv, dc, dW = attention_mix_backward_plain(
+        z0, z1, z2, gout, v.detach(), c.detach(), W.detach(), use_ln, 3.0)
+    assert_close(out, jout, d, "out")
+    for i, dz in enumerate((dz0, dz1, dz2)):
+        assert_close(dz, jdz[i], d, f"dz{i}")
+    outs, cots = ([v, c, W], [dv, dc, dW]) if use_ln else ([v, W], [dv, dW])
+    grads = torch.autograd.grad(outs, [conv.get_parameter(k) for k in state],
+                                cots)
+    jflat = _flat(jax.tree_util.tree_map(np.asarray, jdp))
+    assert set(jflat) == set(state)
+    for name, g in zip(state, grads):
+        assert_close(g, jflat[name], n, f"d {name}")
