@@ -73,10 +73,10 @@ _SIGNATURES = {
                             _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "rocauc": {
-        "acm_k4_tile_size": [],
-        # s_sorted, order, packed, n, n_cols, n_masks, n_tiles, scratch,
-        # out, stream
-        "acm_k4_auc_rank_pass": [_P, _P, _P, _L, _I, _I, _L, _P, _P, _P],
+        # s_sorted, order, packed, n, n_cols, n_masks, tile, tickets,
+        # stats, col_auc, counts, auc, stream
+        "acm_k4_rocauc": [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P],
     },
     "halo": {
         # x, sign, pre_scale, rows, d, ld, out_bf16, own, send_idx,

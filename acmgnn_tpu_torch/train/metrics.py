@@ -10,10 +10,13 @@ accuracy all-reduces ``masked_correct`` counts.
 The ROC-AUC is the Mann-Whitney statistic with average-rank ties
 (``sklearn.metrics.roc_auc_score`` on each mask's subset), for several
 masks over one score sort.  ``torch.sort`` orders the scores; the rank
-pass over the sorted order is kernel K4 (``csrc/rocauc.cu``), whose plain
-PyTorch version is ``auc_rank_pass_plain``.  The rank pass counts in
-int64, so twice the positives' rank sum is exact, and the AUC is formed
-from those counts in f64: the JAX package sums the average ranks in f32.
+pass over the sorted order and the AUC it gives are one launch of kernel
+K4 (``csrc/rocauc.cu``), whose plain PyTorch version is
+``rocauc_from_sorted_plain`` (``auc_rank_pass_plain``'s counts, then
+``auc_from_counts``); ``k4_tile_replay`` replays K4's tile algebra.  The
+rank pass counts in int64, so twice the positives' rank sum is exact,
+and the AUC is formed from those counts in f64: the JAX package sums the
+average ranks in f32.
 """
 
 from __future__ import annotations
@@ -126,7 +129,101 @@ def auc_rank_pass_plain(s_sorted: torch.Tensor, order: torch.Tensor,
     return out
 
 
-def _auc_rank_pass_cuda(s_sorted, order, packed, n_masks: int):
+def k4_tile_replay(s_sorted: torch.Tensor, order: torch.Tensor,
+                   packed: torch.Tensor, n_masks: int,
+                   tile: int) -> torch.Tensor:
+    """K4's one-pass algebra in plain PyTorch, at ``tile`` sorted positions
+    a tile: the ``[B, M, 3]`` counts from each tile's statistics (its
+    masked and masked-positive counts ``M_t``, ``Q_t``; whether a tie group
+    ends in it; the tile-local counts ``m``, ``q`` at its first and last
+    group end ``f_1``, ``f_r``; ``S1 = Σ_{j≥2} (q(f_j) − q(f_{j−1}))·(1 +
+    m(f_{j−1}) + m(f_j))``), then the finish: with ``(M_B, Q_B)`` the
+    counts before the tile and ``(M_C, Q_C)`` those at the last group end
+    before it, the tile adds ``(Q_B + q(f_1) − Q_C)·(M_C + 1 + M_B +
+    m(f_1)) + S1 + 2·M_B·(q(f_r) − q(f_1))`` to ``2·rank_sum``.  Equals
+    ``auc_rank_pass_plain`` exactly at any tile size."""
+    b, n = s_sorted.shape
+    dev = s_sorted.device
+    n_tiles = -(-n // tile)
+    pad = n_tiles * tile - n
+    bits = torch.gather(packed, 1, order).long()
+    end = torch.ones(b, n, dtype=torch.bool, device=dev)
+    end[:, :-1] = s_sorted[:, 1:] != s_sorted[:, :-1]
+    bits = torch.nn.functional.pad(bits, (0, pad)).view(b, n_tiles, tile)
+    end = torch.nn.functional.pad(end, (0, pad)).view(b, n_tiles, tile)
+    pos = torch.arange(tile, device=dev)
+    has = end.any(dim=2)
+    first = torch.where(end, pos, tile - 1).amin(dim=2, keepdim=True)
+    last = torch.where(end, pos, 0).amax(dim=2, keepdim=True)
+    # each position's previous group end in its tile (-1: none)
+    prev = torch.cummax(torch.where(end, pos, -1), dim=2).values
+    prev = torch.cat([torch.full_like(prev[..., :1], -1), prev[..., :-1]],
+                     dim=2)
+    later = end & (prev >= 0)          # f_j with j >= 2
+    prev = prev.clamp_min(0)
+    # per tile, the last earlier tile in which a group ends (-1: none)
+    tiles = torch.arange(n_tiles, device=dev).expand(b, n_tiles)
+    c_tile = torch.cummax(torch.where(has, tiles, -1), dim=1).values
+    c_tile = torch.cat([torch.full_like(c_tile[:, :1], -1), c_tile[:, :-1]],
+                       dim=1)
+    label = bits & 1
+    out = torch.empty(b, n_masks, 3, dtype=torch.int64, device=dev)
+    for m in range(n_masks):
+        masked = (bits >> (m + 1)) & 1
+        mc = torch.cumsum(masked, dim=2)
+        qc = torch.cumsum(masked & label, dim=2)
+        m_t, q_t = mc[..., -1], qc[..., -1]
+        m1, q1 = mc.gather(2, first)[..., 0], qc.gather(2, first)[..., 0]
+        mr, qr = mc.gather(2, last)[..., 0], qc.gather(2, last)[..., 0]
+        s1 = torch.where(later, (qc - qc.gather(2, prev))
+                         * (1 + mc.gather(2, prev) + mc), 0).sum(dim=2)
+        m_b = torch.cumsum(m_t, dim=1) - m_t
+        q_b = torch.cumsum(q_t, dim=1) - q_t
+        k = c_tile.clamp_min(0)
+        found = c_tile >= 0
+        m_c = torch.where(found, (m_b + mr).gather(1, k), 0)
+        q_c = torch.where(found, (q_b + qr).gather(1, k), 0)
+        share = ((q_b + q1 - q_c) * (m_c + 1 + m_b + m1) + s1
+                 + 2 * m_b * (qr - q1))
+        n_pos = q_t.sum(dim=1)
+        out[:, m, 0] = n_pos
+        out[:, m, 1] = m_t.sum(dim=1) - n_pos
+        out[:, m, 2] = torch.where(has, share, 0).sum(dim=1)
+    return out
+
+
+# K4's tile, sorted positions a block reads (256 threads): the fastest of
+# the sizes csrc/rocauc.cu compiles (K4_TILES) at genius scale, by
+# chip_smoke.py phase 5a's sweep
+K4_TILE = 2048
+K4_TILES = (1024, 2048, 4096)
+
+_k4_workspaces: dict = {}
+
+
+def _k4_workspace(device, n_cols: int, n_tiles: int, n_masks: int):
+    """K4's scratch for one shape, made once and kept: ``n_cols + 1``
+    tickets (zero when made; every launch leaves them at zero), the tiles'
+    statistics and the columns' f64 AUCs.  A CUDA graph that captured a
+    launch replays it on the same buffers, so the first call at a shape
+    must come before a capture."""
+    key = (device, n_cols, n_tiles, n_masks)
+    ws = _k4_workspaces.get(key)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("call K4 once at this shape before a CUDA "
+                               "graph captures it")
+        ws = (torch.zeros(n_cols + 1, dtype=torch.int32, device=device),
+              torch.empty(n_cols * n_tiles * n_masks * 4, dtype=torch.int32,
+                          device=device),
+              torch.empty(n_cols, n_masks, dtype=torch.float64,
+                          device=device))
+        _k4_workspaces[key] = ws
+    return ws
+
+
+def _launch(s_sorted, order, packed, n_masks: int, tile: int = K4_TILE):
+    """One K4 launch: ``([B, M, 3] int64 counts, [M] f32 AUCs)``."""
     b, n = s_sorted.shape
     if s_sorted.dtype != torch.float32 or order.dtype != torch.int64 \
             or packed.dtype != torch.uint8:
@@ -139,19 +236,19 @@ def _auc_rank_pass_cuda(s_sorted, order, packed, n_masks: int):
         raise ValueError(f"K4 takes 1..{MAX_MASKS} masks, got {n_masks}")
     kernels.require_cuda(s_sorted, order, packed)
     lib = kernels.library("rocauc")
-    n_tiles = max(1, -(-n // lib.acm_k4_tile_size()))
     dev = s_sorted.device
-    scratch = torch.empty(4, b, n_tiles, n_masks, dtype=torch.int64,
-                          device=dev)
-    out = torch.empty(b, n_masks, 3, dtype=torch.int64, device=dev)
-    rc = lib.acm_k4_auc_rank_pass(
+    tickets, stats, col_auc = _k4_workspace(dev, b, -(-n // tile), n_masks)
+    counts = torch.empty(b, n_masks, 3, dtype=torch.int64, device=dev)
+    auc = torch.empty(n_masks, dtype=torch.float32, device=dev)
+    rc = lib.acm_k4_rocauc(
         kernels.ptr(s_sorted), kernels.ptr(order), kernels.ptr(packed), n, b,
-        n_masks, n_tiles, kernels.ptr(scratch), kernels.ptr(out),
+        n_masks, tile, kernels.ptr(tickets), kernels.ptr(stats),
+        kernels.ptr(col_auc), kernels.ptr(counts), kernels.ptr(auc),
         kernels.stream(),
     )
-    kernels.check(lib, rc, "K4 ROC-AUC rank pass")
+    kernels.check(lib, rc, "K4 ROC-AUC")
     kernels.count(f"k4_auc_m{n_masks}")
-    return out
+    return counts, auc
 
 
 def auc_rank_pass(s_sorted: torch.Tensor, order: torch.Tensor,
@@ -159,11 +256,11 @@ def auc_rank_pass(s_sorted: torch.Tensor, order: torch.Tensor,
     """``[B, M, 3]`` int64 ``(n_pos, n_neg, 2·rank_sum)`` from ``[B, N]``
     ascending scores, their ``torch.sort`` order and the packed label/mask
     words (``pack_labels_and_masks``).  CPU tensors run the plain
-    version; CUDA tensors launch K4."""
+    version; CUDA tensors launch K4 (whose AUCs are dropped)."""
     if s_sorted.device.type == "cpu":
         return auc_rank_pass_plain(s_sorted, order, packed, n_masks)
-    return _auc_rank_pass_cuda(s_sorted.contiguous(), order.contiguous(),
-                               packed.contiguous(), n_masks)
+    return _launch(s_sorted.contiguous(), order.contiguous(),
+                   packed.contiguous(), n_masks)[0]
 
 
 def auc_from_counts(counts: torch.Tensor) -> torch.Tensor:
@@ -176,6 +273,38 @@ def auc_from_counts(counts: torch.Tensor) -> torch.Tensor:
                        torch.full_like(auc, float("nan")))
 
 
+def rocauc_from_sorted_plain(s_sorted: torch.Tensor, order: torch.Tensor,
+                             packed: torch.Tensor, n_masks: int):
+    """Plain PyTorch version of K4: ``auc_rank_pass_plain``'s counts and
+    the ``[M]`` f32 AUCs, formed in f64 by ``auc_from_counts`` and, over
+    the score columns, averaged over those that are not NaN, summed in
+    column order (K4's order) and rounded once to f32."""
+    counts = auc_rank_pass_plain(s_sorted, order, packed, n_masks)
+    total = torch.zeros(n_masks, dtype=torch.float64, device=counts.device)
+    seen = torch.zeros_like(total)
+    for col in auc_from_counts(counts):
+        ok = ~torch.isnan(col)
+        total = total + torch.where(ok, col, 0.0)
+        seen = seen + ok
+    return counts, (total / seen).float()
+
+
+def rocauc_from_sorted(s_sorted: torch.Tensor, order: torch.Tensor,
+                       packed: torch.Tensor, n_masks: int,
+                       multilabel: bool):
+    """``([B, M, 3] int64 counts, [M] f32 AUCs)`` from ``[B, N]`` ascending
+    scores, their order and the packed words: each mask's AUC, for
+    ``multilabel`` scores (one column a class) the nanmean over the
+    columns.  CPU tensors run the plain version; CUDA tensors one K4
+    launch, which forms the AUCs too."""
+    if not multilabel and s_sorted.shape[0] != 1:
+        raise ValueError("single-label scores are one column")
+    if s_sorted.device.type == "cpu":
+        return rocauc_from_sorted_plain(s_sorted, order, packed, n_masks)
+    return _launch(s_sorted.contiguous(), order.contiguous(),
+                   packed.contiguous(), n_masks)
+
+
 def masked_rocauc_multi(logits: torch.Tensor, labels: torch.Tensor, masks,
                         packed: torch.Tensor | None = None):
     """ROC-AUC for several masks over one set of logits, one f32 scalar
@@ -186,19 +315,20 @@ def masked_rocauc_multi(logits: torch.Tensor, labels: torch.Tensor, masks,
       of C sorts and one rank pass), then their nanmean.
 
     ``packed``: the split's ``pack_labels_and_masks(labels, masks)``,
-    made here when not given.
+    made here when not given.  On the card: the softmax, ``torch.sort``
+    and one K4 launch; the scalars are views of K4's output.
     """
     if packed is None:
         packed = pack_labels_and_masks(labels, masks)
-    if is_multilabel(labels):
+    multilabel = is_multilabel(labels)
+    if multilabel:
         scores = logits.T.contiguous()
     else:
         scores = torch.softmax(logits, dim=-1)[:, 1][None]
     order, s_sorted = sort_scores(scores.float())
-    aucs = auc_from_counts(auc_rank_pass(s_sorted, order, packed, len(masks)))
-    if not is_multilabel(labels):
-        return tuple(aucs[0].float())
-    return tuple(torch.nanmean(aucs, dim=0).float())
+    _, aucs = rocauc_from_sorted(s_sorted, order, packed, len(masks),
+                                 multilabel)
+    return tuple(aucs)
 
 
 def masked_rocauc(logits: torch.Tensor, labels: torch.Tensor,

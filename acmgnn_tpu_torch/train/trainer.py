@@ -734,9 +734,11 @@ def make_epoch_fns(model: ACMGNN, cfg: TrainConfig):
       train_mask)``: one dropout forward (checkpointed with
       ``cfg.remat``), backward and optimizer step, in place; returns the
       train loss;
-    - ``eval_epoch(ops, x, labels, labels_onehot, masks)``: one eval
-      forward; ``{"train_metric", "val_metric", "test_metric",
-      "val_loss"}`` (ROC-AUC: one score sort serves the three masks)."""
+    - ``eval_epoch(ops, x, labels, labels_onehot, masks, packed)``: one
+      eval forward; ``{"train_metric", "val_metric", "test_metric",
+      "val_loss"}`` (ROC-AUC: one score sort serves the three masks;
+      ``packed``: the split's ``pack_labels_and_masks(labels, masks)``,
+      None for accuracies)."""
     use_bce = cfg.loss == "bce"
     use_rocauc = cfg.metric == "rocauc"
 
@@ -755,10 +757,11 @@ def make_epoch_fns(model: ACMGNN, cfg: TrainConfig):
         return loss.detach()
 
     @torch.no_grad()
-    def eval_epoch(ops, x, labels, labels_onehot, masks):
+    def eval_epoch(ops, x, labels, labels_onehot, masks, packed):
         logits = model(x, ops, training=False)
         if use_rocauc:
-            metrics = masked_rocauc_multi(logits, labels, masks)
+            metrics = masked_rocauc_multi(logits, labels, masks,
+                                          packed=packed)
         else:
             metrics = tuple(masked_accuracy(logits, labels, m) for m in masks)
         return {"train_metric": metrics[0], "val_metric": metrics[1],
@@ -811,6 +814,9 @@ def run_experiment_stepwise(dataset: GraphData, cfg: TrainConfig, *,
         else:
             split = resolve_split(data, cfg, idx, rng, labels_np, nclass)
         masks = tuple(torch.as_tensor(np.asarray(m)).to(dev) for m in split)
+        # the rank pass's label/mask words, fixed for the split
+        packed = (pack_labels_and_masks(labels, masks)
+                  if cfg.metric == "rocauc" else None)
         model = build_model(cfg, x.shape[1], nclass, device=dev,
                             seed=cfg.seed + idx)
         opt = make_optimizer(cfg, list(model.parameters()))
@@ -821,7 +827,8 @@ def run_experiment_stepwise(dataset: GraphData, cfg: TrainConfig, *,
                 gen = epoch_generator(dev, cfg.seed + idx, epoch)
                 loss_ = train_epoch(opt, gen, ops, x, labels, labels_onehot,
                                     masks[0])
-                ev_ = eval_epoch(ops, x, labels, labels_onehot, masks)
+                ev_ = eval_epoch(ops, x, labels, labels_onehot, masks,
+                                 packed)
                 return float(loss_), {k: float(v) for k, v in ev_.items()}
 
             t_epoch = time.time()

@@ -43,9 +43,11 @@ Phases (any failure exits non-zero and prints no result):
       phase 2: K1 at widths 12, 8 and 4; K2/K3 without LayerNorm at d=64
       and d=2; K5 (COO) forward at widths 12 and 8 and transpose at width
       4, then the input gather (w12) at slice sizes 128 to 1024; K4
-      (ROC-AUC rank pass) with 2 masks, also against an exact host
-      reference (scipy rankdata, f64) on random scores and on a saturated
-      tie group;
+      (ROC-AUC: one launch forms the counts and the AUCs) with 2 masks,
+      also against an exact host reference (scipy rankdata, f64) on
+      random scores and on a saturated tie group, then with 7 masks and
+      on B=3 multilabel columns, across two launches and under CUDA-graph
+      replay, timed at each compiled tile size;
    b. the joint loop on the ELL operator, then on the COO operator, then
       the sequential loop (without and with early stopping): steady
       ms/epoch, finite losses, best val/test ROC-AUC, launch counts
@@ -552,16 +554,28 @@ def _host_auc(scores: np.ndarray, labels: np.ndarray, mask: np.ndarray):
 
 
 def phase_rocauc_kernel(labels, masks_np, suffix="@genius"):
-    """K4 against its plain version (exactly) and against the exact host
-    reference (to 1e-9), on random scores and on scores holding a
-    saturated tie group of >= 50,000 nodes; timed with 2 masks."""
+    """K4, one launch that forms the counts and the AUCs, against its plain
+    version (counts exactly; AUCs bit-equal for one score column, within 1
+    f32 ulp for a multilabel mean) and against the exact host reference
+    (the AUC from K4's counts in f64 to 1e-9, K4's f32 AUC to half an f32
+    ulp + 1e-9), on random scores and on scores holding a saturated tie
+    group of >= 50,000 nodes; then 7 masks, and B=3 multilabel columns
+    with 2 and 7 masks; every case bit-equal across two launches, and a
+    CUDA graph of the path's call replayed twice bit-equal to it.  Timed
+    with 2 masks beside the bound, at each compiled tile size, beside
+    ``torch.sort`` (the library row) and the ATen tail the fusion removed
+    (``auc_from_counts`` on the counts and the f32 cast)."""
     import torch
 
+    from acmgnn_tpu_torch.train.metrics import _launch as k4_launch
     from acmgnn_tpu_torch.train.metrics import (
+        K4_TILE,
+        K4_TILES,
+        MAX_MASKS,
         auc_from_counts,
-        auc_rank_pass,
-        auc_rank_pass_plain,
         pack_labels_and_masks,
+        rocauc_from_sorted,
+        rocauc_from_sorted_plain,
         sort_scores,
     )
 
@@ -574,36 +588,118 @@ def phase_rocauc_kernel(labels, masks_np, suffix="@genius"):
     random_scores = rng.random(n).astype(np.float32)
     saturated = random_scores.copy()
     saturated[rng.random(n) < 0.3] = 1.0
+
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    def check(what, s_sorted, order, pk, n_masks, multilabel):
+        counts, aucs = rocauc_from_sorted(s_sorted, order, pk, n_masks,
+                                          multilabel)
+        want, want_aucs = rocauc_from_sorted_plain(s_sorted, order, pk,
+                                                   n_masks)
+        torch.cuda.synchronize()
+        if not torch.equal(counts, want):
+            fail(f"K4 ({what}) counts disagree with its plain version: "
+                 f"{counts.tolist()} != {want.tolist()}")
+        nan = torch.isnan(want_aucs)
+        ok = want_aucs.abs()
+        ulp = torch.nextafter(ok, torch.full_like(ok, float("inf"))) - ok
+        diff = torch.where(nan, 0.0, (aucs - want_aucs).abs())
+        if not torch.equal(torch.isnan(aucs), nan) or (
+                bool((diff > ulp).any()) if multilabel
+                else bool((diff > 0).any())):
+            fail(f"K4 ({what}) AUCs {aucs.tolist()} disagree with its "
+                 f"plain version's {want_aucs.tolist()}")
+        again = rocauc_from_sorted(s_sorted, order, pk, n_masks, multilabel)
+        if not all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(again, (counts, aucs))):
+            fail(f"K4 ({what}): two launches differ")
+        print(f"  k4 {what}: counts equal the plain version's, AUCs "
+              f"{'within 1 f32 ulp of' if multilabel else 'bit-equal to'} "
+              f"its (max |diff| {float(diff.max()):.3e}); two launches "
+              f"bit-equal")
+        return counts, aucs
+
     err = 0.0
     for what, sc in (("random", random_scores), ("saturated", saturated)):
         scores = torch.from_numpy(sc).to(dev)[None]
         order, s_sorted = sort_scores(scores)
-        got = auc_rank_pass(s_sorted, order, packed, 2)
-        want = auc_rank_pass_plain(s_sorted, order, packed, 2)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"K4 ({what}) disagrees with its plain version: "
-                 f"{got.tolist()} != {want.tolist()}")
-        aucs = auc_from_counts(got)[0].tolist()
+        counts, aucs = check(f"m2{suffix} {what}", s_sorted, order, packed, 2,
+                             False)
+        from_counts = auc_from_counts(counts)[0].tolist()
         ref = [_host_auc(sc, labels, m) for m in masks_np[1:]]
-        diff = max(abs(a - b) for a, b in zip(aucs, ref))
+        diff = max(abs(a - b) for a, b in zip(from_counts, ref))
+        half_ulp = max(abs(float(a) - b) - 0.5 * float(
+            np.spacing(np.float32(b))) for a, b in zip(aucs.tolist(), ref))
         group = int((sc == 1.0).sum())
         print(f"  k4_auc_m2{suffix} {what} scores (largest tie group "
-              f"{group}): AUC {aucs} vs host f64 {ref}, |diff| {diff:.2e} "
-              f"(tolerance 1e-9); counts equal the plain version's")
-        if diff > 1e-9:
+              f"{group}): AUC from the counts {from_counts} vs host f64 "
+              f"{ref}, |diff| {diff:.2e} (tolerance 1e-9); f32 AUC "
+              f"{aucs.tolist()}, |diff| - half an f32 ulp {half_ulp:.2e} "
+              f"(tolerance 1e-9)")
+        if diff > 1e-9 or half_ulp > 1e-9:
             fail(f"K4 ({what}) disagrees with the host reference")
         err = max(err, diff)
-    ms = time_ms(lambda: auc_rank_pass(s_sorted, order, packed, 2), 50)
-    dev_ms = device_ms(lambda: auc_rank_pass(s_sorted, order, packed, 2))
+    # the path's call (saturated scores) in a CUDA graph, replayed twice
+    eager = rocauc_from_sorted(s_sorted, order, packed, 2, False)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = rocauc_from_sorted(s_sorted, order, packed, 2, False)
+    for _ in range(2):
+        for t in captured:
+            t.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(captured, eager)):
+            fail("K4 under CUDA-graph replay differs from the eager call")
+    print(f"  k4_auc_m2{suffix}: a CUDA graph of the call replayed twice, "
+          f"bit-equal to the eager call")
+    # 7 masks; B=3 multilabel columns with 2 and 7 masks
+    extra = tuple(torch.from_numpy(rng.random(n) < 0.3).to(dev)
+                  for _ in range(MAX_MASKS))
+    scores = torch.from_numpy(random_scores).to(dev)[None]
+    order_r, sorted_r = sort_scores(scores)
+    check(f"m{MAX_MASKS}{suffix} random", sorted_r, order_r,
+          pack_labels_and_masks(y, extra), MAX_MASKS, False)
+    y3 = torch.from_numpy((rng.random((n, 3)) < 0.3).astype(np.int64)).to(
+        dev)
+    scores3 = torch.from_numpy(np.round(rng.normal(size=(3, n)), 2).astype(
+        np.float32)).to(dev)
+    order3, sorted3 = sort_scores(scores3)
+    for mk in (masks, extra):
+        check(f"m{len(mk)}{suffix} multilabel B=3", sorted3, order3,
+              pack_labels_and_masks(y3, mk), len(mk), True)
+
+    def call():
+        return rocauc_from_sorted(s_sorted, order, packed, 2, False)
+
+    ms = time_ms(call, 50)
+    dev_ms = device_ms(call)
     plain_ms = time_ms(
-        lambda: auc_rank_pass_plain(s_sorted, order, packed, 2), 5)
+        lambda: rocauc_from_sorted_plain(s_sorted, order, packed, 2), 5)
     lib_ms = time_ms(lambda: torch.sort(scores, dim=-1), 50)
     lib_dev = device_ms(lambda: torch.sort(scores, dim=-1))
-    b_ms, b_by = bound(n * (4 + 8 + 1) + 2 * 3 * 8, 0)
+    counts = call()[0]
+    tail_dev = device_ms(lambda: auc_from_counts(counts)[0].float())
+    sweep = []
+    for tile in K4_TILES:
+
+        def at_tile():
+            return k4_launch(s_sorted, order, packed, 2, tile)
+
+        if not torch.equal(at_tile()[0], counts):
+            fail(f"K4 at tile {tile} disagrees with its plain version")
+        sweep.append(f"{tile}: {time_ms(at_tile, 50):.4f} ms, device "
+                     f"{_ms(device_ms(at_tile))}")
+    b_ms, b_by = bound(n * (4 + 8 + 1) + 2 * (3 * 8 + 4), 0)
+    print(f"  k4_auc_m2{suffix} by tile size (K4_TILE {K4_TILE}): "
+          + "; ".join(sweep))
     print(f"  k4_auc_m2{suffix}: {ms:.4f} ms, device {_ms(dev_ms)} (plain "
           f"{plain_ms:.3f}, torch.sort of the scores {lib_ms:.4f}, device "
-          f"{_ms(lib_dev)}; bound {b_ms:.4f} {b_by})")
+          f"{_ms(lib_dev)}; the ATen tail K4 now forms, auc_from_counts "
+          f"and the f32 cast, device {_ms(tail_dev)}; bound {b_ms:.4f} "
+          f"{b_by})")
     return [dict(name="k4_auc_m2" + suffix, counter="k4_auc_m2",
                  route="cuda", source="acmgnn_tpu_torch/csrc/rocauc.cu",
                  replaces="acmgnn_tpu/train/metrics.py:68", max_abs_err=err,
@@ -1037,8 +1133,7 @@ def _kernel_group(name: str) -> str:
         return "K2 attention fwd"
     if "attn_bwd" in name:           # attn_bwd_kernel and its finish
         return "K3 attention bwd"
-    if "auc_tiles_kernel" in name or "auc_scan_kernel" in name \
-            or "auc_ranks_kernel" in name:
+    if "rocauc_pass_kernel" in name:
         return "K4 auc"
     if "coo_slices_kernel" in name or "coo_spans_kernel" in name:
         return "K5 coo"

@@ -197,12 +197,12 @@ class _EpochLog:
         self.out = out
 
 
-def test_run_experiment_stepwise_matches_jax(graph, monkeypatch):
-    """Per-epoch rows (split, epoch, loss, train/val/test accuracy) to
-    1e-6 and an equal summary, each split from JAX's initial variables
-    (its ``fold_in(key(seed), idx)`` init, given to the port's
-    ``build_model``)."""
-    cfg_kw = dict(BASE, epochs=8, joint=False)
+def _stepwise_matches_jax(graph, monkeypatch, cfg_kw):
+    """Both packages' ``run_experiment_stepwise`` on ``cfg_kw``, the
+    port's splits from JAX's initial variables (its ``fold_in(key(seed),
+    idx)`` init, given to the port's ``build_model``): per-epoch rows
+    (split, epoch, loss, train/val/test metric) to 1e-6 and an equal
+    summary."""
     jcfg = JaxTrainConfig(**cfg_kw)
     jlog = _EpochLog()
     jtrainer.run_experiment_stepwise(_data(graph, jax_side=True), jcfg,
@@ -233,6 +233,21 @@ def test_run_experiment_stepwise_matches_jax(graph, monkeypatch):
               "per_split", "epochs_total"):
         assert out[k] == pytest.approx(jlog.out[k], abs=1e-6), k
     assert set(out) == set(jlog.out)
+
+
+def test_run_experiment_stepwise_matches_jax(graph, monkeypatch):
+    """Accuracies, as ``_stepwise_matches_jax``."""
+    _stepwise_matches_jax(graph, monkeypatch,
+                          dict(BASE, epochs=8, joint=False))
+
+
+def test_run_experiment_stepwise_rocauc_matches_jax(graph, monkeypatch):
+    """BCE and ROC-AUC (train, val and test masks from one sort and one
+    rank pass, the packed words built once a split), as
+    ``_stepwise_matches_jax``."""
+    _stepwise_matches_jax(graph, monkeypatch,
+                          dict(BASE, epochs=8, joint=False, metric="rocauc",
+                               loss="bce"))
 
 
 def test_stepwise_refuses_checkpointing(graph):

@@ -10,13 +10,17 @@ them there with
 
 Tolerance: ``1e-5·sqrt(reduction length)·max(1, max|plain|)``: kernel
 and plain version sum the same f32 (or bf16-rounded) terms in different
-orders.  K4 counts integers, so it must agree exactly.
+orders.  K4 counts integers, so its counts must agree exactly; its AUC
+is formed in f64 from them and rounded once to f32, bit-equal to the
+plain version for one score column and within 1 f32 ulp for a multilabel
+mean.
 
 Without a card, the tests below check what K1, K5 and K4 rely on: K1's
 summation order replayed in PyTorch and its lane groups (a function of
 the row's degree alone, also on a rank's local half), K5's host
-partition of the triplets into slices, and the exact counts of K4's
-plain version; the card tests hold the compiled kernels to those.
+partition of the triplets into slices, the exact counts of K4's plain
+version and K4's one-pass tile algebra (``k4_tile_replay``) against them;
+the card tests hold the compiled kernels to those.
 """
 
 from __future__ import annotations
@@ -78,10 +82,17 @@ from acmgnn_tpu_torch.ops.panel_gather import (
 )
 from acmgnn_tpu_torch.ops.spmm import spmm_multi
 from acmgnn_tpu_torch.parallel.sharded import make_sharded_ell_op
+from acmgnn_tpu_torch.train.metrics import _launch as k4_launch
 from acmgnn_tpu_torch.train.metrics import (
+    K4_TILE,
+    K4_TILES,
+    MAX_MASKS,
     auc_rank_pass,
     auc_rank_pass_plain,
+    k4_tile_replay,
     pack_labels_and_masks,
+    rocauc_from_sorted,
+    rocauc_from_sorted_plain,
     sort_scores,
 )
 from acmgnn_tpu_torch.train.config import TrainConfig
@@ -168,9 +179,12 @@ def test_wrappers_refuse_a_device_without_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         coo_spmm(coo.fwd, x)
     s = torch.empty(1, 50, device="meta")
+    order = torch.empty(1, 50, dtype=torch.int64, device="meta")
+    packed = torch.empty(1, 50, dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        auc_rank_pass(s, torch.empty(1, 50, dtype=torch.int64, device="meta"),
-                      torch.empty(1, 50, dtype=torch.uint8, device="meta"), 2)
+        auc_rank_pass(s, order, packed, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        rocauc_from_sorted(s, order, packed, 2, False)
     with pytest.raises(ValueError, match="CUDA"):
         halo_pack(x, torch.empty_like(x, dtype=torch.bfloat16))
 
@@ -787,17 +801,20 @@ def test_coo_row_block_keeps_the_whole_slice_grid(r0, slice_nnz):
     assert block.n_slices == whole.n_slices - shift
 
 
-def _auc_inputs(kind: str, n: int, seed: int = 0):
+def _auc_inputs(kind: str, n: int, seed: int = 0, n_masks: int = 2):
     """``(scores [B, N], labels, masks)``; "saturated" holds one tie group
-    of 70% of the nodes (spanning many tiles), "quantised" many groups."""
+    of 70% of the nodes (spanning many tiles), "quantised" many groups,
+    "equal" one group of every node; "multilabel" three score columns."""
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, 2, n)
-    masks = (rng.random(n) < 0.25, rng.random(n) < 0.25)
+    masks = tuple(rng.random(n) < 0.25 for _ in range(n_masks))
     scores = rng.random(n).astype(np.float32)
     if kind == "saturated":
         scores[rng.random(n) < 0.7] = 1.0
     elif kind == "quantised":
         scores = np.round(scores * 20) / 20
+    elif kind == "equal":
+        scores[:] = 0.5
     elif kind == "multilabel":
         labels = (rng.random((n, 3)) < 0.3).astype(np.int64)
         scores = np.round(rng.normal(size=(3, n)), 1).astype(np.float32)
@@ -805,8 +822,20 @@ def _auc_inputs(kind: str, n: int, seed: int = 0):
     return scores[None], labels, masks
 
 
-@pytest.mark.parametrize("kind", ("random", "saturated", "quantised",
-                                  "multilabel"))
+def _sorted_inputs(kind, n, seed=0, n_masks=2, device="cpu"):
+    """``(s_sorted, order, packed)`` of ``_auc_inputs`` on ``device``."""
+    scores, labels, masks = _auc_inputs(kind, n, seed, n_masks)
+    packed = pack_labels_and_masks(
+        torch.from_numpy(labels).to(device),
+        tuple(torch.from_numpy(m).to(device) for m in masks))
+    order, s_sorted = sort_scores(torch.from_numpy(scores).to(device))
+    return s_sorted, order, packed
+
+
+AUC_KINDS = ("random", "saturated", "quantised", "equal", "multilabel")
+
+
+@pytest.mark.parametrize("kind", AUC_KINDS)
 def test_rank_pass_counts_are_exact(kind):
     """The ``[B, M, 3]`` counts K4 is held to, from its plain version: each
     score column's and mask's positives, negatives and twice the positives'
@@ -825,6 +854,33 @@ def test_rank_pass_counts_are_exact(kind):
             rank2 = 2 * rankdata(scores[b][mask], method="average")
             assert got[b, m].tolist() == [int(pos.sum()), int((~pos).sum()),
                                           int(rank2[pos].sum())]
+
+
+@pytest.mark.parametrize("kind", AUC_KINDS)
+@pytest.mark.parametrize("tile", (1, 3, 7, 1024))
+@pytest.mark.parametrize("n", (1, 2, 700))
+def test_k4_tile_replay_equals_plain(kind, tile, n):
+    """K4's one-pass algebra (per-tile statistics, then the finish over
+    tiles) gives the plain version's counts exactly, at tiles of 1 node
+    (every node its own tile) up to one tile for all, with tie groups
+    that span many tiles ("saturated", "equal"), for 1 to 7 masks."""
+    for n_masks in (1, 2, 3, MAX_MASKS):
+        s_sorted, order, packed = _sorted_inputs(kind, n, seed=n + tile,
+                                                 n_masks=n_masks)
+        assert torch.equal(
+            k4_tile_replay(s_sorted, order, packed, n_masks, tile),
+            auc_rank_pass_plain(s_sorted, order, packed, n_masks)), n_masks
+
+
+def test_k4_tile_sizes_are_compiled():
+    """``K4_TILE`` is one of the swept ``K4_TILES``, the tile sizes
+    rocauc.cu compiles."""
+    src = (REPO / "acmgnn_tpu_torch" / "csrc" / "rocauc.cu").read_text()
+    body = src[src.index("bool has_tile"):]
+    body = body[:body.index("}")]
+    assert sorted(map(int, re.findall(r"tile == (\d+)", body))) == \
+        sorted(K4_TILES)
+    assert K4_TILE in K4_TILES
 
 
 # ---------------------------------------------------------------------------
@@ -882,20 +938,86 @@ def test_k5_row_block_sums_as_the_whole(cuda, r0, width, slice_nnz):
     assert torch.equal(got, want)
 
 
+def _assert_aucs(got, want, multilabel):
+    """K4's f32 AUCs against the plain version's: NaN in the same places,
+    bit-equal for one score column, within 1 f32 ulp for a multilabel
+    mean."""
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    if not multilabel:
+        assert torch.equal(got[ok], want[ok])
+    ulp = torch.nextafter(want[ok].abs(), torch.tensor(float("inf"))) \
+        - want[ok].abs()
+    assert bool(((got[ok] - want[ok]).abs() <= ulp).all())
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ("random", "saturated", "quantised",
-                                  "multilabel"))
-@pytest.mark.parametrize("n", (1, 1000, 50_000))
+@pytest.mark.parametrize("kind", AUC_KINDS)
+@pytest.mark.parametrize("n", (1, 2, K4_TILE - 1, K4_TILE, K4_TILE + 1,
+                               1000, 50_000))
 def test_k4_matches_plain(cuda, kind, n):
-    scores, labels, masks = _auc_inputs(kind, n, seed=n)
-    packed = pack_labels_and_masks(
-        torch.from_numpy(labels).to(cuda),
-        tuple(torch.from_numpy(m).to(cuda) for m in masks))
-    order, s_sorted = sort_scores(torch.from_numpy(scores).to(cuda))
-    got = auc_rank_pass(s_sorted, order, packed, 2)
-    want = auc_rank_pass_plain(s_sorted, order, packed, 2)
+    """One K4 launch a call: counts equal to the plain version's for 1 to
+    7 masks, AUCs as ``_assert_aucs``."""
+    multilabel = kind == "multilabel"
+    for n_masks in range(1, MAX_MASKS + 1):
+        s_sorted, order, packed = _sorted_inputs(kind, n, seed=n,
+                                                 n_masks=n_masks,
+                                                 device=cuda)
+        kernels.reset_launches()
+        got = auc_rank_pass(s_sorted, order, packed, n_masks)
+        counts, aucs = rocauc_from_sorted(s_sorted, order, packed, n_masks,
+                                          multilabel)
+        torch.cuda.synchronize()
+        assert kernels.launches[f"k4_auc_m{n_masks}"] == 2
+        want, want_aucs = rocauc_from_sorted_plain(s_sorted, order, packed,
+                                                   n_masks)
+        assert torch.equal(got.cpu(), want.cpu()), n_masks
+        assert torch.equal(counts.cpu(), want.cpu()), n_masks
+        _assert_aucs(aucs, want_aucs, multilabel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", K4_TILES)
+@pytest.mark.parametrize("kind", ("saturated", "multilabel"))
+def test_k4_every_tile_size_matches_plain(cuda, tile, kind):
+    """Each compiled tile size (the sweep's), on a ragged N."""
+    s_sorted, order, packed = _sorted_inputs(kind, 3 * tile + 5, seed=tile,
+                                             n_masks=3, device=cuda)
+    counts, aucs = k4_launch(s_sorted, order, packed, 3, tile)
+    want, want_aucs = rocauc_from_sorted_plain(s_sorted, order, packed, 3)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want.cpu())
+    assert torch.equal(counts.cpu(), want.cpu())
+    _assert_aucs(aucs, want_aucs, kind == "multilabel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("saturated", "multilabel"))
+def test_k4_repeats_and_replays_in_a_cuda_graph(cuda, kind):
+    """Two launches give the same bits; a CUDA graph of the call, replayed
+    twice, gives the eager call's bits each time (the tickets are back at
+    zero after every launch)."""
+    multilabel = kind == "multilabel"
+    s_sorted, order, packed = _sorted_inputs(kind, 50_000, seed=5,
+                                             n_masks=3, device=cuda)
+    first = rocauc_from_sorted(s_sorted, order, packed, 3, multilabel)
+    again = rocauc_from_sorted(s_sorted, order, packed, 3, multilabel)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int8) if a.is_floating_point() else a,
+                           b.view(torch.int8) if b.is_floating_point() else b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = rocauc_from_sorted(s_sorted, order, packed, 3, multilabel)
+    for _ in range(2):
+        for t in captured:
+            t.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, first):
+            assert torch.equal(
+                a.view(torch.int8) if a.is_floating_point() else a,
+                b.view(torch.int8) if b.is_floating_point() else b)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from acmgnn_tpu_torch.train.metrics import (
     masked_rocauc,
     masked_rocauc_multi,
     pack_labels_and_masks,
+    rocauc_from_sorted_plain,
     sort_scores,
 )
 
@@ -107,6 +108,38 @@ def test_rocauc_matches_jax(name):
     single = masked_rocauc(torch.from_numpy(logits), torch.from_numpy(labels),
                            torch.from_numpy(masks[0]))
     assert float(single) == float(ours[0]) or np.isnan(float(single))
+
+
+@pytest.mark.parametrize("name", ROC_CASES)
+@pytest.mark.parametrize("n_masks", (1, 2, 3))
+def test_rocauc_from_sorted_plain_matches_jax(name, n_masks):
+    """K4's plain version (counts, AUC in f64, the multilabel nanmean as a
+    column loop) against JAX's ``masked_rocauc_multi`` on 1 to 3 masks
+    (the stepwise path evaluates three: train, val, test), at the
+    tolerance of ``test_rocauc_matches_jax``."""
+    logits, labels, masks = _case(name)
+    rest = ~(masks[0] | masks[1])
+    masks = (masks[0], masks[1], rest)[:n_masks]
+    t_logits, t_labels = torch.from_numpy(logits), torch.from_numpy(labels)
+    if labels.ndim == 1:
+        scores = torch.softmax(t_logits, dim=-1)[:, 1][None]
+    else:
+        scores = t_logits.T.contiguous()
+    packed = pack_labels_and_masks(t_labels,
+                                   tuple(torch.from_numpy(m) for m in masks))
+    order, s_sorted = sort_scores(scores)
+    counts, aucs = rocauc_from_sorted_plain(s_sorted, order, packed,
+                                            n_masks)
+    assert counts.shape == (scores.shape[0], n_masks, 3)
+    assert aucs.dtype == torch.float32 and aucs.shape == (n_masks,)
+    ref = jax_rocauc_multi(jnp.asarray(logits), jnp.asarray(labels),
+                           tuple(jnp.asarray(m) for m in masks))
+    for i, (a, b) in enumerate(zip(aucs.tolist(), ref)):
+        if np.isnan(float(b)):
+            assert np.isnan(a), f"mask {i}"
+        else:
+            assert a == pytest.approx(float(b), rel=1e-6, abs=1e-6), \
+                f"mask {i}"
 
 
 def _reference_counts(scores: np.ndarray, labels: np.ndarray,
