@@ -10,7 +10,8 @@ source is newer.  ``build()`` compiles every source in parallel, one
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on a non-zero code.  Wrappers call
 ``count(name)`` once per launch, so a run can show which kernels its main
-path went through (``launches``, ``reset_launches``).
+path went through (``launches``, ``reset_launches``); ``CountedGraph``
+keeps that count true for launches a CUDA graph replays.
 """
 
 from __future__ import annotations
@@ -99,6 +100,27 @@ def count(name: str) -> None:
 
 def reset_launches() -> None:
     launches.clear()
+
+
+class CountedGraph:
+    """A captured graph whose kernel launches count once per replay.
+
+    A wrapper counts when it is called, which under stream capture is when
+    its launch is recorded, not run.  ``record()`` runs the capture into
+    ``graph``; the counts it added are taken out again and added once per
+    ``replay``, so ``launches`` counts the launches that ran."""
+
+    def __init__(self, graph, record):
+        before = launches.copy()
+        record()
+        self.per_replay = launches - before
+        launches.clear()
+        launches.update(before)
+        self.graph = graph
+
+    def replay(self) -> None:
+        self.graph.replay()
+        launches.update(self.per_replay)
 
 
 def nvcc_path() -> str:

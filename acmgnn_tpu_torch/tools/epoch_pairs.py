@@ -110,10 +110,11 @@ def worker(root: str, name: str, epochs: int) -> None:
                 make_split_runner(model, prof_cfg)(
                     ops, x, y, masks, seed=seed, labels_onehot=y1h)
                 torch.cuda.synchronize()
-            per_body = {}
-            for us, count, key in smoke.device_ops(prof):
-                n, ms = per_body.get(key, (0.0, 0.0))
-                per_body[key] = (n + count / bodies, ms + us / 1e3 / bodies)
+            events = list(prof.events())
+            start, replays = smoke.replay_window(events)
+            per = replays or bodies
+            per_body = {key: (count / per, us / 1e3 / per) for key, (us, count)
+                        in smoke.device_ops(events, start)[0].items()}
             print("ops " + json.dumps(per_body), flush=True)
             continue
         if line.strip() != "run":

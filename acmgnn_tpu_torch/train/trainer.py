@@ -17,15 +17,18 @@ storage; and the sharded path, ``prepare_sharded_data`` and
 a process group, the same runner with global losses and metrics and
 all-reduced gradients.
 
-The JAX package fuses the whole split into one ``lax.while_loop``; here
-it is a plain Python epoch loop whose selection state stays on the device
-(``torch.where``), so no epoch waits for the host, except that with early
-stopping on the host reads the stop flag once per epoch after the window
-is full.  The model's parameters are trained in place.
+The JAX package fuses the whole split into one ``lax.while_loop`` whose
+body carries a ``SplitState`` on the device.  Here the loop body keeps the
+same state on the device (``LoopState``) and updates it in place, so no
+body waits for the host; on the card the runner captures one body as a
+CUDA graph and replays it once an epoch (``make_split_runner``).  With
+early stopping on, the host reads the stop flag once after every body.
+The model's parameters are trained in place.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -44,6 +47,7 @@ from acmgnn_tpu_torch.data.splits import (
     random_disassortative_splits,
 )
 from acmgnn_tpu_torch.models.models import ACMGNN
+from acmgnn_tpu_torch.ops import kernels
 from acmgnn_tpu_torch.ops.graph import (
     GraphData,
     Operators,
@@ -78,8 +82,8 @@ JOINT_CAPABLE = ("acmgcn", "acmgcnp", "acmgcnpp")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def make_optimizer(cfg: TrainConfig, params, lr=None,
-                   weight_decay=None) -> torch.optim.Optimizer:
+def make_optimizer(cfg: TrainConfig, params, lr=None, weight_decay=None,
+                   capturable: Optional[bool] = None) -> torch.optim.Optimizer:
     """The optimizer of ``cfg`` (``lr`` / ``weight_decay`` override the
     config's values, as ``hparams`` does):
 
@@ -87,20 +91,76 @@ def make_optimizer(cfg: TrainConfig, params, lr=None,
       ``add_decayed_weights -> scale_by_adam -> scale(-lr)``: L2 folded
       into the gradient before the moments;
     - "adamw": torch AdamW, which is ``optax.adamw``'s decoupled decay
-      (``p -= lr·(adam step + wd·p)``)."""
+      (``p -= lr·(adam step + wd·p)``).
+
+    ``capturable`` (None: whether a parameter lies on the card) is torch's
+    form with the step count and bias corrections on the device, in f32
+    (optax's form as well), through its multi-tensor path, so that a CUDA
+    graph can capture the step; on the card every step runs it, eager or
+    replayed.  Without it torch forms the bias corrections on the host in
+    f64.  ``capturable=True`` on CPU parameters runs the card's form on
+    the CPU (``_CPU_CARD_FORM``): the CPU references of the card checks."""
+    params = list(params)
     lr = cfg.lr if lr is None else float(lr)
     wd = cfg.weight_decay if weight_decay is None else float(weight_decay)
-    if cfg.optimizer == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=wd)
-    if cfg.optimizer == "adamw":
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=wd)
-    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    on_card = any(p.is_cuda for p in params)
+    if capturable is None:
+        capturable = on_card
+    if cfg.optimizer not in ("adam", "adamw"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    cls = torch.optim.Adam if cfg.optimizer == "adam" else torch.optim.AdamW
+    if capturable and not on_card:
+        cls = _CPU_CARD_FORM[cls]
+    return cls(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd,
+               capturable=capturable, foreach=True if capturable else None)
+
+
+@contextlib.contextmanager
+def _capturable_admits_cpu():
+    """torch asserts in a capturable Adam step that every tensor lies on a
+    device its ``_get_capturable_supported_devices`` lists, which names
+    no CPU; the step's arithmetic itself runs on any device.  For the
+    length of the block the list also names the CPU, in each optimizer
+    module of torch that looks it up."""
+    import importlib
+
+    mods = [m for m in map(importlib.import_module,
+                           ("torch.optim.adam", "torch.optim.adamw"))
+            if hasattr(m, "_get_capturable_supported_devices")]
+    if not mods:
+        raise RuntimeError(
+            "torch.optim.adam has no _get_capturable_supported_devices: "
+            "this torch cannot run the card's optimizer form on the CPU")
+    checks = [m._get_capturable_supported_devices for m in mods]
+    for m, check in zip(mods, checks):
+        m._get_capturable_supported_devices = (
+            lambda *a, _check=check, **k: [*_check(*a, **k), "cpu"])
+    try:
+        yield
+    finally:
+        for m, check in zip(mods, checks):
+            m._get_capturable_supported_devices = check
+
+
+def _card_form_cpu(cls):
+    class CardForm(cls):
+        """``cls`` in the card's capturable form on CPU parameters."""
+
+        def step(self, closure=None):
+            with _capturable_admits_cpu():
+                return super().step(closure)
+
+    CardForm.__name__ = CardForm.__qualname__ = f"{cls.__name__}CardForm"
+    return CardForm
+
+
+_CPU_CARD_FORM = {cls: _card_form_cpu(cls)
+                for cls in (torch.optim.Adam, torch.optim.AdamW)}
 
 
 def train_forward(model: ACMGNN, x, ops, generator, *,
-                  paired_eval: bool = False, remat: bool = False):
+                  paired_eval: bool = False, remat: bool = False,
+                  recompute_generator=None):
     """The dropout train forward (with ``paired_eval``, also the eval
     logits of the same parameters).
 
@@ -108,29 +168,27 @@ def train_forward(model: ACMGNN, x, ops, generator, *,
     under non-reentrant activation checkpointing: the backward recomputes
     the forward instead of holding its activations.  The recompute must
     draw the same dropout masks, and checkpointing's own RNG stash covers
-    only the default generators, not the explicit ``generator``: its state
-    at entry is restored for the recompute, and its state after the
-    forward put back when the recompute ends."""
+    only the default generators, not the explicit ``generator``: the
+    recompute draws from ``recompute_generator``, a twin of ``generator``
+    (the same state when the loop started) that only recomputes draw
+    from, so each recompute starts where its forward started.  Neither
+    generator's state is read or set on the host, so a CUDA graph that
+    registers both replays the pair."""
 
-    def run(x_):
+    def run(x_, gen):
         return model(x_, ops, training=True, paired_eval=paired_eval,
-                     generator=generator)
+                     generator=gen)
 
     if not remat:
-        return run(x)
-    entry = None if generator is None else generator.get_state()
+        return run(x, generator)
+    if (generator is None) != (recompute_generator is None):
+        raise ValueError("remat with a dropout generator needs its twin "
+                         "(recompute_generator)")
     calls = [0]
 
     def region(x_):
         calls[0] += 1
-        if calls[0] == 1 or generator is None:
-            return run(x_)
-        after = generator.get_state()
-        generator.set_state(entry)
-        try:
-            return run(x_)
-        finally:
-            generator.set_state(after)
+        return run(x_, generator if calls[0] == 1 else recompute_generator)
 
     return checkpoint(region, x, use_reentrant=False,
                       preserve_rng_state=False)
@@ -168,11 +226,127 @@ class SplitState:
 
     epoch: int                     # bodies run (joint: epochs + 1 unstopped)
     train_losses: torch.Tensor     # every body's train loss
+    val_hist: torch.Tensor         # every epoch's val loss
     optimizer: torch.optim.Optimizer
+    capture_ms: Optional[float] = None   # host ms of the capture (eager: None)
+    setup_ms: Optional[float] = None     # host ms from the call to the first
+    #                                      replay (eager: None)
+
+
+@dataclasses.dataclass
+class LoopState:
+    """The split loop's state on the device: JAX's ``SplitState`` without
+    the parameters and the optimizer state, which the model and the
+    optimizer hold.  Every loop body updates it in place, so a CUDA graph
+    of a body replays on the same tensors; no body reads it on the host."""
+
+    k: torch.Tensor                # int64: bodies run
+    best_val_loss: torch.Tensor
+    best_val_metric: torch.Tensor
+    best_test_metric: torch.Tensor
+    val_hist: torch.Tensor         # [epochs + 1]: val loss by epoch
+    train_losses: torch.Tensor     # [epochs + 1]: train loss by body
+    stop: torch.Tensor             # bool: the early-stopping rule fired
+
+    @classmethod
+    def initial(cls, epochs: int, dev) -> "LoopState":
+        def scalar(v):
+            return torch.tensor(v, dtype=torch.float32, device=dev)
+
+        return cls(k=torch.zeros((), dtype=torch.int64, device=dev),
+                   best_val_loss=scalar(math.inf),
+                   best_val_metric=scalar(-math.inf),
+                   best_test_metric=scalar(0.0),
+                   val_hist=torch.zeros(epochs + 1, device=dev),
+                   train_losses=torch.zeros(epochs + 1, device=dev),
+                   stop=torch.zeros((), dtype=torch.bool, device=dev))
+
+    def select(self, evals, improved) -> None:
+        """Keep ``evals`` = (val_loss, val_metric, test_metric) where
+        ``improved``."""
+        for best, new in zip((self.best_val_loss, self.best_val_metric,
+                              self.best_test_metric), evals):
+            best.copy_(torch.where(improved, new, best))
+
+
+def write_at(hist: torch.Tensor, idx: torch.Tensor, value: torch.Tensor,
+             valid=None) -> None:
+    """``hist[idx] = value`` at a device index ``idx`` (with ``valid``,
+    only where it holds), without a host read."""
+    i = idx.reshape(1)
+    value = value.reshape(1).to(hist.dtype)
+    if valid is not None:
+        value = torch.where(valid, value, hist.index_select(0, i))
+    hist.index_copy_(0, i, value)
+
+
+def stop_window(hist: torch.Tensor, e: torch.Tensor, es: int) -> torch.Tensor:
+    """``hist[e - es : e]`` at a device index ``e``, as JAX's
+    ``lax.dynamic_slice(hist, (e - es,), (es,))`` reads it: a negative
+    start counts from the end, then the start is clamped into ``[0, len -
+    es]``; the ``es`` entries are gathered in order, so their mean sums in
+    the slice's order.  (The stop rule reads it only at ``e > es``.)"""
+    n = hist.shape[0]
+    start = e - es
+    start = torch.where(start < 0, start + n, start).clamp(0, n - es)
+    return hist.index_select(0, start + torch.arange(es, device=hist.device))
+
+
+def _capture(body, generators) -> kernels.CountedGraph:
+    """``body`` captured once as a CUDA graph on the current stream, the
+    dropout ``generators`` registered with it, so that each replay
+    advances their Philox offsets as an eager body does.  Unlike
+    ``torch.cuda.graph``, no device-wide synchronize and no
+    ``empty_cache`` come first: in a process holding a large cache they
+    made a capture take 28-214 ms on an H100 (``chip_smoke.py`` 8b)."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+
+    def record():
+        graph.capture_begin()
+        try:
+            body()
+        finally:
+            graph.capture_end()
+
+    return kernels.CountedGraph(graph, record)
+
+
+def _run_loop(body, limit: int, stop, generators, capture_on, t0: float):
+    """``body`` up to ``limit`` times; after each, the host reads ``stop``
+    (None: never) and ends the loop if it is set.  ``capture_on``: a CUDA
+    device, or None to run every body eagerly.  On the card the loop runs
+    on a side stream, which is also the capture's: the first body eagerly
+    (it makes, on that stream, what a capture needs to exist already),
+    the second captured, the rest replays.  Returns (bodies run, capture
+    ms, setup ms since ``t0``: the host's time to the first replay)."""
+    bodies, capture_ms, setup_ms = 0, None, None
+    step = body
+    side = None
+    if capture_on is not None:
+        side = torch.cuda.Stream(device=capture_on)
+        side.wait_stream(torch.cuda.current_stream(capture_on))
+    with (torch.cuda.stream(side) if side is not None
+          else contextlib.nullcontext()):
+        while bodies < limit:
+            if side is not None and bodies == 1:
+                t1 = time.perf_counter()
+                step = _capture(body, generators).replay
+                capture_ms = 1e3 * (time.perf_counter() - t1)
+                setup_ms = 1e3 * (time.perf_counter() - t0)
+            step()
+            bodies += 1
+            if stop is not None and bool(stop):   # the host reads the flag
+                break
+    if side is not None:
+        torch.cuda.current_stream(capture_on).wait_stream(side)
+    return bodies, capture_ms, setup_ms
 
 
 def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
-                      group=None):
+                      group=None, graph: bool = True,
+                      capturable: Optional[bool] = None):
     """``run(ops, x, labels, masks, seed=0, return_state=False,
     labels_onehot=None, hparams=None)`` — one split's training from the
     model's current parameters (the joint loop for joint-capable models
@@ -181,6 +355,30 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     ``(lr, weight_decay)`` pair, builds the optimizer from those values
     in place of the config's.  With ``cfg.remat`` the train forward runs
     under activation checkpointing (``train_forward``).
+
+    The loop body is JAX's (``acmgnn_tpu/train/trainer.py:234-305``,
+    ``:338-426``): it keeps the split's state on the device
+    (``LoopState``) and calls nothing that waits for the card.  With
+    ``graph`` (the default), on a CUDA device the first body runs
+    eagerly, the second is captured once as a ``torch.cuda.CUDAGraph``
+    and every later body replays it; ``graph=False`` runs every body
+    eagerly (the same body: the card tests and ``chip_smoke.py`` hold the
+    two forms equal bit for bit).  ``capturable`` is
+    ``make_optimizer``'s: True on the CPU runs the card's optimizer
+    arithmetic there.
+
+    Eager by rule: the CPU; the sharded path (``group``: gloo cannot be
+    captured, NCCL capture is ROADMAP A8); ``run_experiment_stepwise``
+    (the host observes every epoch).  A capture or replay that fails
+    raises; nothing falls back to eager.
+    The first body makes what a capture needs first: K2/K3's occupancy
+    answers, K4's workspace, Adam's moments and cuBLAS's workspace on the
+    capture stream.  The dropout generator (with ``cfg.remat``, also its
+    twin for the recompute) is registered with the graph.  With
+    ``cfg.early_stopping`` the host reads the stop flag once after every
+    body (its one wait for the card in a body); without it, not until
+    the run ends.  ``kernels.launches`` counts the launches that ran
+    (``kernels.CountedGraph``).
 
     ``group``: the process group of a sharded run, whose ranks each pass
     their slabs of the node arrays and their share of a sharded operator
@@ -258,10 +456,13 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
                 p.grad = g.view_as(p)
         opt.step()
 
-    def generator(dev, seed):
+    def generators(dev, seed):
+        """The dropout generator and, with remat, its twin for the
+        recompute (None)."""
         if group is not None:
             seed = seed * dist.get_world_size(group) + dist.get_rank(group)
-        return torch.Generator(device=dev).manual_seed(seed)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return gen, (gen.clone_state() if cfg.remat else None)
 
     def packed_words(labels, masks, labels_onehot):
         """The rank pass's packed label/mask words (val and test masks),
@@ -272,76 +473,79 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         return (pack_labels_and_masks(labels, masks[1:]) if use_rocauc
                 else None)
 
-    def select(best, evals):
-        """Best (val_loss, val_metric, test_metric) after one evaluation;
-        a NaN metric never improves, as under JAX's ``>``."""
-        val_loss, val_metric, _ = evals
-        improved = (val_metric > best[1] if sel_metric
-                    else val_loss < best[0])
-        return tuple(torch.where(improved, new, old)
-                     for new, old in zip(evals, best))
-
-    def stop_flag(val_hist, e: int, val_loss):
-        """The early-stopping rule for epoch ``e``: val_loss above the
-        mean of the ``es`` epochs before it (None while it cannot fire)."""
-        if es == 0 or e <= es:
-            return None
-        return val_loss > val_hist[e - es:e].mean()
-
-    def initial_best(dev):
-        return (torch.tensor(math.inf, device=dev),
-                torch.tensor(-math.inf, device=dev),
-                torch.tensor(0.0, device=dev))
-
-    def finish(best, loss, epochs_run, bodies, losses, opt, return_state):
-        result = SplitResult(
-            test_metric=best[2], val_metric=best[1], val_loss=best[0],
-            train_loss=loss, epochs_run=epochs_run)
-        if return_state:
-            return result, SplitState(
-                epoch=bodies, optimizer=opt,
-                train_losses=(torch.stack(losses) if losses
-                              else torch.zeros(0)))
-        return result
+    def improved(state, evals):
+        """Whether ``evals`` beat the best so far; a NaN metric never
+        improves, as under JAX's ``>``."""
+        return (evals[1] > state.best_val_metric if sel_metric
+                else evals[0] < state.best_val_loss)
 
     def optimizer(hparams):
         if hparams is None:
-            return make_optimizer(cfg, params)
+            return make_optimizer(cfg, params, capturable=capturable)
         return make_optimizer(cfg, params, lr=hparams[0],
-                              weight_decay=hparams[1])
+                              weight_decay=hparams[1], capturable=capturable)
+
+    def drive(body_of, limit, ops, x, labels, masks, seed, return_state,
+              labels_onehot, hparams):
+        """Set-up, the loop of ``limit`` bodies, and the results;
+        ``body_of(state, gens, opt, packed, counts)`` makes the body."""
+        t0 = time.perf_counter()
+        dev = x.device
+        gens = generators(dev, seed)
+        opt = optimizer(hparams)
+        packed = packed_words(labels, masks, labels_onehot)
+        counts = global_counts(masks)
+        state = LoopState.initial(epochs, dev)
+        body = body_of(state, gens, opt, packed, counts)
+        bodies, capture_ms, setup_ms = _run_loop(
+            body, limit, state.stop if es else None,
+            [g for g in gens if g is not None],
+            dev if graph and dev.type == "cuda" and group is None else None,
+            t0)
+        opt.zero_grad(set_to_none=True)   # frees the graph's gradients
+        epochs_run = max(bodies - 1, 0) if joint else bodies
+        result = SplitResult(
+            test_metric=state.best_test_metric,
+            val_metric=state.best_val_metric,
+            val_loss=state.best_val_loss,
+            train_loss=state.train_losses[max(bodies - 1, 0)],
+            epochs_run=epochs_run)
+        if return_state:
+            return result, SplitState(
+                epoch=bodies, train_losses=state.train_losses[:bodies],
+                val_hist=state.val_hist[:epochs_run], optimizer=opt,
+                capture_ms=capture_ms, setup_ms=setup_ms)
+        return result
 
     def run(ops, x, labels, masks, seed: int = 0,
             return_state: bool = False, labels_onehot=None, hparams=None):
         """Sequential loop: each epoch trains, then evaluates the updated
         parameters in a separate forward; stops after ``epochs`` or when
         the early-stopping rule fires (that epoch counts)."""
-        dev = x.device
-        gen = generator(dev, seed)
-        opt = optimizer(hparams)
-        packed = packed_words(labels, masks, labels_onehot)
-        counts = global_counts(masks)
-        best = initial_best(dev)
-        val_hist = torch.zeros(max(epochs, 1), device=dev)
-        loss = torch.tensor(0.0, device=dev)
-        losses = []
-        epoch = 0
-        while epoch < epochs:
-            logits = train_forward(model, x, ops, gen, remat=cfg.remat)
-            loss = loss_of(logits, labels, labels_onehot, masks[0],
-                           None if counts is None else counts[0])
-            step(opt, loss)
-            with torch.no_grad():
-                evals, loss = metrics_from_logits(
-                    model(x, ops, training=False), labels, labels_onehot,
-                    masks, packed, counts, loss)
-                losses.append(loss)
-                best = select(best, evals)
-                val_hist[epoch] = evals[0]
-                stop = stop_flag(val_hist, epoch, evals[0])
-            epoch += 1
-            if stop is not None and bool(stop):   # host reads the flag
-                break
-        return finish(best, loss, epoch, epoch, losses, opt, return_state)
+
+        def body_of(s, gens, opt, packed, counts):
+            def body():
+                logits = train_forward(model, x, ops, gens[0],
+                                       remat=cfg.remat,
+                                       recompute_generator=gens[1])
+                loss = loss_of(logits, labels, labels_onehot, masks[0],
+                               None if counts is None else counts[0])
+                step(opt, loss)
+                with torch.no_grad():
+                    evals, loss = metrics_from_logits(
+                        model(x, ops, training=False), labels,
+                        labels_onehot, masks, packed, counts, loss)
+                    s.select(evals, improved(s, evals))
+                    write_at(s.val_hist, s.k, evals[0])
+                    if es:
+                        s.stop.copy_((s.k > es) & (evals[0] > stop_window(
+                            s.val_hist, s.k, es).mean()))
+                    write_at(s.train_losses, s.k, loss)
+                    s.k.add_(1)
+            return body
+
+        return drive(body_of, epochs, ops, x, labels, masks, seed,
+                     return_state, labels_onehot, hparams)
 
     def run_joint(ops, x, labels, masks, seed: int = 0,
                   return_state: bool = False, labels_onehot=None,
@@ -351,38 +555,35 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         iterations, the first one's evaluation is skipped.  An iteration
         whose evaluation fires the early-stopping rule still applies its
         update, then the loop ends."""
-        dev = x.device
-        gen = generator(dev, seed)
-        opt = optimizer(hparams)
-        packed = packed_words(labels, masks, labels_onehot)
-        counts = global_counts(masks)
-        best = initial_best(dev)
-        val_hist = torch.zeros(epochs + 1, device=dev)
-        loss = torch.tensor(0.0, device=dev)
-        losses = []
-        k = 0
-        while k < epochs + 1:
-            logits_train, logits_eval = train_forward(
-                model, x, ops, gen, paired_eval=True, remat=cfg.remat)
-            loss_share = loss_of(logits_train, labels, labels_onehot,
-                                 masks[0],
-                                 None if counts is None else counts[0])
-            stop = None
-            with torch.no_grad():
-                evals, loss = metrics_from_logits(
-                    logits_eval, labels, labels_onehot, masks, packed,
-                    counts, loss_share)
-                if k > 0:   # selection and history for epoch k - 1
-                    best = select(best, evals)
-                    val_hist[k - 1] = evals[0]
-                    stop = stop_flag(val_hist, k - 1, evals[0])
-            step(opt, loss_share)
-            losses.append(loss)
-            k += 1
-            if stop is not None and bool(stop):   # host reads the flag
-                break
-        return finish(best, loss, max(k - 1, 0), k, losses, opt,
-                      return_state)
+
+        def body_of(s, gens, opt, packed, counts):
+            def body():
+                logits_train, logits_eval = train_forward(
+                    model, x, ops, gens[0], paired_eval=True,
+                    remat=cfg.remat, recompute_generator=gens[1])
+                loss_share = loss_of(logits_train, labels, labels_onehot,
+                                     masks[0],
+                                     None if counts is None else counts[0])
+                with torch.no_grad():
+                    evals, loss = metrics_from_logits(
+                        logits_eval, labels, labels_onehot, masks, packed,
+                        counts, loss_share)
+                    # selection and history for epoch e = k - 1 (k > 0)
+                    valid = s.k > 0
+                    e = (s.k - 1).clamp_min(0)
+                    s.select(evals, valid & improved(s, evals))
+                    write_at(s.val_hist, e, evals[0], valid)
+                    if es:
+                        s.stop.copy_(valid & (s.k - 1 > es) & (
+                            evals[0] > stop_window(s.val_hist, e, es).mean()))
+                step(opt, loss_share)
+                with torch.no_grad():
+                    write_at(s.train_losses, s.k, loss)
+                    s.k.add_(1)
+            return body
+
+        return drive(body_of, epochs + 1, ops, x, labels, masks, seed,
+                     return_state, labels_onehot, hparams)
 
     return run_joint if joint else run
 
@@ -749,7 +950,10 @@ def make_epoch_fns(model: ACMGNN, cfg: TrainConfig):
 
     def train_epoch(opt, generator, ops, x, labels, labels_onehot,
                     train_mask):
-        logits = train_forward(model, x, ops, generator, remat=cfg.remat)
+        logits = train_forward(
+            model, x, ops, generator, remat=cfg.remat,
+            recompute_generator=(generator.clone_state() if cfg.remat
+                                 and generator is not None else None))
         loss = loss_of(logits, labels, labels_onehot, train_mask)
         opt.zero_grad(set_to_none=True)
         loss.backward()

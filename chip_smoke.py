@@ -30,10 +30,14 @@ Phases (any failure exits non-zero and prints no result):
    (both layouts timed).
 3. The main path: ``prepare_data``, ``build_model`` and ``run_joint`` of
    the headline ACM-GCN+ configuration at full width (hidden 64, bf16
-   gathers), warm-up then timed epochs; steady ms/epoch, finite losses,
-   and every kernel's launch count against the count the path implies;
-   then a short torch.profiler window: device time by kernel group and
-   the device's busy share.
+   gathers), in the runner's default form on the card (the first body
+   eagerly, every later one a replay of one captured CUDA graph),
+   warm-up then timed epochs; ms/epoch over the run and over the
+   replays, the capture's ms, finite losses, and every kernel's launch
+   count (launches that ran: a replay counts its graph's) against the
+   count the path implies; then a torch.profiler window over the
+   replays: device time by kernel group, device operations, the
+   device's busy share and the host's waits for it per epoch.
 4. Card against CPU on a small graph (dropout 0, f32 gathers, 20 epochs):
    final parameters and split results agree.
 5. The genius-shaped ROC-AUC path (bench.py's genius scenario: Chung-Lu
@@ -49,11 +53,13 @@ Phases (any failure exits non-zero and prints no result):
       on B=3 multilabel columns, across two launches and under CUDA-graph
       replay, timed at each compiled tile size;
    b. the joint loop on the ELL operator, then on the COO operator, then
-      the sequential loop (without and with early stopping): steady
-      ms/epoch, finite losses, best val/test ROC-AUC, launch counts
-      against the counts each path implies, and a profiler window for the
-      joint paths; then the cost of the per-epoch stop-flag read, timed
-      over alternating pairs of full-length sequential runs;
+      the sequential loop (without and with early stopping), captured as
+      in phase 3: ms/epoch, the capture's ms, finite losses, best
+      val/test ROC-AUC, launch counts against the counts each path
+      implies, and a profiler window; then (d) the cost of the per-epoch
+      stop-flag read in the captured form, timed over alternating pairs
+      of full-length sequential runs, and each arm's host waits per
+      epoch (none without early stopping, one with it);
    c. card against CPU on a small genius stand-in (joint ELL and joint
       COO over 40 epochs, sequential with an early stop that fires).
 6. The sharded path (the graph row-partitioned over ranks; K6 packs each
@@ -72,9 +78,11 @@ Phases (any failure exits non-zero and prints no result):
       shapes);
    b. world size 1 over NCCL: ``run_experiment_sharded`` against the
       single-chip port (f32, dropout 0, 10 epochs, parameters within
-      1e-4), then the headline configuration timed with launch counts and
-      a profiler window (K1's and K6's ms/epoch beside the rows and bytes
-      exchanged), beside phase 3;
+      1e-4), then the headline configuration (eager: the sharded path
+      is not captured) timed with launch counts and a profiler window
+      (K1's and K6's ms/epoch beside the rows and bytes exchanged),
+      beside phase 3, and in alternating pairs with the single-chip
+      runner's eager form;
    c. world size 4 on the one card (four processes, gloo on CUDA tensors
       staged through the host, a ``FileStore``) on a 20k-node
       twitch-shaped graph (labels a function of the features, lr 1e-3,
@@ -100,10 +108,22 @@ Phases (any failure exits non-zero and prints no result):
       splits, joint loop) and ``run_experiment_stepwise`` (1 split,
       sequential epochs), with launch counts;
    c. each knob in a short ``run_experiment`` at full size, with launch
-      counts: remat (peak memory beside the plain run; the recomputed
-      forward's launches counted), bf16 features with bf16 GEMMs, AdamW,
-      the RCM reorder (and the host seconds of the order); then each knob
-      card against CPU on phase 4's small graph.
+      counts: remat (captured; peak memory beside the plain run; the
+      recomputed forward's launches counted), bf16 features with bf16
+      GEMMs, AdamW, the RCM reorder (and the host seconds of the order);
+      then each knob card against CPU on phase 4's small graph.
+8. The captured split loop against the eager one (``make_split_runner(...,
+   graph=False)``):
+   a. 20 epochs of each form from the same parameters and seed on the
+      headline (with and without remat) and on genius joint ELL, joint
+      COO, sequential, and sequential with early stopping: parameters,
+      train-loss and val-loss histories, best metrics and epochs_run bit
+      for bit; launch counts equal, and as each path implies; no
+      occupancy query in the captured run; the capture's ms and both
+      forms' peak memory;
+   b. on the headline and genius joint ELL, alternating pairs of the two
+      forms: ms/epoch over the run and over the replays, medians and
+      quartiles, the pairs won; one profile of each form.
 
 The line before the last is the kernel table as JSON (every row with
 ``ms`` and ``device_ms``, ``library_ms`` and ``library_device_ms``); the
@@ -114,6 +134,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -123,7 +144,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32, outside the tensor cores
-WARM_EPOCHS, TIMED_EPOCHS, PROFILE_EPOCHS = 2, 10, 4
+WARM_EPOCHS, TIMED_EPOCHS, PROFILE_EPOCHS = 2, 10, 8
 GENIUS_TIMED_EPOCHS, GENIUS_SEQ_EPOCHS, GENIUS_ES = 20, 40, 5
 
 
@@ -226,10 +247,7 @@ def device_ms(fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(max(getattr(e, "self_device_time_total", 0) or 0, 0)
-             for e in prof.key_averages()
-             if "cuda" in str(e.device_type).lower()
-             and not getattr(e, "is_user_annotation", False))
+    us = sum(us for us, _ in device_ops(list(prof.events()))[0].values())
     if us <= 0:
         print("  device_ms: the profiler recorded no device time (not "
               "measured)")
@@ -970,10 +988,15 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
     """One path through the user's entry points: ``prepare_data`` (with
     ``group``, a process group: ``prepare_sharded_data`` and this rank's
     slabs), ``build_model``, a warm-up run (``cfg.epochs``), then a timed
-    run of ``timed_epochs``; steady ms per loop body, finite losses, the
-    best split result, every launch count against ``expected(bodies)``,
-    and a profiler window.  Returns (counts, ms per body, timed result,
-    the profile's ms per body by kernel group)."""
+    run of ``timed_epochs``, in the form ``make_split_runner`` takes by
+    default (single card: the first body eagerly, then replays of one
+    captured CUDA graph; sharded: eager); ms per loop body over the whole
+    run and, when captured, over the replays (the run less its set-up:
+    the eager first body and the capture), the capture's ms, finite
+    losses, the best split result, every launch count against
+    ``expected(bodies)``, and a profiler window.  Returns (counts, ms per
+    body over the whole timed run, timed result, the profile's ms per
+    body by kernel group, ms per body over the replays or None)."""
     import torch
 
     from acmgnn_tpu_torch.ops import kernels
@@ -1012,11 +1035,17 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
     dt = time.perf_counter() - t0
     counts = dict(kernels.launches)
     bodies = warm_state.epoch + state.epoch
-    ms_epoch = 1e3 * dt / state.epoch
+    ms_run = 1e3 * dt / state.epoch
+    if state.capture_ms is None:
+        ms_epoch, form = None, "eager"
+    else:
+        ms_epoch = (1e3 * dt - state.setup_ms) / (state.epoch - 1)
+        form = (f"captured: capture {state.capture_ms:.1f} ms, set-up "
+                f"{state.setup_ms:.1f} ms, replays {ms_epoch:.3f} ms/epoch")
     losses = torch.cat([warm_state.train_losses, state.train_losses]).cpu()
     loop = "joint iterations" if cfg.joint else "sequential epochs"
-    print(f"{tag} prepare {t_prep:.1f} s; {bodies} {loop}; steady "
-          f"{ms_epoch:.3f} ms/epoch over {state.epoch}; epochs_run "
+    print(f"{tag} prepare {t_prep:.1f} s; {bodies} {loop}; timed run "
+          f"{ms_run:.3f} ms/epoch over {state.epoch} ({form}); epochs_run "
           f"{res.epochs_run} of {timed_epochs} (early_stopping "
           f"{cfg.early_stopping}); peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
@@ -1032,22 +1061,24 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
         fail(f"{tag} launch counts {counts} != expected {want}")
     groups = {}
     if profile:
-        prof_cfg = dataclasses.replace(cfg, epochs=PROFILE_EPOCHS)
-        groups = phase_profile(tag, lambda: make_split_runner(
-            model, prof_cfg, group=group)(ops, x, y, masks, seed=3,
-                                          labels_onehot=y1h),
-            PROFILE_EPOCHS + (1 if cfg.joint else 0))
-    return counts, ms_epoch, res, groups
+        def run_of(epochs):
+            return make_split_runner(
+                model, dataclasses.replace(cfg, epochs=epochs), group=group)(
+                ops, x, y, masks, seed=3, labels_onehot=y1h,
+                return_state=True)[1].epoch
+
+        groups = phase_profile(tag, run_of)
+    return counts, ms_run, res, groups, ms_epoch
 
 
 def phase_main_path(adj, feats, labels):
     from acmgnn_tpu_torch.ops.graph import GraphData
 
     data = GraphData("twitch-gamers-scale-uniform", adj, feats, labels)
-    counts, ms_epoch, _, _ = drive_path(
+    counts, ms_run, _, _, ms_replay = drive_path(
         "[3]", data, headline_config(), _masks(adj.shape[0]), TIMED_EPOCHS,
         lambda it: joint_counts(it, "k1_spmm", 7))
-    return counts, ms_epoch
+    return counts, (ms_run, ms_replay)
 
 
 def phase_genius_paths(adj, feats, labels, masks_np):
@@ -1078,11 +1109,13 @@ def phase_genius_paths(adj, feats, labels, masks_np):
 
 def phase_stop_flag_cost(data, masks_np, pairs: int = 10):
     """What the sequential loop pays for reading the early-stopping flag
-    on the host once per epoch: runs of ``GENIUS_SEQ_EPOCHS`` epochs
-    without early stopping and with it (window ``GENIUS_ES``), in
-    alternating pairs.  Both arms get an empty val mask, so the val loss
-    is 0 every epoch: the rule is read after each epoch past the window
-    and never fires, and both arms do the same device work."""
+    on the host once per epoch, in the captured form: runs of
+    ``GENIUS_SEQ_EPOCHS`` epochs without early stopping and with it
+    (window ``GENIUS_ES``), in alternating pairs, then one profile of
+    each arm (the host's waits for the device per epoch: none without
+    the rule, one with it).  Both arms get an empty val mask, so the val
+    loss is 0 every epoch: the rule is read after every epoch and never
+    fires, and both arms do the same device work."""
     import torch
 
     from acmgnn_tpu_torch.train.trainer import (
@@ -1116,12 +1149,22 @@ def phase_stop_flag_cost(data, masks_np, pairs: int = 10):
     # the host's contention only ever adds time, so each arm's fastest run
     # is its least disturbed one
     low = min(ms[GENIUS_ES]) - min(ms[0])
-    print(f"[5d] stop-flag read, sequential loop, {GENIUS_SEQ_EPOCHS} epochs "
-          f"per run, {pairs} alternating pairs: ms/epoch without "
-          f"{[round(v, 3) for v in ms[0]]}, with early_stopping={GENIUS_ES} "
-          f"{[round(v, 3) for v in ms[GENIUS_ES]]}; paired differences "
-          f"{[round(v, 3) for v in diffs]}, median {median:.3f}; fastest "
-          f"with minus fastest without {low:.3f} ms/epoch")
+    print(f"[5d] stop-flag read, sequential loop (captured), "
+          f"{GENIUS_SEQ_EPOCHS} epochs per run, {pairs} alternating pairs: "
+          f"ms/epoch without {[round(v, 3) for v in ms[0]]}, with "
+          f"early_stopping={GENIUS_ES} {[round(v, 3) for v in ms[GENIUS_ES]]}"
+          f"; paired differences {[round(v, 3) for v in diffs]}, median "
+          f"{median:.3f}; fastest with minus fastest without {low:.3f} "
+          f"ms/epoch")
+    for es in (0, GENIUS_ES):
+        def run_of(epochs, es=es):
+            return make_split_runner(model, dataclasses.replace(
+                cfg, epochs=epochs, early_stopping=es))(
+                ops, x, y, masks, labels_onehot=y1h,
+                return_state=True)[1].epoch
+
+        phase_profile(f"[5d early_stopping={es}]", run_of,
+                      epochs=PROFILE_EPOCHS + GENIUS_ES)
     return median
 
 
@@ -1158,28 +1201,53 @@ def _kernel_group(name: str) -> str:
 ANNOTATION = re.compile(r"[\w.]+#[\w.]+")
 
 
-def device_ops(prof):
-    """``[(device µs, count, name)]`` of the operations that ran on the
-    card in a torch.profiler window (each one counted once)."""
-    out = []
-    for e in prof.key_averages():
-        if "cuda" not in str(e.device_type).lower():
-            continue
-        # ranges such as Optimizer.step#Adam.step span kernels counted
-        # on their own already (a kernel's name may hold "#" too:
-        # ATen's lambda kernels, "...{lambda(float)#1}...")
-        if getattr(e, "is_user_annotation", False) \
-                or ANNOTATION.fullmatch(e.key):
-            continue
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0:
-            out.append((us, e.count, e.key))
-    return out
+def replay_window(events):
+    """Where the steady bodies of a profiled split run begin on the host's
+    clock, and how many there are, from a torch.profiler window's
+    ``events``: captured, at the end of the capture
+    (``cudaGraphInstantiate``), one body per ``cudaGraphLaunch`` after it;
+    eager, ``(-inf, None)``: the whole run."""
+    ends = [e.time_range.end for e in events
+            if e.name.startswith("cudaGraphInstantiate")]
+    if not ends:
+        return -math.inf, None
+    start = max(ends)
+    return start, sum(1 for e in events if e.name == "cudaGraphLaunch"
+                      and e.time_range.start >= start)
 
 
-def phase_profile(tag, run, bodies):
-    """Device time by kernel group over a few steady loop bodies, and the
-    device's busy share of that window (torch.profiler); returns the
+def device_ops(events, start=-math.inf):
+    """``({name: (device µs, count)}, end)``: the operations that ran on
+    the card from host-clock time ``start`` on in a torch.profiler
+    window's ``events`` (each counted once), and the last one's end."""
+    tally: dict = {}
+    end = start
+    for e in events:
+        if ("cuda" not in str(e.device_type).lower() or _is_annotation(e)
+                or e.time_range.end <= 0 or e.time_range.start < start):
+            continue
+        us, cnt = tally.get(e.name, (0.0, 0))
+        tally[e.name] = (us + e.time_range.end - e.time_range.start, cnt + 1)
+        end = max(end, e.time_range.end)
+    return tally, end
+
+
+def _is_annotation(e) -> bool:
+    # ranges such as Optimizer.step#Adam.step span kernels counted on
+    # their own already (a kernel's name may hold "#" too: ATen's lambda
+    # kernels, "...{lambda(float)#1}...")
+    return bool(getattr(e, "is_user_annotation", False)
+                or ANNOTATION.fullmatch(e.key))
+
+
+def phase_profile(tag, run_of, epochs=PROFILE_EPOCHS):
+    """Device time by kernel group, device operations, the device's busy
+    share and the host's waits for the device, per steady loop body:
+    ``run_of(epochs)`` runs one split (and returns its bodies) under
+    torch.profiler.  Captured, the window runs from the end of the
+    capture (``cudaGraphInstantiate``) to the last device operation's
+    end, and holds the replays (one ``cudaGraphLaunch`` each) with what
+    the host does between them; eager, it is the whole run.  Returns the
     groups' ms per loop body ({} where nothing was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1188,52 +1256,75 @@ def phase_profile(tag, run, bodies):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        bodies = run_of(epochs)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = list(prof.events())
+    start, replays = replay_window(events)
+    dev, end = device_ops(events, start)
+    form = "eager: the whole run"
+    if replays is not None:
+        bodies, wall_us = replays, (end - start if dev else 0.0)
+        form = "captured: the replays, from the end of the capture"
+    host = [e for e in events if "cuda" not in str(e.device_type).lower()
+            and e.time_range.start >= start]
+    n_ops = sum(cnt for _, cnt in dev.values())
     groups: dict = {}
-    launches = 0
-    top = device_ops(prof)
-    for us, count, key in top:
+    for key, (us, _) in dev.items():
         g = _kernel_group(key)
         groups[g] = groups.get(g, 0.0) + us
-        launches += count
     busy = sum(groups.values())
-    if busy == 0:
-        print(f"{tag} profile: no device time recorded (not measured)")
+    if bodies <= 0 or busy <= 0 or wall_us <= 0:
+        print(f"{tag} profile: no device time recorded in the steady "
+              f"bodies (not measured)")
         return {}
-    print(f"{tag} profile over {bodies} loop bodies (profiler on): wall "
-          f"{1e3 * wall / bodies:.3f} ms/epoch, device busy "
+    print(f"{tag} profile of {bodies} loop bodies ({form}; profiler on): "
+          f"wall {wall_us / 1e3 / bodies:.3f} ms/epoch, device busy "
           f"{busy / 1e3 / bodies:.3f} ms/epoch, busy share "
-          f"{busy / 1e6 / wall:.3f}, {launches / bodies:.0f} device "
+          f"{busy / wall_us:.3f}, {n_ops / bodies:.1f} device "
           f"operations/epoch")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {us / 1e3 / bodies:.4f} ms/epoch "
               f"({us / busy:.3f} of device time)")
-    for us, cnt, key in sorted(top, reverse=True)[:10]:
+    for key, (us, cnt) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"    {us / 1e3 / bodies:.4f} ms/epoch x{cnt / bodies:.1f} "
               f"{key[:90]}")
     # the host side: where its time goes, and every call that makes it
     # wait for the device (a wait stops the host from running ahead)
-    host = sorted(((e.self_cpu_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if "cuda" not in str(e.device_type).lower()
-                   and e.self_cpu_time_total > 0), reverse=True)
+    by_name: dict = {}
+    for e in host:
+        us, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.self_cpu_time_total, cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     print(f"{tag} host self time by operation (profiler on), top 8: "
           + "; ".join(f"{key[:40]} {us / 1e3 / bodies:.3f} ms "
-                      f"x{cnt / bodies:.1f}" for us, cnt, key in host[:8]))
-    waits = [(us, cnt, key) for us, cnt, key in host if "ynchronize" in key]
-    print(f"{tag} host waits for the device per epoch: " + ("; ".join(
-        f"{key} x{cnt / bodies:.1f} {us / 1e3 / bodies:.3f} ms"
-        for us, cnt, key in waits) or "none"))
+                      f"x{cnt / bodies:.1f}" for key, (us, cnt) in top))
+    # captured: the waits between the first replay's launch and the
+    # last one's, per interval (the run's closing waits fall after it)
+    launches = sorted(e.time_range.start for e in events
+                      if e.name == "cudaGraphLaunch"
+                      and e.time_range.start >= start)
+    inside, per = host, bodies
+    if len(launches) > 1:
+        inside = [e for e in host
+                  if launches[0] <= e.time_range.start < launches[-1]]
+        per = len(launches) - 1
+    waits: dict = {}
+    for e in inside:
+        if "ynchronize" in e.name:
+            us, cnt = waits.get(e.name, (0.0, 0))
+            waits[e.name] = (us + e.self_cpu_time_total, cnt + 1)
+    print(f"{tag} host waits for the device per epoch"
+          f"{' (between replays)' if len(launches) > 1 else ''}: "
+          + ("; ".join(f"{key} x{cnt / per:.2f} {us / 1e3 / per:.3f} ms"
+                       for key, (us, cnt) in waits.items()) or "none"))
     return {g: us / 1e3 / bodies for g, us in groups.items()}
 
 
-def card_vs_cpu(tag, data, cfg, masks_np, tol=1e-4, seed=3):
-    """One configuration trained on the card (kernels) and on the CPU
-    (plain versions) from the same initial parameters (``seed``): final
-    parameters within ``tol``, split results within ``tol`` relative,
-    equal epochs_run."""
+def trained(data, cfg, masks_np, device, seed=3):
+    """One split of ``cfg`` on ``device`` from ``build_model(seed)`` in the
+    card's optimizer arithmetic (``capturable``, see ``make_optimizer``):
+    the result and the final parameters on the host."""
     import torch
 
     from acmgnn_tpu_torch.train.trainer import (
@@ -1242,18 +1333,27 @@ def card_vs_cpu(tag, data, cfg, masks_np, tol=1e-4, seed=3):
         prepare_data,
     )
 
-    out = {}
-    for device in ("cuda", "cpu"):
-        _, ops, x, y, y1h, nclass = prepare_data(data, cfg, device=device)
-        model = build_model(cfg, x.shape[1], nclass, device=device,
-                            seed=seed)
-        masks = tuple(torch.from_numpy(m).to(device) for m in masks_np)
-        res = make_split_runner(model, cfg)(ops, x, y, masks,
-                                            labels_onehot=y1h)
-        out[device] = (res, {k: p.detach().cpu()
-                             for k, p in model.named_parameters()})
+    _, ops, x, y, y1h, nclass = prepare_data(data, cfg, device=device)
+    model = build_model(cfg, x.shape[1], nclass, device=device, seed=seed)
+    masks = tuple(torch.from_numpy(m).to(device) for m in masks_np)
+    res = make_split_runner(model, cfg, capturable=True)(
+        ops, x, y, masks, labels_onehot=y1h)
+    return res, {k: p.detach().cpu() for k, p in model.named_parameters()}
+
+
+def max_param_diff(a, b) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def card_vs_cpu(tag, data, cfg, masks_np, tol=1e-4, seed=3):
+    """One configuration trained on the card (kernels) and on the CPU
+    (plain versions) by ``trained`` from the same initial parameters
+    (``seed``): final parameters within ``tol``, split results within
+    ``tol`` relative, equal epochs_run."""
+    out = {device: trained(data, cfg, masks_np, device, seed)
+           for device in ("cuda", "cpu")}
     (rg, pg), (rc, pc) = out["cuda"], out["cpu"]
-    worst = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    worst = max_param_diff(pg, pc)
     print(f"{tag} card vs CPU, {cfg.epochs} epochs (early_stopping "
           f"{cfg.early_stopping}): max |Δparam| {worst:.3e} (tolerance "
           f"{tol:g}); epochs_run {rg.epochs_run}/{rc.epochs_run}")
@@ -1279,8 +1379,7 @@ def phase_card_vs_cpu():
 
     adj, feats, labels = twitch_gamers_scale_graph(0, n=2000, pairs=40_000)
     card_vs_cpu("[4]", GraphData("small", adj, np.abs(feats), labels),
-                headline_config(hidden=16, dropout=0.0, spmm_dtype="float32",
-                                epochs=20), _masks(2000))
+                knob_check_config(), _masks(2000))
 
 
 def phase_genius_card_vs_cpu():
@@ -1715,7 +1814,7 @@ def phase_sharded_main_path(adj, feats, labels, ms_single):
         compare_to_single("[6b]", result, {
             k: p.detach().cpu() for k, p in model.named_parameters()},
             single_chip_reference(data, cfg))
-        counts, ms_epoch, _, groups = drive_path(
+        counts, ms_epoch, _, groups, _ = drive_path(
             "[6b]", data, headline_config(), _masks(adj.shape[0]),
             TIMED_EPOCHS, sharded_counts, group=dist.group.WORLD)
         print(f"[6b] K1 {_ms(groups.get('K1 spmm'))} ms/epoch (profile "
@@ -1737,7 +1836,9 @@ def phase_sharded_overhead(data, pairs: int = 5):
     """The headline configuration on one card through the single-chip
     runner and through the sharded one (world size 1), ``TIMED_EPOCHS``
     epochs a run, in alternating pairs: (median single-chip, median
-    sharded) ms/epoch.  Both share the host, so pairs cancel its drift."""
+    sharded) ms/epoch.  Both share the host, so pairs cancel its drift.
+    Both run eagerly (the sharded path stays eager by rule), so the pair
+    reads what the sharded runner and NCCL add."""
     import torch
     import torch.distributed as dist
 
@@ -1754,7 +1855,7 @@ def phase_sharded_overhead(data, pairs: int = 5):
     prep = prepare_sharded_data(data, cfg, group=dist.group.WORLD)
     arms = {
         "single": (make_split_runner(build_model(cfg, x.shape[1], nclass),
-                                     cfg),
+                                     cfg, graph=False),
                    (ops, x, y, tuple(torch.from_numpy(m).cuda()
                                      for m in masks_np))),
         "sharded": (make_split_runner(
@@ -1775,7 +1876,7 @@ def phase_sharded_overhead(data, pairs: int = 5):
             if i > 0:            # the first pair warms both arms up
                 ms[arm].append(1e3 * (time.perf_counter() - t0)
                                / (TIMED_EPOCHS + 1))
-    print(f"[6b] alternating pairs, ms/epoch: single-chip "
+    print(f"[6b] alternating pairs, eager forms, ms/epoch: single-chip "
           f"{[round(v, 3) for v in ms['single']]}, sharded world size 1 "
           f"{[round(v, 3) for v in ms['sharded']]}")
     return float(np.median(ms["single"])), float(np.median(ms["sharded"]))
@@ -2219,6 +2320,9 @@ def phase_entry_points(adj, feats, labels):
     out["remat"] = _experiment(
         "[7c remat]", data, dataclasses.replace(knob, remat=True),
         lambda b: remat_counts(b, setup=0), prepared)
+    print("[7c] remat runs in the captured form: its recompute draws from "
+          "a twin of the dropout generator, both registered with the graph "
+          "(phase 8a holds the captured form to the eager one bit for bit)")
     print(f"[7c] peak memory: plain {out['plain'][2]:.0f} MiB, remat "
           f"{out['remat'][2]:.0f} MiB; ms/epoch steady: plain "
           f"{out['plain'][0]['epoch_ms_steady']:.3f}, remat "
@@ -2264,13 +2368,153 @@ def bf16_check_config():
                                gemm_dtype="bfloat16")
 
 
+def knob_check_config(**over):
+    """Phase 4's configuration (the card-against-CPU checks of 4 and 7c)
+    with ``over``."""
+    return headline_config(**dict(dict(hidden=16, dropout=0.0,
+                                       spmm_dtype="float32", epochs=20),
+                                  **over))
+
+
+def adamw_check_config():
+    """Phase 7c's AdamW trajectory check: phase 4's configuration at lr
+    1e-3.  A 20-epoch comparison of two runs that differ in rounding only
+    holds until a ReLU input lands within that rounding of zero: at lr
+    0.01 one does at epoch 8 (an output-layer input at 1.0e-7), and the
+    card parts from the CPU by 1.092e-2 (H100 80GB HBM3, 700 W); the CPU
+    port's own two summation orders (ELL and COO, 8 threads) part there
+    by the same 1.092e-2 (tests/test_torch_experiment.py).  At lr 1e-3
+    the card's rounding crosses no ReLU input.  The optimizer's own
+    arithmetic at lr 0.01, decay included, is held by
+    ``phase_optimizer_check``."""
+    return knob_check_config(optimizer="adamw", lr=1e-3)
+
+
+OPT_STEPS = 20
+
+
+def optimizer_case(cfg, seed=0):
+    """Phase 4's model's initial parameters (f32) and ``OPT_STEPS`` seeded
+    gradients for each, of magnitudes from 1e-7 to 1e-2 (a training
+    run's range), as NumPy arrays ``[steps, *shape]``."""
+    from acmgnn_tpu_torch.train.trainer import build_model
+
+    model = build_model(cfg, 7, 2, device="cpu", seed=3)
+    rng = np.random.default_rng(seed)
+    params, grads = [], []
+    for p in model.parameters():
+        p = p.detach().numpy().astype(np.float32)
+        shape = (OPT_STEPS, *p.shape)
+        grads.append((rng.standard_normal(shape)
+                      * 10.0 ** rng.uniform(-7, -2, shape)).astype(np.float32))
+        params.append(p)
+    return params, grads
+
+
+def optimizer_reference(cfg, params, grads, weight_decay=None):
+    """optax's update in f64 NumPy, written from its definition: "adam" is
+    ``add_decayed_weights -> scale_by_adam -> scale(-lr)`` (the decay in
+    the gradient, before the moments), "adamw" is ``optax.adamw`` (the
+    decay beside the Adam step, ``p -= lr·(step + wd·p)``)."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    wd = cfg.weight_decay if weight_decay is None else weight_decay
+    out = []
+    for p, g in zip(params, grads):
+        p = p.astype(np.float64)
+        m, v = np.zeros_like(p), np.zeros_like(p)
+        for t, gt in enumerate(g.astype(np.float64), 1):
+            if cfg.optimizer == "adam":
+                gt = gt + wd * p
+            m = b1 * m + (1 - b1) * gt
+            v = b2 * v + (1 - b2) * gt * gt
+            step = m / (1 - b1 ** t) / (np.sqrt(v / (1 - b2 ** t)) + eps)
+            if cfg.optimizer == "adamw":
+                step = step + wd * p
+            p = p - cfg.lr * step
+        out.append(p)
+    return out
+
+
+def optimizer_steps(cfg, params, grads, device, capturable=None):
+    """``make_optimizer(cfg)`` over the given gradients, driven by the
+    split runner's loop (``trainer._run_loop``): on the card the first
+    step eagerly, the second captured as a CUDA graph, the rest replays
+    of it.  The final parameters as NumPy arrays."""
+    import torch
+
+    from acmgnn_tpu_torch.train import trainer
+
+    device = torch.device(device)
+    ps = [torch.nn.Parameter(torch.tensor(p, device=device)) for p in params]
+    gs = [torch.tensor(g, device=device) for g in grads]
+    for p in ps:
+        p.grad = torch.zeros_like(p)
+    opt = trainer.make_optimizer(cfg, ps, capturable=capturable)
+    k = torch.zeros(1, dtype=torch.long, device=device)
+
+    def body():
+        for p, g in zip(ps, gs):
+            p.grad.copy_(g.index_select(0, k)[0])
+        opt.step()
+        k.add_(1)
+
+    trainer._run_loop(body, OPT_STEPS, None, [],
+                      device if device.type == "cuda" else None,
+                      time.perf_counter())
+    return [p.detach().cpu().numpy() for p in ps]
+
+
+# per element, times max(1, |p|): 2 f32 roundings (2^-24 each) of p in
+# each of 20 steps is 2.4e-6 at most; the CPU's form reads 1.5e-6
+OPT_TOL = 4e-6
+
+
+def optimizer_check(cfg, device, capturable=None):
+    """``optimizer_steps`` against ``optimizer_reference``: the worst
+    error over ``OPT_TOL·max(1, |p|)``, and the same measure of the
+    reference with the decay left out (a fault the check must see)."""
+    params, grads = optimizer_case(cfg)
+    got = optimizer_steps(cfg, params, grads, device, capturable)
+
+    def worst(ref):
+        return max(float(np.max(np.abs(a - r) / np.maximum(1.0, np.abs(r))))
+                   for a, r in zip(got, ref)) / OPT_TOL
+
+    return (worst(optimizer_reference(cfg, params, grads)),
+            worst(optimizer_reference(cfg, params, grads, weight_decay=0.0)))
+
+
+def phase_optimizer_check():
+    """[7c] The card's optimizer (``make_optimizer``: capturable, the step
+    captured and replayed as in the split runner) at phase 4's lr 0.01 and
+    weight decay, Adam and AdamW, on ``OPT_STEPS`` seeded gradients at
+    phase 4's parameter shapes, against optax's update in f64: within
+    ``OPT_TOL·max(1, |p|)``; the same reference without the decay must
+    lie more than ten tolerances away."""
+    for opt in ("adam", "adamw"):
+        cfg = knob_check_config(optimizer=opt)
+        err, no_decay = optimizer_check(cfg, "cuda")
+        print(f"[7c {opt} step] card optimizer, lr {cfg.lr:g}, weight decay "
+              f"{cfg.weight_decay:g}, {OPT_STEPS} steps (eager, captured, "
+              f"replays) against optax in f64: {err:.3f} of the tolerance "
+              f"{OPT_TOL:g}·max(1, |p|); without the decay {no_decay:.1f}")
+        if not err <= 1.0:
+            fail(f"[7c {opt} step] the card's optimizer disagrees with optax")
+        if not no_decay > 10.0:
+            fail(f"[7c {opt} step] the check cannot see the decay")
+
+
 def phase_knobs_card_vs_cpu():
     """[7c] Each knob of this slice, card against CPU from the same
     initial parameters at dropout 0 (the CPU and the card draw different
-    dropout streams): remat, AdamW and the RCM reorder on phase 4's small
-    graph within 1e-4 (f32: summation order only); bf16 features with
-    bf16 GEMMs on phase 6c's graph and configuration within 1e-2
-    (``bf16_check_config``)."""
+    dropout streams): remat and the RCM reorder on phase 4's small graph
+    and configuration, AdamW there at lr 1e-3 (``adamw_check_config``),
+    within 1e-4 (f32: summation order only); bf16 features with bf16
+    GEMMs on phase 6c's graph and configuration within 1e-2
+    (``bf16_check_config``).  AdamW at lr 0.01 is printed beside the
+    CPU's ELL and COO orders, not held."""
+    import torch
+
     from acmgnn_tpu_torch.data.splits import random_disassortative_splits
     from acmgnn_tpu_torch.data.synthetic_scale import \
         twitch_gamers_scale_graph
@@ -2278,19 +2522,227 @@ def phase_knobs_card_vs_cpu():
 
     adj, feats, labels = twitch_gamers_scale_graph(0, n=2000, pairs=40_000)
     data = GraphData("small", adj, np.abs(feats), labels)
-    base = headline_config(hidden=16, dropout=0.0, spmm_dtype="float32",
-                           epochs=20)
-    for tag, over in (("remat", dict(remat=True)),
-                      ("adamw", dict(optimizer="adamw")),
-                      ("reorder rcm", dict(reorder="rcm"))):
-        card_vs_cpu(f"[7c {tag}]", data, dataclasses.replace(base, **over),
-                    _masks(2000))
+    for tag, cfg in (("remat", knob_check_config(remat=True)),
+                     ("adamw", adamw_check_config()),
+                     ("reorder rcm", knob_check_config(reorder="rcm"))):
+        card_vs_cpu(f"[7c {tag}]", data, cfg, _masks(2000))
+    # at lr 0.01 a ReLU input lies within rounding of zero at epoch 8
+    # (adamw_check_config): where the card's run lands beside the CPU's
+    # two summation orders, read and not held
+    cfg = knob_check_config(optimizer="adamw")
+    card = trained(data, cfg, _masks(2000), "cuda")[1]
+    apart = {fmt: max_param_diff(card, trained(
+        data, dataclasses.replace(cfg, operator_format=fmt), _masks(2000),
+        "cpu")[1]) for fmt in ("ell", "coo")}
+    print(f"[7c adamw lr {cfg.lr:g}] card vs CPU after {cfg.epochs} epochs "
+          f"(read, not held), max |Δparam|: ELL order {apart['ell']:.3e}, "
+          f"COO order {apart['coo']:.3e} ({torch.get_num_threads()} CPU "
+          f"threads)")
     cfg = bf16_check_config()
     data = _small_twitch()
     masks = np.stack(random_disassortative_splits(
         data.labels, 2, rng=np.random.default_rng(cfg.seed)))
     card_vs_cpu("[7c bf16 features + GEMMs]", data, cfg, masks, tol=1e-2,
                 seed=cfg.seed)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the captured split loop against the eager one
+# ---------------------------------------------------------------------------
+
+CAPTURE_EPOCHS, CAPTURE_PAIRS = 20, 10
+
+
+def _split(prepared, cfg, masks, graph, seed=7):
+    """One split of ``cfg`` on ``prepare_data``'s output from
+    ``build_model(seed)``, eager (``graph=False``) or captured (True):
+    result, end state, final parameters, launch counts, the run's peak
+    MiB above what was allocated before it (the prepared graphs, the
+    model), and wall seconds."""
+    import torch
+
+    from acmgnn_tpu_torch.ops import kernels
+    from acmgnn_tpu_torch.train.trainer import build_model, make_split_runner
+
+    _, ops, x, y, y1h, nclass = prepared
+    model = build_model(cfg, x.shape[1], nclass, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, state = make_split_runner(model, cfg, graph=graph)(
+        ops, x, y, masks, seed=seed, labels_onehot=y1h, return_state=True)
+    torch.cuda.synchronize()
+    return dict(res=res, state=state, wall=time.perf_counter() - t0,
+                counts=dict(kernels.launches),
+                peak=(torch.cuda.max_memory_allocated() - base) / 2**20,
+                params={k: p.detach().clone()
+                        for k, p in model.named_parameters()})
+
+
+def _bit_equal(tag, eager, captured):
+    """Fail unless the two runs agree bit for bit."""
+    import torch
+
+    pairs = [(f, getattr(eager["res"], f), getattr(captured["res"], f))
+             for f in ("test_metric", "val_metric", "val_loss", "train_loss")]
+    pairs += [(f, getattr(eager["state"], f), getattr(captured["state"], f))
+              for f in ("train_losses", "val_hist")]
+    pairs += [(k, v, captured["params"][k]) for k, v in eager["params"].items()]
+    unequal = [f for f, a, b in pairs
+               if a.shape != b.shape or not torch.equal(a, b)]
+    if unequal or eager["res"].epochs_run != captured["res"].epochs_run:
+        fail(f"{tag} captured and eager runs differ: {unequal}, epochs_run "
+             f"{eager['res'].epochs_run}/{captured['res'].epochs_run}")
+    return len(pairs)
+
+
+def phase_capture_equality(cases):
+    """[8a] Each case eager, then captured, ``CAPTURE_EPOCHS`` epochs from
+    the same parameters and seed: bit-equal parameters, train-loss and
+    val-loss histories, best metrics and ``epochs_run``; equal launch
+    counts, each what ``expected(bodies)`` implies (the set-up gather ran
+    in ``prepare_data``, before the count); no K2/K3 occupancy query made
+    by the captured run (its buffers take the eager launches' vector
+    width); the capture's ms and both forms' peak memory."""
+    from acmgnn_tpu_torch.models import layers
+
+    out = {}
+    for tag, prepared, cfg, masks, expected in cases:
+        eager = _split(prepared, cfg, masks, False)
+        resident = set(layers._resident)
+        captured = _split(prepared, cfg, masks, True)
+        if set(layers._resident) != resident:
+            fail(f"[8a {tag}] the capture asked the occupancy of "
+                 f"{set(layers._resident) - resident}")
+        n = _bit_equal(f"[8a {tag}]", eager, captured)
+        bodies = captured["state"].epoch
+        want = expected(bodies)
+        if eager["counts"] != captured["counts"] or \
+                captured["counts"] != want:
+            fail(f"[8a {tag}] launch counts eager {eager['counts']}, "
+                 f"captured {captured['counts']}, expected {want}")
+        print(f"[8a {tag}] eager and captured, {cfg.epochs} epochs "
+              f"(early_stopping {cfg.early_stopping}): bit-equal ({n} "
+              f"tensors: best metrics, train-loss and val-loss histories, "
+              f"parameters), epochs_run {captured['res'].epochs_run}, "
+              f"{bodies} bodies; launch counts equal and as expected "
+              f"{json.dumps(want, sort_keys=True)}; capture "
+              f"{captured['state'].capture_ms:.1f} ms; the run's peak memory "
+              f"above its inputs: eager {eager['peak']:.0f} MiB, captured "
+              f"{captured['peak']:.0f} MiB")
+        out[tag] = dict(capture_ms=captured["state"].capture_ms,
+                        peak_eager=eager["peak"],
+                        peak_captured=captured["peak"])
+    return out
+
+
+def _quartiles(v):
+    q1, q2, q3 = np.percentile(v, [25, 50, 75])
+    return float(q1), float(q2), float(q3)
+
+
+def phase_capture_pairs(tag, prepared, cfg, masks, pairs=CAPTURE_PAIRS):
+    """[8b] Eager against captured in alternating pairs (eager first in
+    even pairs), ``cfg.epochs`` epochs a run after one warm-up run of
+    each: ms/epoch over the whole run (what a run costs, the captured
+    form's set-up included) and, captured, over the replays; medians,
+    quartiles, the pairs the captured form won; then one profile of each
+    form.  Returns (median eager, median captured run, median replays)
+    ms/epoch."""
+    from acmgnn_tpu_torch.train.trainer import build_model, make_split_runner
+
+    for graph in (False, True):
+        _split(prepared, cfg, masks, graph)
+    ms = {False: [], True: []}
+    replay, capture = [], []
+    for i in range(pairs):
+        for graph in ((False, True) if i % 2 == 0 else (True, False)):
+            r = _split(prepared, cfg, masks, graph, seed=i)
+            bodies = r["state"].epoch
+            ms[graph].append(1e3 * r["wall"] / bodies)
+            if graph:
+                replay.append((1e3 * r["wall"] - r["state"].setup_ms)
+                              / (bodies - 1))
+                capture.append(r["state"].capture_ms)
+    wins = sum(c < e for e, c in zip(ms[False], ms[True]))
+    print(f"[8b {tag}] {pairs} alternating pairs, {cfg.epochs} epochs a "
+          f"run, ms/epoch: eager {[round(v, 3) for v in ms[False]]}; "
+          f"captured {[round(v, 3) for v in ms[True]]}; captured replays "
+          f"{[round(v, 3) for v in replay]}; capture ms "
+          f"{[round(v, 1) for v in capture]}")
+    e, c, r = (_quartiles(ms[False]), _quartiles(ms[True]),
+               _quartiles(replay))
+    print(f"[8b {tag}] medians (quartiles): eager {e[1]:.3f} ({e[0]:.3f}-"
+          f"{e[2]:.3f}), captured run {c[1]:.3f} ({c[0]:.3f}-{c[2]:.3f}), "
+          f"captured replays {r[1]:.3f} ({r[0]:.3f}-{r[2]:.3f}) ms/epoch; "
+          f"the captured run faster in {wins} of {pairs} pairs; capture "
+          f"median {float(np.median(capture)):.1f} ms")
+    _, ops, x, y, y1h, nclass = prepared
+    model = build_model(cfg, x.shape[1], nclass, seed=7)
+    for graph, form in ((False, "eager"), (True, "captured")):
+        def run_of(epochs, graph=graph):
+            return make_split_runner(
+                model, dataclasses.replace(cfg, epochs=epochs),
+                graph=graph)(ops, x, y, masks, labels_onehot=y1h,
+                             return_state=True)[1].epoch
+
+        phase_profile(f"[8b {tag} {form}]", run_of)
+    return e[1], c[1], r[1]
+
+
+def phase_capture(adj, feats, labels, g_adj, g_feats, g_labels, g_masks):
+    """[8] The captured loop against the eager one: bit for bit (8a) on
+    the headline (with and without remat, and with AdamW) and on genius's
+    four routes,
+    then timed in alternating pairs and profiled (8b) on the headline and
+    genius joint ELL."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.graph import GraphData
+    from acmgnn_tpu_torch.train.trainer import prepare_data
+
+    def on_card(masks_np):
+        return tuple(torch.from_numpy(m).cuda() for m in masks_np)
+
+    h_cfg = headline_config(epochs=CAPTURE_EPOCHS)
+    h = prepare_data(GraphData("twitch-gamers-scale-uniform", adj, feats,
+                               labels), h_cfg)
+    h_masks = on_card(_masks(adj.shape[0]))
+    g_data = GraphData("genius-scale", g_adj, g_feats, g_labels)
+    g_cfg = genius_config(epochs=CAPTURE_EPOCHS)
+    g = prepare_data(g_data, g_cfg)
+    gc_cfg = genius_config(operator_format="coo", epochs=CAPTURE_EPOCHS)
+    gc = prepare_data(g_data, gc_cfg)
+    gm = on_card(g_masks)
+
+    def joint(gather, width, k4=False):
+        return lambda b: {**joint_counts(b, gather, width, k4=k4),
+                          f"{gather}_w{width}": b}
+
+    def sequential(b):
+        return {**sequential_counts(b, "k1_spmm", 12), "k1_spmm_w12": b}
+
+    seq = dataclasses.replace(g_cfg, joint=False)
+    out = phase_capture_equality([
+        ("headline", h, h_cfg, h_masks, joint("k1_spmm", 7)),
+        ("headline remat", h, dataclasses.replace(h_cfg, remat=True),
+         h_masks, lambda b: remat_counts(b, setup=0)),
+        ("headline adamw", h, dataclasses.replace(h_cfg, optimizer="adamw"),
+         h_masks, joint("k1_spmm", 7)),
+        ("genius joint ell", g, g_cfg, gm, joint("k1_spmm", 12, k4=True)),
+        ("genius joint coo", gc, gc_cfg, gm, joint("k5_coo", 12, k4=True)),
+        ("genius sequential", g, seq, gm, sequential),
+        ("genius sequential+es", g, dataclasses.replace(
+            seq, early_stopping=GENIUS_ES), gm, sequential),
+    ])
+    out["pairs"] = {
+        "headline": phase_capture_pairs("headline", h, h_cfg, h_masks),
+        "genius joint ell": phase_capture_pairs("genius joint ell", g,
+                                                g_cfg, gm),
+    }
+    return out
 
 
 def main() -> int:
@@ -2314,7 +2766,7 @@ def main() -> int:
     print(f"[2] twitch-shaped graph N={adj.shape[0]} edges={adj.nnz} "
           f"({time.perf_counter() - t0:.1f} s)")
     rows = phase_kernels(adj, feats)
-    counts, ms_epoch = phase_main_path(adj, feats, labels)
+    counts, (ms_epoch, ms_replay) = phase_main_path(adj, feats, labels)
     for row in rows:
         row.update(path="headline (twitch-gamers, joint, ELL)",
                    launches=counts.get(row["counter"], 0))
@@ -2361,17 +2813,26 @@ def main() -> int:
     p_rows = phase_probe()
     entry = phase_entry_points(adj, feats, labels)
     phase_knobs_card_vs_cpu()
+    phase_optimizer_check()
+    capture = phase_capture(adj, feats, labels, g_adj, g_feats, g_labels,
+                            g_masks)
     steady = {k: entry[k][0]["epoch_ms_steady"]
               for k in ("experiment", "plain", "remat", "adamw", "bf16",
                         "rcm")}
-    print(f"[done] {time.perf_counter() - t_start:.1f} s; main path "
-          f"{ms_epoch:.3f} ms/epoch; genius joint ell "
-          f"{paths['ell'][1]:.3f}, coo {paths['coo'][1]:.3f}, sequential "
-          f"{paths['seq'][1]:.3f} ms/epoch; the stop-flag read "
+    print(f"[done] {time.perf_counter() - t_start:.1f} s; ms/epoch over a "
+          f"whole timed run, set-up included (over its replays): main path "
+          f"{ms_epoch:.3f} ({ms_replay:.3f}) of {TIMED_EPOCHS} epochs; "
+          f"genius joint ell {paths['ell'][1]:.3f} ({paths['ell'][4]:.3f}), "
+          f"coo {paths['coo'][1]:.3f} ({paths['coo'][4]:.3f}) of "
+          f"{GENIUS_TIMED_EPOCHS}, sequential {paths['seq'][1]:.3f} "
+          f"({paths['seq'][4]:.3f}) of {GENIUS_SEQ_EPOCHS}; the stop-flag read "
           f"{paths['stop_flag_ms']:+.3f} ms/epoch; sharded headline, world "
           f"size 1 {s_ms:.3f} ms/epoch; run_experiment steady ms/epoch "
           + ", ".join(f"{k} {v:.3f}" for k, v in steady.items())
-          + f"; stepwise {entry['stepwise']['epoch_ms_steady']:.3f}")
+          + f"; stepwise {entry['stepwise']['epoch_ms_steady']:.3f}; eager "
+          f"/ captured run / captured replays ms/epoch (8b medians): "
+          + ", ".join(f"{k} {e:.3f} / {c:.3f} / {r:.3f}"
+                      for k, (e, c, r) in capture["pairs"].items()))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "path")

@@ -25,6 +25,7 @@ the card tests hold the compiled kernels to those.
 
 from __future__ import annotations
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -35,7 +36,11 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from acmgnn_tpu_torch.data.synthetic_scale import twitch_gamers_scale_graph
+from acmgnn_tpu_torch.data.synthetic_scale import (
+    linkx_scale_graph,
+    twitch_gamers_scale_graph,
+)
+from acmgnn_tpu_torch.models import layers
 from acmgnn_tpu_torch.models.layers import (
     attention_mix_backward,
     attention_mix_backward_plain,
@@ -474,6 +479,119 @@ def test_run_joint_card_matches_cpu_and_counts_launches(cuda):
     for k, ref in params["cpu"].items():
         np.testing.assert_allclose(params["cuda"][k].numpy(), ref.numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+# the captured loop against the eager one: (graph, configuration).  Dropout
+# 0.5 except where a stop must fire (at dropout 0 the CPU shows it firing,
+# tests/test_torch_split_loop.py)
+CAPTURE_CASES = {
+    "joint_ell": ("twitch", dict(model_type="acmgcnp", operator_format="ell",
+                                 spmm_dtype="bfloat16")),
+    "joint_ell_remat": ("twitch", dict(model_type="acmgcnp", remat=True)),
+    "joint_ell_adamw": ("twitch", dict(model_type="acmgcnp",
+                                       optimizer="adamw")),
+    "joint_coo_rocauc": ("genius", dict(operator_format="coo")),
+    "sequential_rocauc": ("genius", dict(joint=False)),
+    "sequential_rocauc_stop": ("genius", dict(joint=False, dropout=0.0,
+                                              epochs=40, early_stopping=5)),
+}
+
+
+def _capture_case(case):
+    name, over = CAPTURE_CASES[case]
+    if name == "twitch":
+        adj, feats, labels = twitch_gamers_scale_graph(0, n=400, pairs=4000)
+        base = dict(model_type="acmgcn", selection="val_metric")
+    else:
+        adj, feats, labels = linkx_scale_graph("genius", n=400, e=1000,
+                                               max_deg=60)
+        base = dict(model_type="acmgcn", metric="rocauc", loss="bce",
+                    selection="val_metric")
+    cfg = TrainConfig(**{**dict(
+        hidden=16, dropout=0.5, lr=0.01, weight_decay=1e-3, epochs=12,
+        early_stopping=0, operator_format="ell", spmm_dtype="float32",
+        joint=True, hoist_first=True), **base, **over})
+    perm = np.random.default_rng(1).permutation(400)
+    masks_np = np.zeros((3, 400), bool)
+    for i, part in enumerate((perm[:200], perm[200:300], perm[300:])):
+        masks_np[i, part] = True
+    return GraphData("g", adj, np.abs(feats), labels), cfg, masks_np
+
+
+def _run_form(data, cfg, masks_np, graph):
+    """One split on the card in the eager (``graph=False``) or captured
+    (True) form from the same parameters and seed: (result, state,
+    parameters, launch counts)."""
+    kernels.reset_launches()
+    _, ops, x, y, y1h, nclass = prepare_data(data, cfg, device="cuda")
+    model = build_model(cfg, x.shape[1], nclass, device="cuda", seed=2)
+    masks = tuple(torch.from_numpy(m).cuda() for m in masks_np)
+    res, state = make_split_runner(model, cfg, graph=graph)(
+        ops, x, y, masks, seed=5, labels_onehot=y1h, return_state=True)
+    torch.cuda.synchronize()
+    return (res, state, {k: p.detach().clone()
+                         for k, p in model.named_parameters()},
+            dict(kernels.launches))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", tuple(CAPTURE_CASES))
+def test_captured_loop_equals_eager_bit_for_bit(cuda, case):
+    """Each body after the first replayed from one CUDA graph gives the
+    eager loop's run bit for bit: parameters, the train-loss and val-loss
+    histories, best metrics and ``epochs_run``; the dropout generator (and
+    remat's twin) advance as eagerly; ``kernels.launches`` counts the same
+    launches; the capture asks K2/K3's occupancy of no new instance (its
+    buffers are aligned as the eager ones)."""
+    data, cfg, masks_np = _capture_case(case)
+    eager = _run_form(data, cfg, masks_np, False)
+    resident = set(layers._resident)
+    captured = _run_form(data, cfg, masks_np, True)
+    assert set(layers._resident) == resident
+    (re, se, pe, ce), (rc, sc, pc, cc) = eager, captured
+    assert se.capture_ms is None and sc.capture_ms is not None
+    assert re.epochs_run == rc.epochs_run and se.epoch == sc.epoch
+    if cfg.early_stopping:
+        assert rc.epochs_run < cfg.epochs, "the stop must fire"
+    for f in ("test_metric", "val_metric", "val_loss", "train_loss"):
+        assert torch.equal(getattr(re, f), getattr(rc, f)), f
+    assert torch.equal(se.train_losses, sc.train_losses)
+    assert torch.equal(se.val_hist, sc.val_hist)
+    for k in pe:
+        assert torch.equal(pe[k], pc[k]), k
+    assert ce == cc
+
+
+@pytest.mark.gpu
+def test_captured_loop_counts_launches_per_replay(cuda):
+    """The captured joint loop counts one body's launches per replay and
+    none at the capture: at 12 and at 20 epochs the counts are what the
+    run's bodies imply (dropout 0: both layer-1 branches read x_agg)."""
+    data, cfg, masks_np = _capture_case("joint_ell")
+    for epochs in (12, 20):
+        run_cfg = dataclasses.replace(cfg, dropout=0.0, epochs=epochs,
+                                      spmm_dtype="float32")
+        it = epochs + 1
+        assert _run_form(data, run_cfg, masks_np, True)[3] == {
+            "k1_spmm_w7": 1, "k1_spmm_w8": it, "k1_spmm_w4": it,
+            "k2_attn_fwd_d16": 2 * it, "k2_attn_fwd_d2": 2 * it,
+            "k3_attn_bwd_d16": it, "k3_attn_bwd_d2": it}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ("adam", "adamw"))
+def test_card_optimizer_matches_optax_in_f64(cuda, optimizer):
+    """``make_optimizer`` on the card (capturable; the first step eager,
+    the second captured, the rest replays, as the split runner drives it)
+    at lr 0.01 and weight decay 1e-3 against optax's update in f64
+    (``chip_smoke.optimizer_check``): within its tolerance, and more than
+    ten tolerances from the reference without the decay."""
+    import chip_smoke
+
+    cfg = chip_smoke.knob_check_config(optimizer=optimizer)
+    err, no_decay = chip_smoke.optimizer_check(cfg, "cuda")
+    assert err <= 1.0, err
+    assert no_decay > 10.0, no_decay
 
 
 # ---------------------------------------------------------------------------
