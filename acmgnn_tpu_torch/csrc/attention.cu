@@ -2,26 +2,32 @@
 // (sm_90a).
 //
 // Replaces, in acmgnn_tpu/models/layers.py, the channel ReLU and the mix
-// of ACMConv.__call__ (:450-480: relu of the low, high and MLP channels,
-// then `3 * sum_i att_i h_i`), the projected-LayerNorm channel attention
+// of ACMConv.__call__ (:450-480: relu of the channels, then `3 * sum_i
+// att_i h_i` over three channels or `1 * sum_i` over four with the
+// structure channel), the projected-LayerNorm channel attention
 // ACMConv._attention (:191-232, the `proj` branch and the branch without
-// LayerNorm), and the row reductions that JAX's autodiff made of them for
-// the parameter gradients.  Per row, for the T = 3 channels z_i ([N, d]
-// f32, before the ReLU):
+// LayerNorm), the acmsgc mix without a ReLU (:333-349), and the row
+// reductions that JAX's autodiff made of them for the parameter
+// gradients.  Per row, for the T = 3 or 4 channels z_i ([N, d] f32):
 //
-//   h_i = relu(z_i)
+//   h_i = relu(z_i) where bit i of the ReLU mask M is set, else z_i
 //   mu_i = mean(h_i), var_i = max(mean(h_i^2) - mu_i^2, 0)   (fast variance)
 //   score_i = pc_i * rsqrt(var_i + 1e-5) + c_i,  pc_i = sum_j (h_ij - mu_i) v_ij
 //             with v_i = scale_i * a_i, c_i = bias_i . a_i
 //   (without LayerNorm: score_i = h_i . v_i, v_i = a_i)
-//   att = softmax(sigmoid(score) @ W / 3)
-//   out = K * (att_0 h_0 + att_1 h_1 + att_2 h_2)
+//   att = softmax(sigmoid(score) @ W / T)
+//   out = K * sum_i att_i h_i          (K = 3 at T = 3, 1 at T = 4)
 //
-// K3 returns dz_i = dh_i [z_i > 0] (the ReLU's gradient, 0 at 0) and the
+// T and M are template parameters: the instances are (T, M) = (3, low
+// high mlp) for variant 0, (3, mlp) for variant 1 (ACMII: the low and
+// high channels were ReLU'd before propagation), (3, none) for acmsgc,
+// (4, all) for the structure channel and (4, mlp struc) for variant 1
+// with it.  K3 returns dz_i = dh_i [z_i > 0] where the channel has the
+// ReLU (its gradient, 0 at 0), dz_i = dh_i where it has not, and the
 // parameter gradients summed over the rows: dv_ij = sum_rows dp_i h_ij +
 // sum_rows dS_i (dS_i = -dp_i mu_i is the row's share of d sum_j v_ij),
 // dc_i = sum_rows dscore_i (with LayerNorm; 0 without), dW_ij = sum_rows
-// g_i dl_j / 3.
+// g_i dl_j / T.
 //
 // pc_i equals the JAX form h_i . v_i - mu_i * sum(v_i); it is summed
 // centred because the uncentred difference cancels on near-constant rows,
@@ -30,10 +36,11 @@
 // by 1e-3).  For the same reason the fast variance is rounded one
 // operation at a time, without fused multiply-adds.
 //
-// What bounds them on an H100: bytes.  K2 reads 3 [N, d] f32 channels and
-// writes one (16 N d bytes: 172 MB, 0.051 ms at 3.35 TB/s for N =
-// 168,114, d = 64); K3 reads 4 and writes 3 (28 N d: 301 MB, 0.090 ms)
-// plus a [grid, 3 d + 15] partials tensor of a few hundred KB.  The first
+// What bounds them on an H100: bytes.  K2 reads T [N, d] f32 channels and
+// writes one (16 N d bytes at T = 3: 172 MB, 0.051 ms at 3.35 TB/s for N
+// = 168,114, d = 64); K3 reads T + 1 and writes T (28 N d at T = 3: 301
+// MB, 0.090 ms) plus a [grid, T d + 2 T + T^2] partials tensor of a few
+// hundred KB.  The first
 // form of these kernels gave a row a whole warp at d = 64 (scalar loads,
 // five shuffle steps per row sum, the row's scalar tail issued by all 32
 // lanes for one row) and read every element three times: about 300 warp
@@ -57,7 +64,8 @@
 //   into shared memory once a block; v there, not in registers, leaves
 //   K3's registers to the row and the dv share.
 // - K3 keeps each lane's share of dv in registers across all its rows,
-//   and each row group its 15 row sums (dS, dscore, g_i dl_j) in shared
+//   and each row group its 2 T + T^2 row sums (dS, dscore, g_i dl_j) in
+//   shared
 //   memory (at 8 floats a lane and two blocks an SM, 128 registers had
 //   spilled).  At
 //   the end each warp folds its groups with xor shuffles, the warps add
@@ -82,30 +90,32 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kT = 3;           // channels
-constexpr int kRowSums = 15;    // per row: dS (3), dscore (3), g_i dl_j (9)
+constexpr int kMaxT = 4;        // channels
 constexpr int kFinishThreads = 1024;
 constexpr float kEps = 1e-5f;
 
+// per row: dS (T), dscore (T), g_i dl_j (T^2)
+__host__ __device__ constexpr int row_sums(int t) { return 2 * t + t * t; }
+
 struct Args {
-  const float* z[kT];
-  int64_t ld[kT];   // row strides of the channels, in floats
+  const float* z[kMaxT];
+  int64_t ld[kMaxT];   // row strides of the channels, in floats
   const float* gout;
   int64_t ldg;
   const float* v;
   const float* c;
   const float* W;
-  float* out;       // K2: [n, d]
-  float* dz[kT];    // K3: [n, d] each
-  float* partials;  // K3: [grid, 3 d + 15]
+  float* out;          // K2: [n, d]
+  float* dz[kMaxT];    // K3: [n, d] each
+  float* partials;     // K3: [grid, T d + row_sums(T)]
   int n, d, use_ln;
   float scale;
 };
 
-template <int GE>
+template <int T, int GE>
 struct Params {
-  float v[kT][GE];  // zero beyond d
-  float S[kT], c[kT], W[kT * kT];
+  float v[T][GE];  // zero beyond d
+  float S[T], c[T], W[T * T];
 };
 
 // x / d: a multiply where d is a power of two (exact), else the division
@@ -154,16 +164,16 @@ __device__ __forceinline__ void store_vec(float* dst, const float* src) {
 }
 
 // The block's copy of v, S, c and W.
-template <int GE>
-__device__ void load_params(Params<GE>& p, const Args& a) {
-  for (int t = threadIdx.x; t < kT * GE; t += kThreads) {
+template <int T, int GE>
+__device__ void load_params(Params<T, GE>& p, const Args& a) {
+  for (int t = threadIdx.x; t < T * GE; t += kThreads) {
     const int i = t / GE, j = t % GE;
     p.v[i][j] = j < a.d ? __ldg(a.v + i * a.d + j) : 0.f;
   }
-  if (threadIdx.x < kT) p.c[threadIdx.x] = __ldg(a.c + threadIdx.x);
-  if (threadIdx.x < kT * kT) p.W[threadIdx.x] = __ldg(a.W + threadIdx.x);
+  if (threadIdx.x < T) p.c[threadIdx.x] = __ldg(a.c + threadIdx.x);
+  if (threadIdx.x < T * T) p.W[threadIdx.x] = __ldg(a.W + threadIdx.x);
   __syncthreads();
-  if (threadIdx.x < kT) {
+  if (threadIdx.x < T) {
     float acc = 0.f;
     for (int j = 0; j < a.d; ++j) acc += p.v[threadIdx.x][j];
     p.S[threadIdx.x] = acc;
@@ -172,9 +182,10 @@ __device__ void load_params(Params<GE>& p, const Args& a) {
 }
 
 // Loads one row's E floats of each channel (and of gout in K3) for this
-// lane, ReLU applied to the channels; zeros past the row's end or n.
-template <int V, int G, int E, bool kGrad>
-__device__ __forceinline__ void load_row(float (&h)[kT][E], float (&go)[E],
+// lane, the ReLU applied to the channels of the mask M; zeros past the
+// row's end or n.
+template <int T, int M, int V, int G, int E, bool kGrad>
+__device__ __forceinline__ void load_row(float (&h)[T][E], float (&go)[E],
                                          const Args& a, int64_t row,
                                          bool valid, int lane) {
 #pragma unroll
@@ -182,16 +193,18 @@ __device__ __forceinline__ void load_row(float (&h)[kT][E], float (&go)[E],
     const int col = (k * G + lane) * V;
     const bool ok = valid && col < a.d;
 #pragma unroll
-    for (int i = 0; i < kT; ++i) {
+    for (int i = 0; i < T; ++i) {
       if (ok) {
         load_vec<V>(&h[i][k * V], a.z[i] + row * a.ld[i] + col);
       } else {
 #pragma unroll
         for (int u = 0; u < V; ++u) h[i][k * V + u] = 0.f;
       }
+      if ((M >> i) & 1) {
 #pragma unroll
-      for (int u = 0; u < V; ++u)
-        h[i][k * V + u] = fmaxf(h[i][k * V + u], 0.f);
+        for (int u = 0; u < V; ++u)
+          h[i][k * V + u] = fmaxf(h[i][k * V + u], 0.f);
+      }
     }
     if constexpr (kGrad) {
       if (ok) {
@@ -204,21 +217,22 @@ __device__ __forceinline__ void load_row(float (&h)[kT][E], float (&go)[E],
   }
 }
 
+template <int T>
 struct Row {
-  float mu[kT], diff[kT], r[kT], pc[kT], g[kT], att[kT];
+  float mu[T], diff[T], r[T], pc[T], g[T], att[T];
 };
 
 // Row moments, centred projections, scores, gates and softmax weights of
 // one row; K3 (kGrad) also sums q_i = gout . h_i.  Every lane of the
 // warp calls it (the shuffles need the whole warp).
-template <int V, int G, int E, bool kGrad>
+template <int T, int V, int G, int E, bool kGrad>
 __device__ __forceinline__ void row_scalars(
-    Row& s, float (&q)[kT], const float (&h)[kT][E], const float (&go)[E],
-    const Params<G * E>& p, int lane, const DivD& div, int use_ln) {
-  float pj[kT];
+    Row<T>& s, float (&q)[T], const float (&h)[T][E], const float (&go)[E],
+    const Params<T, G * E>& p, int lane, const DivD& div, int use_ln) {
+  float pj[T];
   if (use_ln) {
 #pragma unroll
-    for (int i = 0; i < kT; ++i) {
+    for (int i = 0; i < T; ++i) {
       float s1 = 0.f, s2 = 0.f, qi = 0.f;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
@@ -234,7 +248,7 @@ __device__ __forceinline__ void row_scalars(
       s.diff[i] = __fsub_rn(div(s2), __fmul_rn(s.mu[i], s.mu[i]));
     }
 #pragma unroll
-    for (int i = 0; i < kT; ++i) {
+    for (int i = 0; i < T; ++i) {
       float acc = 0.f;
 #pragma unroll
       for (int k = 0; k < E / V; ++k) {
@@ -247,7 +261,7 @@ __device__ __forceinline__ void row_scalars(
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < kT; ++i) {
+    for (int i = 0; i < T; ++i) {
       float acc = 0.f, qi = 0.f;
 #pragma unroll
       for (int k = 0; k < E / V; ++k) {
@@ -265,7 +279,7 @@ __device__ __forceinline__ void row_scalars(
     }
   }
 #pragma unroll
-  for (int i = 0; i < kT; ++i) {
+  for (int i = 0; i < T; ++i) {
     s.pc[i] = group_sum<G>(pj[i]);
     s.r[i] = 1.f;
     float score = s.pc[i];
@@ -275,33 +289,33 @@ __device__ __forceinline__ void row_scalars(
     }
     s.g[i] = __frcp_rn(1.f + __expf(-score));
   }
-  float l[kT];
+  float l[T];
   float m = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < kT; ++j) {
+  for (int j = 0; j < T; ++j) {
     float acc = 0.f;
 #pragma unroll
-    for (int i = 0; i < kT; ++i) acc += s.g[i] * p.W[i * kT + j];
-    l[j] = acc / static_cast<float>(kT);
+    for (int i = 0; i < T; ++i) acc += s.g[i] * p.W[i * T + j];
+    l[j] = acc / static_cast<float>(T);
     m = fmaxf(m, l[j]);
   }
   float tot = 0.f;
 #pragma unroll
-  for (int j = 0; j < kT; ++j) {
+  for (int j = 0; j < T; ++j) {
     l[j] = __expf(l[j] - m);
     tot += l[j];
   }
   const float inv = __frcp_rn(tot);
 #pragma unroll
-  for (int j = 0; j < kT; ++j) s.att[j] = l[j] * inv;
+  for (int j = 0; j < T; ++j) s.att[j] = l[j] * inv;
 }
 
-template <int V, int G, int E>
-__global__ void __launch_bounds__(kThreads, E >= 16 ? 1 : 2)
+template <int T, int M, int V, int G, int E>
+__global__ void __launch_bounds__(kThreads, (E >= 16 || (T == 4 && E >= 8)) ? 1 : 2)
 attn_fwd_kernel(const Args a) {
   constexpr int kRowsPerWarp = 32 / G;
-  __shared__ Params<G * E> p;
-  load_params<G * E>(p, a);
+  __shared__ Params<T, G * E> p;
+  load_params<T, G * E>(p, a);
   const int lane32 = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lane = lane32 % G, grp = lane32 / G;
   const DivD div(a.d);
@@ -313,10 +327,10 @@ attn_fwd_kernel(const Args a) {
        base < a.n; base += step) {
     const int64_t row = base + grp;
     const bool valid = row < a.n;
-    float h[kT][E], go[E], q[kT];
-    load_row<V, G, E, false>(h, go, a, row, valid, lane);
-    Row s;
-    row_scalars<V, G, E, false>(s, q, h, go, p, lane, div, a.use_ln);
+    float h[T][E], go[E], q[T];
+    load_row<T, M, V, G, E, false>(h, go, a, row, valid, lane);
+    Row<T> s;
+    row_scalars<T, V, G, E, false>(s, q, h, go, p, lane, div, a.use_ln);
     if (!valid) continue;
 #pragma unroll
     for (int k = 0; k < E / V; ++k) {
@@ -326,32 +340,35 @@ attn_fwd_kernel(const Args a) {
 #pragma unroll
       for (int u = 0; u < V; ++u) {
         const int e = k * V + u;
-        o[u] = a.scale * (s.att[0] * h[0][e] + s.att[1] * h[1][e] +
-                          s.att[2] * h[2][e]);
+        float acc = s.att[0] * h[0][e];
+#pragma unroll
+        for (int i = 1; i < T; ++i) acc += s.att[i] * h[i][e];
+        o[u] = a.scale * acc;
       }
       store_vec<V>(a.out + row * a.d + col, o);
     }
   }
 }
 
-template <int V, int G, int E>
-__global__ void __launch_bounds__(kThreads, E >= 16 ? 1 : 2)
+template <int T, int M, int V, int G, int E>
+__global__ void __launch_bounds__(kThreads, (E >= 16 || (T == 4 && E >= 8)) ? 1 : 2)
 attn_bwd_kernel(const Args a) {
   constexpr int kRowsPerWarp = 32 / G;
   constexpr int GE = G * E;
-  __shared__ Params<GE> p;
-  __shared__ float red[kT * GE + kRowSums];
-  __shared__ float rsum[kThreads / G][kRowSums];  // each row group's sums
-  for (int t = threadIdx.x; t < kThreads / G * kRowSums; t += kThreads)
+  constexpr int RS = row_sums(T);
+  __shared__ Params<T, GE> p;
+  __shared__ float red[T * GE + RS];
+  __shared__ float rsum[kThreads / G][RS];  // each row group's sums
+  for (int t = threadIdx.x; t < kThreads / G * RS; t += kThreads)
     (&rsum[0][0])[t] = 0.f;
-  load_params<GE>(p, a);
+  load_params<T, GE>(p, a);
   const int lane32 = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lane = lane32 % G, grp = lane32 / G;
   float* const slot = rsum[warp * kRowsPerWarp + grp];
   const DivD div(a.d);
-  float dv[kT][E];
+  float dv[T][E];
 #pragma unroll
-  for (int i = 0; i < kT; ++i) {
+  for (int i = 0; i < T; ++i) {
 #pragma unroll
     for (int e = 0; e < E; ++e) dv[i][e] = 0.f;
   }
@@ -363,31 +380,33 @@ attn_bwd_kernel(const Args a) {
        base < a.n; base += step) {
     const int64_t row = base + grp;
     const bool valid = row < a.n;
-    float h[kT][E], go[E], q[kT];
-    load_row<V, G, E, true>(h, go, a, row, valid, lane);
-    Row s;
-    row_scalars<V, G, E, true>(s, q, h, go, p, lane, div, a.use_ln);
+    float h[T][E], go[E], q[T];
+    load_row<T, M, V, G, E, true>(h, go, a, row, valid, lane);
+    Row<T> s;
+    row_scalars<T, V, G, E, true>(s, q, h, go, p, lane, div, a.use_ln);
     if (!valid) continue;
 
     // out = K sum_i att_i h_i  ->  d att_i = K (g . h_i); softmax backward
-    float datt[kT], dl[kT];
+    float datt[T], dl[T];
     float sum_ad = 0.f;
 #pragma unroll
-    for (int i = 0; i < kT; ++i) {
+    for (int i = 0; i < T; ++i) {
       datt[i] = a.scale * q[i];
       sum_ad += s.att[i] * datt[i];
     }
 #pragma unroll
-    for (int j = 0; j < kT; ++j) dl[j] = s.att[j] * (datt[j] - sum_ad);
+    for (int j = 0; j < T; ++j) dl[j] = s.att[j] * (datt[j] - sum_ad);
 
-    // dh = K att_i gout + dp_i v_i + dmu_i / d + (2 dm2_i / d) h
-    float dp[kT], dS[kT], dscore[kT], add[kT], mul[kT];
+    // dh = K att_i gout + dp_i v_i - dp_i S_i / d + (2 dm2_i / d)(h - mu_i):
+    // the variance's share centred, as pc is (uncentred, the two large
+    // terms -2 mu dm2 / d and 2 dm2 h / d cancel on near-constant rows)
+    float dp[T], dS[T], dscore[T], add[T], mul[T];
 #pragma unroll
-    for (int i = 0; i < kT; ++i) {
+    for (int i = 0; i < T; ++i) {
       float dg = 0.f;
 #pragma unroll
-      for (int j = 0; j < kT; ++j) dg += p.W[i * kT + j] * dl[j];
-      dg = dg / static_cast<float>(kT);
+      for (int j = 0; j < T; ++j) dg += p.W[i * T + j] * dl[j];
+      dg = dg / static_cast<float>(T);
       dscore[i] = dg * s.g[i] * (1.f - s.g[i]);
       if (a.use_ln) {
         dp[i] = dscore[i] * s.r[i];
@@ -398,8 +417,7 @@ attn_bwd_kernel(const Args a) {
         const float f =
             s.diff[i] > 0.f ? 1.f : (s.diff[i] == 0.f ? 0.5f : 0.f);
         const float dm2 = dvar * f;
-        const float dmu = -dp[i] * p.S[i] - 2.f * s.mu[i] * dm2;
-        add[i] = div(dmu);
+        add[i] = div(-dp[i] * p.S[i]);
         mul[i] = div(2.f * dm2);
       } else {
         dp[i] = dscore[i];
@@ -413,15 +431,18 @@ attn_bwd_kernel(const Args a) {
       const int col = (k * G + lane) * V;
       if (col >= a.d) continue;
 #pragma unroll
-      for (int i = 0; i < kT; ++i) {
+      for (int i = 0; i < T; ++i) {
         float o[V];
 #pragma unroll
         for (int u = 0; u < V; ++u) {
           const int e = k * V + u;
           const float x = h[i][e];
           const float dh = a.scale * s.att[i] * go[e] +
-                           dp[i] * p.v[i][col + u] + add[i] + mul[i] * x;
-          o[u] = x > 0.f ? dh : 0.f;
+                           dp[i] * p.v[i][col + u] + add[i] +
+                           mul[i] * (x - s.mu[i]);
+          // the ReLU's gradient where the channel has it (h = relu(z): z
+          // > 0 exactly where h > 0)
+          o[u] = ((M >> i) & 1) ? (x > 0.f ? dh : 0.f) : dh;
           dv[i][e] += dp[i] * x;
         }
         store_vec<V>(a.dz[i] + row * a.d + col, o);
@@ -429,12 +450,12 @@ attn_bwd_kernel(const Args a) {
     }
     if (lane == 0) {
 #pragma unroll
-      for (int i = 0; i < kT; ++i) {
+      for (int i = 0; i < T; ++i) {
         slot[i] += dS[i];
-        slot[kT + i] += dscore[i];
+        slot[T + i] += dscore[i];
 #pragma unroll
-        for (int j = 0; j < kT; ++j)
-          slot[2 * kT + i * kT + j] += s.g[i] * dl[j];
+        for (int j = 0; j < T; ++j)
+          slot[2 * T + i * T + j] += s.g[i] * dl[j];
       }
     }
   }
@@ -445,7 +466,7 @@ attn_bwd_kernel(const Args a) {
 #pragma unroll
   for (int off = G; off < 32; off <<= 1) {
 #pragma unroll
-    for (int i = 0; i < kT; ++i) {
+    for (int i = 0; i < T; ++i) {
 #pragma unroll
       for (int e = 0; e < E; ++e)
         dv[i][e] += __shfl_xor_sync(0xffffffffu, dv[i][e], off);
@@ -454,7 +475,7 @@ attn_bwd_kernel(const Args a) {
   for (int w = 0; w < kWarps; ++w) {
     if (warp == w && lane32 < G) {
 #pragma unroll
-      for (int i = 0; i < kT; ++i) {
+      for (int i = 0; i < T; ++i) {
 #pragma unroll
         for (int k = 0; k < E / V; ++k) {
 #pragma unroll
@@ -467,30 +488,31 @@ attn_bwd_kernel(const Args a) {
     }
     __syncthreads();
   }
-  if (threadIdx.x < kRowSums) {
+  if (threadIdx.x < RS) {
     float acc = 0.f;
     for (int r = 0; r < kThreads / G; ++r) acc += rsum[r][threadIdx.x];
-    red[kT * GE + threadIdx.x] = acc;
+    red[T * GE + threadIdx.x] = acc;
   }
   __syncthreads();
-  const int cols = kT * a.d + kRowSums;
+  const int cols = T * a.d + RS;
   float* prow = a.partials + static_cast<int64_t>(blockIdx.x) * cols;
   for (int t = threadIdx.x; t < cols; t += kThreads) {
-    prow[t] = t < kT * a.d ? red[(t / a.d) * GE + t % a.d]
-                           : red[kT * GE + t - kT * a.d];
+    prow[t] = t < T * a.d ? red[(t / a.d) * GE + t % a.d]
+                          : red[T * GE + t - T * a.d];
   }
 }
 
 // Sums the partials' rows in a fixed order: 32 row slices per column,
 // then the slices in order.  dv = the dv share + dS, dc = dscore (0
-// without LayerNorm), dW = g (x) dl / 3.
+// without LayerNorm), dW = g (x) dl / T.
+template <int T>
 __global__ void __launch_bounds__(kFinishThreads)
 attn_bwd_finish_kernel(const float* __restrict__ partials, int grid, int d,
                        int use_ln, float* __restrict__ dv,
                        float* __restrict__ dc, float* __restrict__ dW) {
-  extern __shared__ float tot[];  // [3 d + 15]
+  extern __shared__ float tot[];  // [T d + row_sums(T)]
   __shared__ float part[32][33];
-  const int cols = kT * d + kRowSums;
+  const int cols = T * d + row_sums(T);
   const int x = threadIdx.x & 31, y = threadIdx.x >> 5;
   for (int c0 = 0; c0 < cols; c0 += 32) {
     const int col = c0 + x;
@@ -508,13 +530,13 @@ attn_bwd_finish_kernel(const float* __restrict__ partials, int grid, int d,
     }
     __syncthreads();
   }
-  for (int t = threadIdx.x; t < kT * d; t += kFinishThreads)
-    dv[t] = tot[t] + tot[kT * d + t / d];
-  if (threadIdx.x < kT)
-    dc[threadIdx.x] = use_ln ? tot[kT * d + kT + threadIdx.x] : 0.f;
-  if (threadIdx.x < kT * kT)
+  for (int t = threadIdx.x; t < T * d; t += kFinishThreads)
+    dv[t] = tot[t] + tot[T * d + t / d];
+  if (threadIdx.x < T)
+    dc[threadIdx.x] = use_ln ? tot[T * d + T + threadIdx.x] : 0.f;
+  if (threadIdx.x < T * T)
     dW[threadIdx.x] =
-        tot[kT * d + 2 * kT + threadIdx.x] / static_cast<float>(kT);
+        tot[T * d + 2 * T + threadIdx.x] / static_cast<float>(T);
 }
 
 // Blocks of `kernel` the card holds at once (SMs x resident per SM).
@@ -532,50 +554,106 @@ cudaError_t resident(Kernel kernel, int* active) {
 }
 
 // grid <= 0: ask the residency of the instance (no launch)
-template <int V, int G, int E>
+template <int T, int M, int V, int G, int E>
 cudaError_t run_fwd(const Args& a, int grid, int* active, cudaStream_t st) {
-  if (grid <= 0) return resident(attn_fwd_kernel<V, G, E>, active);
-  attn_fwd_kernel<V, G, E><<<grid, kThreads, 0, st>>>(a);
+  if (grid <= 0) return resident(attn_fwd_kernel<T, M, V, G, E>, active);
+  attn_fwd_kernel<T, M, V, G, E><<<grid, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
-template <int V, int G, int E>
+template <int T, int M, int V, int G, int E>
 cudaError_t run_bwd(const Args& a, float* dv, float* dc, float* dW, int grid,
                     int* active, cudaStream_t st) {
-  if (grid <= 0) return resident(attn_bwd_kernel<V, G, E>, active);
-  attn_bwd_kernel<V, G, E><<<grid, kThreads, 0, st>>>(a);
+  if (grid <= 0) return resident(attn_bwd_kernel<T, M, V, G, E>, active);
+  attn_bwd_kernel<T, M, V, G, E><<<grid, kThreads, 0, st>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int cols = kT * a.d + kRowSums;
-  attn_bwd_finish_kernel<<<1, kFinishThreads, cols * sizeof(float), st>>>(
+  const int cols = T * a.d + row_sums(T);
+  attn_bwd_finish_kernel<T><<<1, kFinishThreads, cols * sizeof(float), st>>>(
       a.partials, grid, a.d, a.use_ln, dv, dc, dW);
   return cudaGetLastError();
 }
 
-// (V, G, E) instances; attention_plan in models/layers.py picks one (the
-// last two, 8 and 16 lanes a row at d = 64, only chip_smoke.py's sweep
-// runs, through layers._launch_forward / _launch_backward)
+// (V, G, E) instances; attention_plan in models/layers.py picks one of
+// ACM_K23_INSTANCES.  ACM_K23_SWEEP (8 and 16 lanes a row at d = 64) only
+// chip_smoke.py's sweep runs, through layers._launch_forward /
+// _launch_backward, and only the variant-0 channels have it.
 #define ACM_K23_INSTANCES(X)                                             \
   X(2, 1, 2) X(1, 1, 2) X(4, 1, 8) X(1, 1, 8) X(4, 1, 16) X(1, 1, 16)    \
   X(4, 2, 16) X(1, 2, 16) X(4, 4, 16) X(1, 4, 16) X(4, 8, 16)            \
   X(1, 8, 16) X(4, 16, 16) X(1, 16, 16) X(4, 32, 16) X(1, 32, 16)        \
-  X(4, 32, 32) X(1, 32, 32) X(4, 8, 8) X(4, 16, 4)
+  X(4, 32, 32) X(1, 32, 32)
+#define ACM_K23_SWEEP(X) X(4, 8, 8) X(4, 16, 4)
+
+// (T, ReLU mask) instances: bit i of the mask puts the ReLU on channel i
+// (low, high, mlp, struc): variant 0, variant 1, acmsgc, then the
+// structure channel with variant 0 and with variant 1
+#define ACM_K23_CHANNELS(X) X(3, 7) X(3, 4) X(3, 0) X(4, 15) X(4, 12)
+
+struct Launch {
+  int vec, lanes, elems, grid;
+  int* active;
+  cudaStream_t st;
+};
+
+template <int T, int M>
+cudaError_t fwd_instance(const Args& a, const Launch& l) {
+  cudaError_t err = cudaErrorInvalidValue;  // no such instance
+#define ACM_FWD(V, G, E)                                          \
+  if (l.vec == V && l.lanes == G && l.elems == E) {               \
+    err = run_fwd<T, M, V, G, E>(a, l.grid, l.active, l.st);      \
+  } else
+  ACM_K23_INSTANCES(ACM_FWD) {
+    if constexpr (T == 3 && M == 7) {
+      ACM_K23_SWEEP(ACM_FWD) {}
+    }
+  }
+#undef ACM_FWD
+  return err;
+}
+
+template <int T, int M>
+cudaError_t bwd_instance(const Args& a, float* dv, float* dc, float* dW,
+                         const Launch& l) {
+  cudaError_t err = cudaErrorInvalidValue;  // no such instance
+#define ACM_BWD(V, G, E)                                                  \
+  if (l.vec == V && l.lanes == G && l.elems == E) {                       \
+    err = run_bwd<T, M, V, G, E>(a, dv, dc, dW, l.grid, l.active, l.st);  \
+  } else
+  ACM_K23_INSTANCES(ACM_BWD) {
+    if constexpr (T == 3 && M == 7) {
+      ACM_K23_SWEEP(ACM_BWD) {}
+    }
+  }
+#undef ACM_BWD
+  return err;
+}
+
+void set_channels(Args& a, int t, const void* z0, const void* z1,
+                  const void* z2, const void* z3, int64_t ld0, int64_t ld1,
+                  int64_t ld2, int64_t ld3) {
+  const void* z[kMaxT] = {z0, z1, z2, z3};
+  const int64_t ld[kMaxT] = {ld0, ld1, ld2, ld3};
+  for (int i = 0; i < kMaxT; ++i) {
+    a.z[i] = i < t ? static_cast<const float*>(z[i]) : nullptr;
+    a.ld[i] = i < t ? ld[i] : 0;
+  }
+}
 
 }  // namespace
 
+// t channels z0..z{t-1} (z3 unused at t = 3), relu_mask: bit i puts the
+// ReLU on channel i
 extern "C" int acm_k2_attn_fwd(const void* z0, const void* z1, const void* z2,
-                               int64_t ld0, int64_t ld1, int64_t ld2,
-                               const void* v, const void* c, const void* W,
-                               void* out, int n, int d, int use_ln,
-                               float scale, int vec, int lanes, int elems,
-                               int grid, int* active, void* stream) {
+                               const void* z3, int64_t ld0, int64_t ld1,
+                               int64_t ld2, int64_t ld3, int t,
+                               int relu_mask, const void* v, const void* c,
+                               const void* W, void* out, int n, int d,
+                               int use_ln, float scale, int vec, int lanes,
+                               int elems, int grid, int* active,
+                               void* stream) {
   Args a{};
-  a.z[0] = static_cast<const float*>(z0);
-  a.z[1] = static_cast<const float*>(z1);
-  a.z[2] = static_cast<const float*>(z2);
-  a.ld[0] = ld0;
-  a.ld[1] = ld1;
-  a.ld[2] = ld2;
+  set_channels(a, t, z0, z1, z2, z3, ld0, ld1, ld2, ld3);
   a.v = static_cast<const float*>(v);
   a.c = static_cast<const float*>(c);
   a.W = static_cast<const float*>(W);
@@ -584,53 +662,52 @@ extern "C" int acm_k2_attn_fwd(const void* z0, const void* z1, const void* z2,
   a.d = d;
   a.use_ln = use_ln;
   a.scale = scale;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Launch l{vec, lanes, elems, grid, active,
+                 static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaErrorInvalidValue;  // no such instance
-#define ACM_FWD(V, G, E)                              \
-  if (vec == V && lanes == G && elems == E) {         \
-    err = run_fwd<V, G, E>(a, grid, active, st);      \
+#define ACM_CH(T_, M_)                          \
+  if (t == T_ && relu_mask == M_) {             \
+    err = fwd_instance<T_, M_>(a, l);           \
   } else
-  ACM_K23_INSTANCES(ACM_FWD) {}
-#undef ACM_FWD
+  ACM_K23_CHANNELS(ACM_CH) {}
+#undef ACM_CH
   return static_cast<int>(err);
 }
 
 extern "C" int acm_k3_attn_bwd(
-    const void* z0, const void* z1, const void* z2, int64_t ld0, int64_t ld1,
-    int64_t ld2, const void* gout, int64_t ldg, const void* v, const void* c,
-    const void* W, void* dz0, void* dz1, void* dz2, void* partials, void* dv,
-    void* dc, void* dW, int n, int d, int use_ln, float scale, int vec,
-    int lanes, int elems, int grid, int* active, void* stream) {
+    const void* z0, const void* z1, const void* z2, const void* z3,
+    int64_t ld0, int64_t ld1, int64_t ld2, int64_t ld3, int t, int relu_mask,
+    const void* gout, int64_t ldg, const void* v, const void* c,
+    const void* W, void* dz0, void* dz1, void* dz2, void* dz3,
+    void* partials, void* dv, void* dc, void* dW, int n, int d, int use_ln,
+    float scale, int vec, int lanes, int elems, int grid, int* active,
+    void* stream) {
   Args a{};
-  a.z[0] = static_cast<const float*>(z0);
-  a.z[1] = static_cast<const float*>(z1);
-  a.z[2] = static_cast<const float*>(z2);
-  a.ld[0] = ld0;
-  a.ld[1] = ld1;
-  a.ld[2] = ld2;
+  set_channels(a, t, z0, z1, z2, z3, ld0, ld1, ld2, ld3);
   a.gout = static_cast<const float*>(gout);
   a.ldg = ldg;
   a.v = static_cast<const float*>(v);
   a.c = static_cast<const float*>(c);
   a.W = static_cast<const float*>(W);
-  a.dz[0] = static_cast<float*>(dz0);
-  a.dz[1] = static_cast<float*>(dz1);
-  a.dz[2] = static_cast<float*>(dz2);
+  void* dz[kMaxT] = {dz0, dz1, dz2, dz3};
+  for (int i = 0; i < kMaxT; ++i)
+    a.dz[i] = i < t ? static_cast<float*>(dz[i]) : nullptr;
   a.partials = static_cast<float*>(partials);
   a.n = n;
   a.d = d;
   a.use_ln = use_ln;
   a.scale = scale;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Launch l{vec, lanes, elems, grid, active,
+                 static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaErrorInvalidValue;  // no such instance
-#define ACM_BWD(V, G, E)                                                  \
-  if (vec == V && lanes == G && elems == E) {                             \
-    err = run_bwd<V, G, E>(a, static_cast<float*>(dv),                    \
-                           static_cast<float*>(dc), static_cast<float*>(dW), \
-                           grid, active, st);                             \
+#define ACM_CH(T_, M_)                                                     \
+  if (t == T_ && relu_mask == M_) {                                        \
+    err = bwd_instance<T_, M_>(a, static_cast<float*>(dv),                 \
+                               static_cast<float*>(dc),                    \
+                               static_cast<float*>(dW), l);                \
   } else
-  ACM_K23_INSTANCES(ACM_BWD) {}
-#undef ACM_BWD
+  ACM_K23_CHANNELS(ACM_CH) {}
+#undef ACM_CH
   return static_cast<int>(err);
 }
 

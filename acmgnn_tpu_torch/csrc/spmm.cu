@@ -13,7 +13,12 @@
 // weighs 1) and apply the row scale rs once after the sum; a transpose
 // half's column scale is applied to the operand before the call.  x is
 // bf16 or f32 with a row stride ld >= d, accumulation is f32, z and out
-// are f32 [n_rows, d].
+// are f32 [n_rows, d].  Valued halves (symmetric normalization, weighted
+// graphs) store w_e in the gather dtype, as the JAX package's value
+// planes (ell.py:547-553): with bf16 values and operand each term w_e *
+// x is rounded to bf16 (the product of two bf16 values is exact in f32,
+// so that is JAX's one rounding) and added in f32; f32 values round the
+// product to f32.
 //
 // What bounds it on an H100: bytes and, below them, latency.  The HBM
 // floor is the index stream (4 bytes a nonzero) plus the output; the
@@ -94,9 +99,29 @@ __device__ __forceinline__ float element(const R& r, int i) {
 
 // The partial sums of one tile of a row, for one lane: entries
 // beg + lane, beg + lane + stride, ... in order.
-template <typename T, int VB, int kTile>
+// a valued term w * v in the values' type W, as f32
+template <typename W>
+__device__ __forceinline__ float term(float w, float v) {
+  const float p = __fmul_rn(w, v);
+  if constexpr (sizeof(W) == 2) {
+    return __bfloat162float(__float2bfloat16_rn(p));
+  } else {
+    return p;
+  }
+}
+
+template <typename W>
+__device__ __forceinline__ float value(const W* vals, int64_t e) {
+  if constexpr (sizeof(W) == 2) {
+    return __bfloat162float(vals[e]);
+  } else {
+    return __ldg(vals + e);
+  }
+}
+
+template <typename T, typename W, int VB, int kTile>
 __device__ __forceinline__ void gather_tile(
-    const int32_t* __restrict__ indices, const float* __restrict__ vals,
+    const int32_t* __restrict__ indices, const W* __restrict__ vals,
     const T* __restrict__ x, int64_t ld, int c0, int dt, int64_t beg,
     int64_t end, int lane, int stride, float (&acc)[kTile]) {
   using R = typename Raw<VB>::type;
@@ -128,7 +153,7 @@ __device__ __forceinline__ void gather_tile(
     for (int u = 0; u < kUnroll; ++u) {
       if (col[u] < 0) continue;
       const float w = vals != nullptr
-          ? __ldg(vals + e0 + static_cast<int64_t>(u) * stride) : 1.f;
+          ? value<W>(vals, e0 + static_cast<int64_t>(u) * stride) : 1.f;
 #pragma unroll
       for (int k = 0; k < kMax; ++k) {
 #pragma unroll
@@ -136,7 +161,7 @@ __device__ __forceinline__ void gather_tile(
           const int j = k * kPer + i;
           if (j < dt) {
             const float v = element<T>(raw[u][k], i);
-            acc[j] = vals != nullptr ? __fadd_rn(acc[j], __fmul_rn(w, v))
+            acc[j] = vals != nullptr ? __fadd_rn(acc[j], term<W>(w, v))
                                      : acc[j] + v;
           }
         }
@@ -157,11 +182,11 @@ __device__ __forceinline__ float epilogue(float s, float rs, int col,
 
 // kTile: 8 columns for d <= 8 (fewer registers, more warps in flight),
 // else 16.
-template <typename T, int VB, int kTile>
+template <typename T, typename W, int VB, int kTile>
 __global__ void __launch_bounds__(kThreads)
 spmm_rows_kernel(const int64_t* __restrict__ indptr,
                  const int32_t* __restrict__ indices,
-                 const float* __restrict__ vals,
+                 const W* __restrict__ vals,
                  const int32_t* __restrict__ row_ids,
                  const T* __restrict__ x, int64_t ld,
                  const float* __restrict__ z,
@@ -185,8 +210,8 @@ spmm_rows_kernel(const int64_t* __restrict__ indptr,
     for (int c0 = 0; c0 < d; c0 += kTile) {
       const int dt = min(kTile, d - c0);
       float acc[kTile];
-      gather_tile<T, VB, kTile>(indices, vals, x, ld, c0, dt, beg, end,
-                                threadIdx.x, kThreads, acc);
+      gather_tile<T, W, VB, kTile>(indices, vals, x, ld, c0, dt, beg, end,
+                                   threadIdx.x, kThreads, acc);
 #pragma unroll
       for (int j = 0; j < kTile; ++j) {
         if (j < dt) {
@@ -227,8 +252,8 @@ spmm_rows_kernel(const int64_t* __restrict__ indptr,
   for (int c0 = 0; c0 < d; c0 += kTile) {
     const int dt = min(kTile, d - c0);
     float acc[kTile];
-    gather_tile<T, VB, kTile>(indices, vals, x, ld, c0, dt, beg, end, lig, g,
-                              acc);
+    gather_tile<T, W, VB, kTile>(indices, vals, x, ld, c0, dt, beg, end, lig,
+                                 g, acc);
 #pragma unroll
     for (int j = 0; j < kTile; ++j) {
       if (j < dt) {
@@ -264,8 +289,8 @@ spmm_rows_kernel(const int64_t* __restrict__ indptr,
   }
 }
 
-template <typename T, int VB>
-void launch(const int64_t* indptr, const int32_t* indices, const float* vals,
+template <typename T, typename W, int VB>
+void launch(const int64_t* indptr, const int32_t* indices, const W* vals,
             const int32_t* row_ids, const T* x, int64_t ld, const float* z,
             const float* alpha, const float* beta, const float* row_scale,
             float* out, int d, const Classes& cls, cudaStream_t stream) {
@@ -277,11 +302,11 @@ void launch(const int64_t* indptr, const int32_t* indices, const float* vals,
       d % 4 == 0 && aligned(out) && (z == nullptr || aligned(z));
   const unsigned blocks = cls.block_end[kClasses - 1];
   if (d <= 8) {
-    spmm_rows_kernel<T, VB, 8><<<blocks, kThreads, 0, stream>>>(
+    spmm_rows_kernel<T, W, VB, 8><<<blocks, kThreads, 0, stream>>>(
         indptr, indices, vals, row_ids, x, ld, z, alpha, beta, row_scale,
         out, d, vec_store, cls);
   } else {
-    spmm_rows_kernel<T, VB, kMaxTile><<<blocks, kThreads, 0, stream>>>(
+    spmm_rows_kernel<T, W, VB, kMaxTile><<<blocks, kThreads, 0, stream>>>(
         indptr, indices, vals, row_ids, x, ld, z, alpha, beta, row_scale,
         out, d, vec_store, cls);
   }
@@ -290,8 +315,8 @@ void launch(const int64_t* indptr, const int32_t* indices, const float* vals,
 // The widest load (16, 8, 4 bytes, else one element) that every operand
 // row's start and stride are aligned to; a 16-column tile's loads then
 // stay inside the row's ld elements.
-template <typename T>
-void dispatch(const int64_t* ip, const int32_t* ix, const float* vl,
+template <typename T, typename W>
+void dispatch(const int64_t* ip, const int32_t* ix, const W* vl,
               const int32_t* ri, const void* x, int64_t ld, const float* zz,
               const float* al, const float* be, const float* rs, float* o,
               int d, const Classes& cls, cudaStream_t s) {
@@ -300,23 +325,25 @@ void dispatch(const int64_t* ip, const int32_t* ix, const float* vl,
   const auto addr = reinterpret_cast<uintptr_t>(x);
   auto fits = [&](int vb) { return row_bytes % vb == 0 && addr % vb == 0; };
   if (fits(16)) {
-    launch<T, 16>(ip, ix, vl, ri, xx, ld, zz, al, be, rs, o, d, cls, s);
+    launch<T, W, 16>(ip, ix, vl, ri, xx, ld, zz, al, be, rs, o, d, cls, s);
   } else if (fits(8)) {
-    launch<T, 8>(ip, ix, vl, ri, xx, ld, zz, al, be, rs, o, d, cls, s);
+    launch<T, W, 8>(ip, ix, vl, ri, xx, ld, zz, al, be, rs, o, d, cls, s);
   } else if (sizeof(T) == 4 || fits(4)) {
-    launch<T, 4>(ip, ix, vl, ri, xx, ld, zz, al, be, rs, o, d, cls, s);
+    launch<T, W, 4>(ip, ix, vl, ri, xx, ld, zz, al, be, rs, o, d, cls, s);
   } else {
-    launch<T, sizeof(T)>(ip, ix, vl, ri, xx, ld, zz, al, be, rs, o, d, cls,
-                         s);
+    launch<T, W, sizeof(T)>(ip, ix, vl, ri, xx, ld, zz, al, be, rs, o, d,
+                            cls, s);
   }
 }
 
 }  // namespace
 
 // class_end: the end of each class's sorted rows (lanes 256, 32, ..., 1);
-// class_end[6] == n_rows.
+// class_end[6] == n_rows.  vals_bf16: the values are bf16 (then x is bf16
+// too), else f32 (or none: vals == nullptr).
 extern "C" int acm_k1_spmm(const void* indptr, const void* indices,
-                           const void* vals, const void* row_ids,
+                           const void* vals, int vals_bf16,
+                           const void* row_ids,
                            const void* x, int x_bf16, int64_t ld,
                            const void* z, const void* alpha, const void* beta,
                            const void* row_scale, void* out, int n_rows,
@@ -334,7 +361,6 @@ extern "C" int acm_k1_spmm(const void* indptr, const void* indices,
   }
   const auto* ip = static_cast<const int64_t*>(indptr);
   const auto* ix = static_cast<const int32_t*>(indices);
-  const auto* vl = static_cast<const float*>(vals);
   const auto* ri = static_cast<const int32_t*>(row_ids);
   const auto* zz = static_cast<const float*>(z);
   const auto* al = static_cast<const float*>(alpha);
@@ -342,12 +368,19 @@ extern "C" int acm_k1_spmm(const void* indptr, const void* indices,
   const auto* rs = static_cast<const float*>(row_scale);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+  if (vals_bf16 && !x_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* vl = static_cast<const float*>(vals);
   if (blocks > 0) {
-    if (x_bf16) {
-      dispatch<__nv_bfloat16>(ip, ix, vl, ri, x, ld, zz, al, be, rs, o, d,
-                              cls, s);
+    if (vals_bf16) {
+      dispatch<__nv_bfloat16, __nv_bfloat16>(
+          ip, ix, static_cast<const __nv_bfloat16*>(vals), ri, x, ld, zz, al,
+          be, rs, o, d, cls, s);
+    } else if (x_bf16) {
+      dispatch<__nv_bfloat16, float>(ip, ix, vl, ri, x, ld, zz, al, be, rs,
+                                     o, d, cls, s);
     } else {
-      dispatch<float>(ip, ix, vl, ri, x, ld, zz, al, be, rs, o, d, cls, s);
+      dispatch<float, float>(ip, ix, vl, ri, x, ld, zz, al, be, rs, o, d,
+                             cls, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

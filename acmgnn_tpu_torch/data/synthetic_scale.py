@@ -8,7 +8,7 @@
 - ``linkx_scale_graph``: the LINKX-scale stand-ins of ``bench.py``'s
   ``bench_epoch_linkx_scale``, a Chung-Lu graph whose top expected degree
   is ``max_deg`` (``chung_lu_edges``), with normal features and uniform
-  labels.  Only the genius row is ported so far.
+  labels: bench.py's four rows (penn94, arxiv_year, genius, penn94_pp).
 """
 
 from __future__ import annotations
@@ -23,7 +23,12 @@ TWITCH_PAIRS = 6_797_557
 # sampled endpoint pairs, features, classes and the top node's expected
 # degree.
 LINKX_SCALE = {
+    "penn94": dict(n=41_554, e=1_362_229, f=4814, c=2, max_deg=4_500),
+    "arxiv_year": dict(n=169_343, e=1_166_243, f=128, c=5, max_deg=13_000),
     "genius": dict(n=421_961, e=984_979, f=12, c=2, max_deg=10_000),
+    # the ACM-GCN++ row (Table 16): penn94's graph, with the structure
+    # channel in its configuration
+    "penn94_pp": dict(n=41_554, e=1_362_229, f=4814, c=2, max_deg=4_500),
 }
 
 

@@ -9,16 +9,21 @@ import torch
 
 
 def params_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
-    """Flatten a flax parameter tree (numpy arrays; a ``{"params": ...}``
-    variables dict is accepted too) into a ``state_dict``.
+    """Flatten a flax parameter tree (numpy arrays), or a variables dict
+    ``{"params": ..., "batch_stats": ...}``, into a ``state_dict``.
 
     Names and orientations are the same on both sides, so the copy is
     flat: ``gcn_0/weight_low`` ([F_in, F_out], used as ``x @ W``) becomes
     ``gcn_0.weight_low``, ``gcn_0/layer_norm_low/scale`` becomes
-    ``gcn_0.layer_norm_low.scale``.
+    ``gcn_0.layer_norm_low.scale``; a BatchNorm's ``batch_stats`` entries
+    ``mlpX/bn_0/{mean,var}`` become its buffers ``mlpX.bn_0.mean`` /
+    ``mlpX.bn_0.var``.
     """
-    if set(params) == {"params"}:
-        params = params["params"]
+    trees = [params]
+    if "params" in params:
+        trees = [params["params"]]
+        if "batch_stats" in params:
+            trees.append(params["batch_stats"])
     out: dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str) -> None:
@@ -29,5 +34,6 @@ def params_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             else:
                 out[name] = torch.from_numpy(np.array(val, dtype=np.float32))
 
-    walk(params, "")
+    for tree in trees:
+        walk(tree, "")
     return out

@@ -1,9 +1,19 @@
 """ACM-GNN model container — counterpart of ``acmgnn_tpu/models/models.py``.
 
-Ported so far: the 2-layer ``acmgcn``/``acmgcnp`` stacks,
-``dropout(x) -> ACMConv(F->H) -> relu -> dropout -> ACMConv(H->C)``, with
-the paired eval forward of the joint training loop and the first-layer
-input hoist.
+Stacks per ``model_type`` (the JAX package's, ``MODEL_TYPES``):
+
+- ``acmgcn``/``acmgcnp``/``acmgcnpp``, and the baselines ``gcn``/``mlp``
+  and ``acmgraphsage``: two layers, ``conv(F->H) -> relu -> dropout ->
+  conv(H->C)``, the ACM family's input dropout'd first; ``acmgcnpp``
+  adds ``dropout(relu(mlpX(x)))`` as a skip into the second layer;
+- ``acmsgc``/``sgc``: one layer (F->C) over ``Â^k``;
+- ``acmsnowball``/``snowball``: densely concatenated blocks
+  (``nlayers``), the input hoist on block 0 only;
+- ``graphsage``: two ``SAGEConv`` layers; ``gcnII``: ``fc_in``, ``nlayers``
+  ``GCNIIConv`` layers with the initial residual, ``fc_out``.
+
+The paired eval forward of the joint training loop (``paired_eval``:
+acmgcn/acmgcnp/acmgcnpp) shares every gather with the train forward.
 """
 
 from __future__ import annotations
@@ -13,59 +23,135 @@ from typing import Optional
 import torch
 from torch import nn
 
-from acmgnn_tpu_torch.models.layers import ACMConv
+from acmgnn_tpu_torch.models.layers import (
+    ACM_FAMILY,
+    MODEL_TYPES,
+    ACMConv,
+    Dense,
+    GCNIIConv,
+    MLPBlock,
+    SAGEConv,
+    dropout,
+)
 from acmgnn_tpu_torch.ops.graph import Operators
 
-
-def dropout(h: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with an explicit generator (flax ``nn.Dropout``
-    semantics: keep with probability ``1 - rate``, scale kept values)."""
-    if not training or rate == 0.0:
-        return h
-    keep = torch.rand(h.shape, generator=generator, device=h.device) \
-        < 1.0 - rate
-    return torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
+PAIRED_EVAL = ("acmgcn", "acmgcnp", "acmgcnpp")
 
 
 class ACMGNN(nn.Module):
-    """Two ACM layers; parameters initialised from ``seed``."""
+    """The model of ``model_type``; parameters initialised from ``seed``."""
 
     def __init__(self, nfeat: int, nhid: int, nclass: int, *,
-                 model_type: str = "acmgcn", dropout: float = 0.5,
-                 variant: bool = False, structure_info: bool = False,
-                 use_layernorm: bool = False, hoist_first: bool = False,
+                 model_type: str = "acmgcn", nlayers: int = 1,
+                 dropout: float = 0.5, variant: bool = False,
+                 structure_info: bool = False, use_layernorm: bool = False,
+                 nnodes: Optional[int] = None, init_layers_X: int = 1,
+                 alpha: float = 0.1, lamda: float = 0.5,
+                 hoist_first: bool = False,
                  gemm_dtype: Optional[str] = None, seed: int = 0):
         super().__init__()
+        if model_type not in MODEL_TYPES:
+            raise ValueError(f"unknown model_type: {model_type!r}")
+        self.model_type = model_type
+        self.nlayers = nlayers
         self.dropout = dropout
         self.hoist_first = hoist_first
         gen = torch.Generator().manual_seed(seed)
         common = dict(model_type=model_type, variant=variant,
                       structure_info=structure_info,
-                      use_layernorm=use_layernorm, gemm_dtype=gemm_dtype,
-                      generator=gen)
-        self.gcn_0 = ACMConv(nfeat, nhid, input_hoist=hoist_first, **common)
-        self.gcn_1 = ACMConv(nhid, nclass, **common)
+                      use_layernorm=use_layernorm, nnodes=nnodes,
+                      gemm_dtype=gemm_dtype, generator=gen)
+
+        def conv(f_in, f_out, hoist=False):
+            return ACMConv(f_in, f_out, input_hoist=hoist, **common)
+
+        if model_type == "acmgcnpp":
+            self.mlpX = MLPBlock(nfeat, nhid, nhid, num_layers=init_layers_X,
+                                 gemm_dtype=gemm_dtype, generator=gen)
+        if model_type in ("acmsnowball", "snowball"):
+            for k in range(nlayers):
+                setattr(self, f"gcn_{k}", conv(nfeat + k * nhid, nhid,
+                                               hoist_first and k == 0))
+            setattr(self, f"gcn_{nlayers}",
+                    conv(nfeat + nlayers * nhid, nclass))
+        elif model_type in ("acmsgc", "sgc"):
+            self.gcn_0 = conv(nfeat, nclass,
+                              hoist_first and model_type == "sgc")
+        elif model_type == "graphsage":
+            self.sage_0 = SAGEConv(nfeat, nhid, generator=gen)
+            self.sage_1 = SAGEConv(nhid, nclass, generator=gen)
+        elif model_type == "gcnII":
+            self.fc_in = Dense(nfeat, nhid, generator=gen)
+            for l in range(1, max(nlayers, 1) + 1):
+                setattr(self, f"gcnII_{l}", GCNIIConv(
+                    nhid, nhid, layer_index=l, alpha=alpha, lamda=lamda,
+                    generator=gen))
+            self.fc_out = Dense(nhid, nclass, generator=gen)
+        else:
+            self.gcn_0 = conv(nfeat, nhid, hoist_first)
+            self.gcn_1 = conv(nhid, nclass)
 
     def forward(self, x: torch.Tensor, ops: Operators, *,
                 training: bool = False, paired_eval: bool = False,
                 generator: Optional[torch.Generator] = None):
         """Logits; with ``paired_eval`` also the no-dropout eval logits of
-        the same parameters, sharing every gather: ``(train, eval)``."""
+        the same parameters, sharing every gather: ``(train, eval)``.  In
+        train mode BatchNorm (acmgcnpp's ``mlpX``) updates its running
+        statistics, which the paired eval branch then reads."""
+        mt = self.model_type
+        if paired_eval and mt not in PAIRED_EVAL:
+            raise ValueError(f"paired_eval unsupported for {mt!r}")
 
         def drop(h):
             return dropout(h, self.dropout, training, generator)
 
         x_eval = x if paired_eval else None
-        x = drop(x)
-        # the precomputed aggregate is valid only while dropout is a no-op
+        pre_dropped = mt in ACM_FAMILY
+        if pre_dropped:
+            x = drop(x)
+        if mt == "acmgcnpp":
+            xx = drop(torch.relu(self.mlpX(x, training, generator)))
+            if paired_eval:   # feeds metrics only
+                xx_eval = torch.relu(self.mlpX(x_eval, False)).detach()
+        # ACM-family inputs were dropout'd: the precomputed aggregate is
+        # valid only while dropout is a no-op (gcn/sgc/snowball feed raw X)
         agg0 = ops.x_agg if self.hoist_first else None
-        train_agg = agg0 if (self.dropout == 0.0 or not training) else None
+        train_agg = (agg0 if (not pre_dropped or self.dropout == 0.0
+                              or not training) else None)
+
+        if mt in ("acmsnowball", "snowball"):
+            blocks = []
+            for k in range(self.nlayers):
+                inp = torch.cat([x] + blocks, dim=1) if blocks else x
+                out = getattr(self, f"gcn_{k}")(
+                    inp, ops, x_agg=train_agg if k == 0 else None)
+                blocks.append(drop(torch.relu(out)))
+            return getattr(self, f"gcn_{self.nlayers}")(
+                torch.cat([x] + blocks, dim=1), ops)
+        if mt in ("acmsgc", "sgc"):
+            return self.gcn_0(x, ops,
+                              x_agg=train_agg if mt == "sgc" else None)
+        if mt == "graphsage":
+            fea1 = drop(torch.relu(self.sage_0(x, ops)))
+            return self.sage_1(fea1, ops)
+        if mt == "gcnII":
+            h = torch.relu(self.fc_in(drop(x)))
+            h0 = h
+            for l in range(1, max(self.nlayers, 1) + 1):
+                h = torch.relu(getattr(self, f"gcnII_{l}")(drop(h), h0, ops))
+            return self.fc_out(drop(h))
         if paired_eval:
+            # the eval branch's layer-1 input is the raw feature matrix:
+            # its precomputed aggregate is always valid
             fea1, fea1_eval = self.gcn_0(x, ops, x_eval=x_eval,
                                          x_agg=train_agg, x_eval_agg=agg0)
             fea1 = drop(torch.relu(fea1))
             fea1_eval = torch.relu(fea1_eval)
+            if mt == "acmgcnpp":
+                fea1 = fea1 + xx
+                fea1_eval = fea1_eval + xx_eval
             return self.gcn_1(fea1, ops, x_eval=fea1_eval)
         fea1 = drop(torch.relu(self.gcn_0(x, ops, x_agg=train_agg)))
+        if mt == "acmgcnpp":
+            fea1 = fea1 + xx
         return self.gcn_1(fea1, ops)

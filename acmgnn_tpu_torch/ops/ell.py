@@ -18,9 +18,10 @@ The semantics carry over unchanged:
 - its transpose is column-uniform and pre-scales the operand instead
   (``Âᵀg = Bᵀ(s⊙g)``), sharing the forward half's structure arrays when
   the binary structure is symmetric;
-- matrices that are neither keep per-nonzero values (``vals``, f32 — the
-  JAX package stores them in the gather dtype and rounds each product
-  there; no operator of the ported paths is valued);
+- matrices that are neither (symmetric normalization, weighted graphs)
+  keep per-nonzero values (``vals``), stored in the gather dtype as the
+  JAX package stores its value planes: with bf16 gathers each product
+  ``v·x`` is rounded to bf16 before the f32 sum (``ell.py:547-553``);
 - the operand is cast to the gather dtype (bf16 on the headline path),
   the sum accumulates in f32, zero-degree rows give zero.
 """
@@ -75,7 +76,8 @@ class EllHalf:
     indptr: torch.Tensor        # [N + 1] int64, sorted-row order
     indices: torch.Tensor       # [nnz] int32 column ids
     row_ids: torch.Tensor       # [N] int32: sorted row i writes row_ids[i]
-    vals: Optional[torch.Tensor] = None       # [nnz] f32; None = value-free
+    vals: Optional[torch.Tensor] = None       # [nnz] gather dtype; None =
+    #                                           value-free
     row_scale: Optional[torch.Tensor] = None  # [N] f32, output-row order
     pre_scale: Optional[torch.Tensor] = None  # [N] f32, operand-row order
     # operand rows (the matrix's column count); None: square, N
@@ -139,7 +141,8 @@ def _row_uniform_values(csr: sp.csr_matrix):
 
 
 def _build_half(csr: sp.csr_matrix, uniform_scale=None,
-                scale_mode: str = "post") -> EllHalf:
+                scale_mode: str = "post",
+                vals_dtype: torch.dtype = torch.float32) -> EllHalf:
     deg = np.diff(csr.indptr)
     order = np.argsort(-deg, kind="stable")
     srt = csr[order]
@@ -150,7 +153,8 @@ def _build_half(csr: sp.csr_matrix, uniform_scale=None,
         num_cols=csr.shape[1],
     )
     if uniform_scale is None:
-        half.vals = torch.from_numpy(srt.data.astype(np.float32))
+        half.vals = torch.from_numpy(srt.data.astype(np.float32)).to(
+            vals_dtype)
     elif scale_mode == "post":
         half.row_scale = torch.from_numpy(
             np.asarray(uniform_scale, np.float32))
@@ -162,14 +166,16 @@ def _build_half(csr: sp.csr_matrix, uniform_scale=None,
 
 def make_ell_op(mat: sp.spmatrix, *, gather_dtype=torch.float32) -> EllOp:
     """Host build of both halves (same half-selection rules as
-    ``acmgnn_tpu.ops.ell.make_ell_op`` without its TPU layout knobs)."""
+    ``acmgnn_tpu.ops.ell.make_ell_op`` without its TPU layout knobs);
+    value planes in ``gather_dtype``.  A matrix equal to its transpose,
+    values included, has one half for both directions."""
     csr = sp.csr_matrix(mat)
     csr.sort_indices()
     csr_t = csr.T.tocsr()
     csr_t.sort_indices()
     scale_fwd = _row_uniform_values(csr)
     scale_bwd = _row_uniform_values(csr_t)
-    fwd = _build_half(csr, scale_fwd, "post")
+    fwd = _build_half(csr, scale_fwd, "post", gather_dtype)
     sym_struct = (np.array_equal(csr.indptr, csr_t.indptr)
                   and np.array_equal(csr.indices, csr_t.indices))
     if sym_struct and np.array_equal(csr.data, csr_t.data):
@@ -186,7 +192,7 @@ def make_ell_op(mat: sp.spmatrix, *, gather_dtype=torch.float32) -> EllOp:
     elif scale_fwd is not None:
         bwd = _build_half(csr_t, scale_fwd, "pre")
     else:
-        bwd = _build_half(csr_t)
+        bwd = _build_half(csr_t, vals_dtype=gather_dtype)
     return EllOp(fwd=fwd, bwd=bwd, num_nodes=csr.shape[0],
                  nnz=int(csr.nnz), gather_dtype=gather_dtype)
 
@@ -231,6 +237,13 @@ def k1_operand(x: torch.Tensor, dtype: torch.dtype,
     return out
 
 
+def _valued_terms(g: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``vals·g`` rounded to the values' dtype (the gather dtype), as K1
+    and the JAX package round a valued term; exact in f32 for bf16 ×
+    bf16, so one rounding."""
+    return (g * vals.float()).to(vals.dtype).float()
+
+
 def row_gather_spmm_plain(half: EllHalf, x: torch.Tensor,
                           z: Optional[torch.Tensor], alpha, beta):
     """Plain PyTorch version of K1 (same arithmetic, another sum order)."""
@@ -240,7 +253,7 @@ def row_gather_spmm_plain(half: EllHalf, x: torch.Tensor,
     rows = torch.repeat_interleave(half.row_ids.long(), deg)
     g = x.float()[half.indices.long()]
     if half.vals is not None:
-        g = g * half.vals[:, None]
+        g = _valued_terms(g, half.vals[:, None])
     acc = torch.zeros(n, d, dtype=torch.float32, device=dev)
     acc.index_add_(0, rows, g)
     if half.row_scale is not None:
@@ -280,7 +293,8 @@ def k1_order_replay(half: EllHalf, x: torch.Tensor,
             e = e.clamp(max=last)
             term = xf[torch.where(valid, half.indices[e].long(), zero_row)]
             if half.vals is not None:
-                term = term * torch.where(valid, half.vals[e], 0.0)[..., None]
+                term = _valued_terms(term, torch.where(
+                    valid, half.vals[e], 0)[..., None])
             acc = acc + term
         warp = min(lanes, 32)
         acc = acc.view(row1 - row0, lanes // warp, warp, d)
@@ -325,6 +339,13 @@ def _row_gather_spmm_cuda(half: EllHalf, x, z, alpha, beta):
     if x.shape[0] != half.num_cols:
         raise ValueError(f"operand has {x.shape[0]} rows, operator "
                          f"{half.num_cols} columns")
+    vals_bf16 = half.vals is not None and half.vals.dtype == torch.bfloat16
+    if half.vals is not None and (
+            half.vals.dtype not in (torch.bfloat16, torch.float32)
+            or vals_bf16 and x.dtype != torch.bfloat16):
+        raise TypeError(f"K1 takes f32 values, or bf16 values with a bf16 "
+                        f"operand; got {half.vals.dtype} values, "
+                        f"{x.dtype} operand")
     arrays = [half.indptr, half.indices, half.row_ids]
     arrays += [t for t in (z, half.vals, half.row_scale) if t is not None]
     # the operand may be a row-padded view (k1_operand)
@@ -339,15 +360,17 @@ def _row_gather_spmm_cuda(half: EllHalf, x, z, alpha, beta):
     lib = kernels.library("spmm")
     rc = lib.acm_k1_spmm(
         kernels.ptr(half.indptr), kernels.ptr(half.indices),
-        kernels.ptr(half.vals), kernels.ptr(half.row_ids), kernels.ptr(x),
-        int(x.dtype == torch.bfloat16), x.stride(0), kernels.ptr(z),
+        kernels.ptr(half.vals), int(vals_bf16), kernels.ptr(half.row_ids),
+        kernels.ptr(x), int(x.dtype == torch.bfloat16), x.stride(0),
+        kernels.ptr(z),
         kernels.ptr(alpha_t), kernels.ptr(beta_t),
         kernels.ptr(half.row_scale), kernels.ptr(out), n, d,
         (ctypes.c_int * len(K1_LANES))(*half.lane_classes),
         kernels.stream(),
     )
     kernels.check(lib, rc, "K1 spmm")
-    kernels.count(f"k1_spmm_w{d}")
+    kernels.count(f"k1_spmm_w{d}" + ("_valued" if half.vals is not None
+                                      else ""))
     return out
 
 

@@ -48,23 +48,24 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # argtypes of every C entry point, by library
 _SIGNATURES = {
     "spmm": {
-        # indptr, indices, vals, row_ids, x, x_bf16, ld, z, alpha, beta,
-        # row_scale, out, n_rows, d, class_end (host), stream
-        "acm_k1_spmm": [_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _I,
-                        _I, _IP, _P],
+        # indptr, indices, vals, vals_bf16, row_ids, x, x_bf16, ld, z,
+        # alpha, beta, row_scale, out, n_rows, d, class_end (host), stream
+        "acm_k1_spmm": [_P, _P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _P, _P,
+                        _I, _I, _IP, _P],
     },
     "attention": {
-        # z0, z1, z2, ld0, ld1, ld2, v, c, W, out, n, d, use_ln, scale,
-        # vec, lanes, elems, grid (0: residency query into active),
-        # active, stream
-        "acm_k2_attn_fwd": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I,
-                            _I, _F, _I, _I, _I, _I, _IP, _P],
-        # z0, z1, z2, ld0, ld1, ld2, gout, ldg, v, c, W, dz0, dz1, dz2,
+        # z0..z3, ld0..ld3, t (channels), relu_mask, v, c, W, out, n, d,
+        # use_ln, scale, vec, lanes, elems, grid (0: residency query into
+        # active), active, stream
+        "acm_k2_attn_fwd": [_P] * 4 + [_L] * 4 + [_I, _I, _P, _P, _P, _P, _I,
+                                                  _I, _I, _F, _I, _I, _I, _I,
+                                                  _IP, _P],
+        # z0..z3, ld0..ld3, t, relu_mask, gout, ldg, v, c, W, dz0..dz3,
         # partials, dv, dc, dW, n, d, use_ln, scale, vec, lanes, elems,
         # grid, active, stream
-        "acm_k3_attn_bwd": [_P, _P, _P, _L, _L, _L, _P, _L, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
-                            _I, _I, _IP, _P],
+        "acm_k3_attn_bwd": [_P] * 4 + [_L] * 4 + [_I, _I, _P, _L, _P, _P, _P]
+        + [_P] * 4 + [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _IP,
+                      _P],
     },
     "coo": {
         # row, col, val, nnz, slice_nnz, slice_offset, span_rows,

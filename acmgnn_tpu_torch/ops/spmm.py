@@ -1,8 +1,12 @@
-"""SpMM front end: ``spmm``, ``spmm_high``, ``spmm_transpose``, ``spmm_multi``.
+"""SpMM front end: ``spmm``, ``spmm_high``, ``spmm_transpose``,
+``spmm_multi``, ``spmm_dual``.
 
 Counterpart of ``acmgnn_tpu/ops/spmm.py``.  Every product is one call
 of K1 on an ``EllOp`` (``ops/ell.py``) or of K5 on a ``CooOp``
 (``ops/coo.py``); both kernels share one per-column epilogue.  On a
+``DenseOp`` it is one f32 GEMM over all the operands (``torch.mm``:
+cuBLAS on the card, as ``jnp.dot`` is XLA's in the JAX package), its
+backward ``matᵀ @ g`` over the differentiable prefix.  On a
 rank's share of a sharded operator (``parallel/sharded.py``) the product
 packs and exchanges the operand rows first, and the operands, residuals
 and results are the rank's ``[rows_per_part, d]`` slabs.
@@ -26,7 +30,7 @@ from acmgnn_tpu_torch.ops.ell import (
     k1_operand,
     row_gather_spmm,
 )
-from acmgnn_tpu_torch.ops.graph import CooOp, EllOp
+from acmgnn_tpu_torch.ops.graph import CooOp, DenseOp, EllOp
 from acmgnn_tpu_torch.parallel.sharded import (
     ShardedCooOp,
     ShardedEllOp,
@@ -36,7 +40,18 @@ from acmgnn_tpu_torch.parallel.sharded import (
     sharded_spmm_transpose,
 )
 
-SparseOp = Union[EllOp, CooOp, ShardedEllOp, ShardedCooOp]
+SparseOp = Union[DenseOp, EllOp, CooOp, ShardedEllOp, ShardedCooOp]
+
+
+def _dense_epilogue(out, z, alpha, beta):
+    """``alpha[j]·z[:, j] + beta[j]·out[:, j]`` per column (alpha 0 and
+    beta 1 where None)."""
+    dev = out.device
+    if beta is not None:
+        out = column_constants(beta, dev) * out
+    if z is not None and alpha is not None and any(alpha):
+        out = column_constants(alpha, dev) * z + out
+    return out
 
 
 def spmm_transpose(op: SparseOp, g: torch.Tensor, sign=None,
@@ -58,6 +73,9 @@ def spmm_transpose(op: SparseOp, g: torch.Tensor, sign=None,
         return sharded_spmm_transpose(op, g.float(), sign, residual,
                                       residual_cols)
     x = g if sign is None else g * column_constants(sign, g.device)
+    if isinstance(op, DenseOp):
+        return _dense_epilogue(op.mat.T @ x.float(), residual, residual_cols,
+                               None)
     if isinstance(op, CooOp):
         return coo_spmm(op.bwd, x.float(), z=residual, alpha=residual_cols)
     half = op.bwd
@@ -86,6 +104,12 @@ class _FusedGather(torch.autograd.Function):
         elif isinstance(op, CooOp):
             out = coo_spmm(op.fwd, z_cat.float(), z=residual, alpha=alpha,
                            beta=beta)
+        elif isinstance(op, DenseOp):
+            az = op.mat @ z_cat.float()
+            if z_cat.dtype == torch.bfloat16:
+                # jnp.dot(mat, x_bf16, preferred_element_type=bf16)
+                az = az.to(torch.bfloat16).float()
+            out = _dense_epilogue(az, residual, alpha, beta)
         else:
             # K1 gathers a bf16 operand as it is (its values are exact in
             # f32), so bf16-stored features get no f32 copy
@@ -145,3 +169,9 @@ def spmm(op: SparseOp, x: torch.Tensor) -> torch.Tensor:
 def spmm_high(op_low: SparseOp, x: torch.Tensor) -> torch.Tensor:
     """``(I - Â) @ x`` computed as ``x - Â x``."""
     return spmm_multi(op_low, [x], [True])[0]
+
+
+def spmm_dual(op_low: SparseOp, z_low: torch.Tensor, z_high: torch.Tensor):
+    """``(Â z_low, z_high - Â z_high)`` in one traversal: ``spmm_multi``
+    with flags ``[False, True]``."""
+    return tuple(spmm_multi(op_low, [z_low, z_high], [False, True]))

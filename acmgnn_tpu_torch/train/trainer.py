@@ -7,15 +7,16 @@ selection, the early-stopping window and ``remat``:
 - ``run_joint``, where epoch k's dropout train forward and epoch k-1's
   eval forward share one paired pass and every sparse gather;
 - ``run``, the sequential loop: a train step, then a separate eval
-  forward;
+  forward (every model type outside ``JOINT_CAPABLE``);
 
-the single-card entry points ``run_experiment`` (multi-split, the fast
+``build_model`` for the twelve model types, the single-card entry points ``run_experiment`` (multi-split, the fast
 path) and ``run_experiment_stepwise`` (one epoch at a time with
 ``RunStats``), ``prepare_data`` with ``maybe_reorder`` and bf16 feature
 storage; and the sharded path, ``prepare_sharded_data`` and
 ``run_experiment_sharded``: the graph row-partitioned over the ranks of
 a process group, the same runner with global losses and metrics and
-all-reduced gradients.
+all-reduced gradients (acmgcn/acmgcnp, variant 0, row normalization,
+ELL or COO: ``refuse_unported_sharded``).
 
 The JAX package fuses the whole split into one ``lax.while_loop`` whose
 body carries a ``SplitState`` on the device.  Here the loop body keeps the
@@ -46,6 +47,7 @@ from acmgnn_tpu_torch.data.splits import (
     indices_to_masks,
     random_disassortative_splits,
 )
+from acmgnn_tpu_torch.models.layers import batch_stats_frozen
 from acmgnn_tpu_torch.models.models import ACMGNN
 from acmgnn_tpu_torch.ops import kernels
 from acmgnn_tpu_torch.ops.graph import (
@@ -188,23 +190,33 @@ def train_forward(model: ACMGNN, x, ops, generator, *,
 
     def region(x_):
         calls[0] += 1
-        return run(x_, generator if calls[0] == 1 else recompute_generator)
+        if calls[0] == 1:
+            return run(x_, generator)
+        # the recompute: BatchNorm's running statistics were updated once
+        with batch_stats_frozen():
+            return run(x_, recompute_generator)
 
     return checkpoint(region, x, use_reentrant=False,
                       preserve_rng_state=False)
 
 
 def build_model(cfg: TrainConfig, nfeat: int, nclass: int, *, device=None,
-                seed: int = 0) -> ACMGNN:
+                seed: int = 0, nnodes: Optional[int] = None) -> ACMGNN:
     """The model of ``cfg`` on ``device`` (the card unless asked
-    otherwise), initialised from ``seed``."""
+    otherwise), initialised from ``seed``; ``nnodes`` sizes the structure
+    channel's embedding (``cfg.structure_info``)."""
     return ACMGNN(
         nfeat, cfg.hidden, nclass,
         model_type=cfg.model_type,
+        nlayers=cfg.nlayers,
         dropout=cfg.dropout,
         variant=cfg.variant,
         structure_info=cfg.structure_info,
         use_layernorm=cfg.resolve_layernorm(),
+        nnodes=nnodes,
+        init_layers_X=cfg.init_layers_X,
+        alpha=cfg.alpha,
+        lamda=cfg.lamda,
         hoist_first=cfg.resolve_hoist(),
         gemm_dtype=None if cfg.gemm_dtype == "float32" else cfg.gemm_dtype,
         seed=seed,
@@ -628,7 +640,9 @@ def prepare_data(dataset: GraphData, cfg: TrainConfig, device=None):
     if cfg.resolve_feature_normalize():
         features = row_normalize_features(features)
     ops = precompute_operators(
-        data.adj, normalization=cfg.normalization, fmt=cfg.operator_format,
+        data.adj, normalization=cfg.normalization,
+        hops=cfg.hops if cfg.model_type in ("acmsgc", "sgc") else 1,
+        structure_info=cfg.structure_info, fmt=cfg.operator_format,
         spmm_dtype=_DTYPES[cfg.spmm_dtype],
     ).to(dev)
     labels = _host_labels(data.labels)
@@ -696,6 +710,27 @@ def _rank_and_world(group):
     return dist.get_rank(group), dist.get_world_size(group)
 
 
+def refuse_unported_sharded(cfg: TrainConfig) -> None:
+    """The sharded path runs acmgcn/acmgcnp, variant 0, on the
+    row-normalized ELL or COO operator; it refuses by name what it does
+    not port yet (ROADMAP.md A8)."""
+    unported = []
+    if cfg.model_type not in ("acmgcn", "acmgcnp"):
+        unported.append(f"model_type {cfg.model_type!r}")
+    if cfg.variant:
+        unported.append("variant 1")
+    if cfg.structure_info:
+        unported.append("the structure channel (structure_info)")
+    if cfg.normalization != "row":
+        unported.append(f"normalization {cfg.normalization!r}")
+    if cfg.operator_format == "dense":
+        unported.append("the dense operator format")
+    if unported:
+        raise NotImplementedError(
+            "the sharded path does not port " + ", ".join(unported)
+            + " yet (ROADMAP.md A8)")
+
+
 def prepare_sharded_data(dataset: GraphData, cfg: TrainConfig, *,
                          group=None, device=None,
                          exchange: str = "auto") -> ShardedData:
@@ -710,6 +745,7 @@ def prepare_sharded_data(dataset: GraphData, cfg: TrainConfig, *,
     ``Â X`` through the sharded operator."""
     dev = resolve_device(device)
     rank, world = _rank_and_world(group)
+    refuse_unported_sharded(cfg)
     if not isinstance(dataset, GraphData):
         raise NotImplementedError("dataset loaders are not ported yet; "
                                   "pass a GraphData")
@@ -907,7 +943,7 @@ def run_experiment(dataset: GraphData, cfg: TrainConfig, *, splits=None,
 
         def run_once():
             model = build_model(cfg, x.shape[1], nclass, device=dev,
-                                seed=cfg.seed + idx)
+                                seed=cfg.seed + idx, nnodes=x.shape[0])
             res = runner(model, ops, x, labels, masks, seed=cfg.seed + idx,
                          labels_onehot=labels_onehot, hparams=hparams)
             _sync(dev)
@@ -1022,7 +1058,7 @@ def run_experiment_stepwise(dataset: GraphData, cfg: TrainConfig, *,
         packed = (pack_labels_and_masks(labels, masks)
                   if cfg.metric == "rocauc" else None)
         model = build_model(cfg, x.shape[1], nclass, device=dev,
-                            seed=cfg.seed + idx)
+                            seed=cfg.seed + idx, nnodes=x.shape[0])
         opt = make_optimizer(cfg, list(model.parameters()))
         train_epoch, eval_epoch = make_epoch_fns(model, cfg)
         for epoch in range(cfg.epochs):

@@ -125,6 +125,42 @@ Phases (any failure exits non-zero and prints no result):
       forms: ms/epoch over the run and over the replays, medians and
       quartiles, the pairs won; one profile of each form.
 
+9. The operator layer and the model zoo:
+   a. the kernel instances of this slice against their plain versions:
+      K2/K3 at each (channels, ReLU mask) instance, with and without
+      LayerNorm, at the rows and widths of each run that launches it
+      (four channels: penn94_pp's 41,554 rows at d=64 and d=2; the masks
+      of variant 1 with and without the structure channel and of acmsgc:
+      the zoo's 2,000 rows at d=64 and d=2, the chameleon-shaped graph's
+      2,277 at d=64 and d=5), their summed gradients with the two
+      planted faults;
+      K1 with valued halves (bf16 and f32 values) on the headline graph
+      in symmetric normalization at widths 7, 8 and 4, bit for bit
+      against ``k1_order_replay``; K1 on penn94_pp's structure operator
+      at w64 and w2 (its own transpose); K5 on the symmetric-normalized
+      COO operator; each timed beside its plain version, its bound and
+      ``torch.sparse.mm`` where one computes the same product;
+   b. penn94_pp at full width (bench.py's row: ACM-GCN++ with the
+      structure channel, N=41,554, F=4,814, bf16 gathers and GEMMs, joint
+      loop, hoist), 20 captured epochs: ms/epoch over the run and the
+      replays, the capture, finite losses, launch counts as ``pp_counts``
+      implies, and a profile; then the headline configuration with
+      symmetric normalization on the valued ELL operator (bf16 and f32
+      values) and on COO, 20 captured epochs each, launch counts as
+      ``joint_counts`` implies;
+   c. the dense operator on a chameleon-shaped graph (N=2,277, F=2,325,
+      C=5; ``fmt="auto"``): ACM-GCN+ with the structure channel and
+      variant 1, and acmsgc over Â², 20 captured epochs each, timed,
+      with launch counts; each eager against captured bit for bit, and
+      card against CPU (1e-4) on each of 20 steps from the card's state;
+      acmsgc's whole 20-epoch trajectory too, the structure case's
+      printed beside the CPU port's own runs one rounding apart;
+   d. every model type of the zoo (and acmgcnpp with a BatchNorm,
+      variant 1, the structure channel with variant 1, symmetric
+      normalization) on a small twitch-shaped graph: a few epochs eager
+      against captured bit for bit (parameters and BatchNorm statistics,
+      launch counts equal), then card against CPU (1e-4).
+
 The line before the last is the kernel table as JSON (every row with
 ``ms`` and ``device_ms``, ``library_ms`` and ``library_device_ms``); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -767,11 +803,11 @@ def _planted_faults(got, want, scales, partials, n, use_ln, what):
     read."""
     import torch
 
-    d = got[0].shape[1]
+    t, d = got[0].shape
     p = partials
-    lost = (p[:, :3 * d].view(-1, 3, d) + p[:, 3 * d:3 * d + 3, None],
-            p[:, 3 * d + 3:3 * d + 6] * use_ln,
-            p[:, 3 * d + 6:].view(-1, 3, 3) / 3)
+    lost = (p[:, :t * d].view(-1, t, d) + p[:, t * d:t * d + t, None],
+            p[:, t * d + t:t * d + 2 * t] * use_ln,
+            p[:, t * d + 2 * t:].view(-1, t, t) / t)
     new = torch.zeros(p.shape[0], device=p.device)
     old = torch.zeros_like(new)
     for g_, w_, s_, l_ in zip(got, want, scales, lost):
@@ -795,44 +831,49 @@ def _planted_faults(got, want, scales, partials, n, use_ln, what):
 ATTN_SWEEP_LANES = (4, 8, 16)    # lanes a row of K2/K3 swept at d=64
 
 
-def _attention_case(n, d, gen, dev):
-    """Channels before the ReLU (randn, with rows that have no positive
-    entry, all-zero rows and scattered exact zeros), parameters and an
-    output gradient."""
+def _attention_case(n, d, gen, dev, t=3):
+    """``t`` channels before their ReLU (randn, with rows that have no
+    positive entry, all-zero rows and scattered exact zeros), parameters
+    and an output gradient."""
     import torch
 
-    zs = [torch.randn(n, d, generator=gen, device=dev) for _ in range(3)]
+    zs = [torch.randn(n, d, generator=gen, device=dev) for _ in range(t)]
     zs[2][:1000] = -zs[2][:1000].abs()
     zs[1][1000:2000] = 0.0
     zs[0][::7, 0] = 0.0
-    v = torch.randn(3, d, generator=gen, device=dev)
-    c = torch.randn(3, generator=gen, device=dev)
-    W = torch.rand(3, 3, generator=gen, device=dev) * 2 - 1
+    v = torch.randn(t, d, generator=gen, device=dev)
+    c = torch.randn(t, generator=gen, device=dev)
+    W = torch.rand(t, t, generator=gen, device=dev) * 2 - 1
     gout = torch.randn(n, d, generator=gen, device=dev)
     return zs, v, c, W, gout
 
 
 def _check_attention(layers, args, bargs, tag, plan, faults=False):
     """K2 and K3 at ``plan`` (lanes a row, floats a lane) against their
-    plain versions: the output and dz_i per element, dv, dc and dW as
-    sums over the rows (with ``faults``, the check's planted faults too).
-    Returns the largest error of each kernel."""
-    n, d = args[0].shape
-    zs, rest = args[:3], args[3:]
-    got = layers._launch_forward(zs, *rest, plan)
+    plain versions, ``args`` = ``(channels, v, c, W, use_ln, scale[,
+    relu])``: the output and dz_i per element, dv, dc and dW as sums over
+    the rows (with ``faults``, the check's planted faults too).  Returns
+    the largest error of each kernel."""
+    zs, rest = args[0], args[1:]
+    relu = layers.relu_flags(args[6] if len(args) > 6 else None, len(zs))
+    n, d = zs[0].shape
+    t = len(zs)
+    fwd_name = layers._counter("fwd", relu, d)
+    bwd_name = layers._counter("bwd", relu, d)
+    got = layers._launch_forward(zs, *rest[:5], plan, relu)
     e_fwd = max_err(got, layers.attention_mix_forward_plain(*args), d,
-                    f"k2_attn_fwd_d{d}{tag}")
-    *got, partials = layers._launch_backward(zs, *bargs[3:], plan)
+                    f"{fwd_name}{tag}")
+    *got, partials = layers._launch_backward(zs, *bargs[1:7], plan, relu)
     want = layers.attention_mix_backward_plain(*bargs)
-    errs = [max_err(got[i], want[i], d, f"k3_attn_bwd_d{d}{tag} dz{i}")
-            for i in range(3)]
+    errs = [max_err(got[i], want[i], d, f"{bwd_name}{tag} dz{i}")
+            for i in range(t)]
     scales = layers.attention_grad_scales(*bargs)
-    errs += [sum_err(g_, w_, s_, f"k3_attn_bwd_d{d}{tag} {name}")
-             for name, g_, w_, s_ in zip(("dv", "dc", "dW"), got[3:],
-                                         want[3:], scales)]
+    errs += [sum_err(g_, w_, s_, f"{bwd_name}{tag} {name}")
+             for name, g_, w_, s_ in zip(("dv", "dc", "dW"), got[t:],
+                                         want[t:], scales)]
     if faults:
-        _planted_faults(got[3:], want[3:], scales, partials, n, args[-2],
-                        f"k3_attn_bwd_d{d}{tag}")
+        _planted_faults(got[t:], want[t:], scales, partials, n, args[4],
+                        f"{bwd_name}{tag}")
     return e_fwd, max(errs)
 
 
@@ -848,8 +889,8 @@ def attention_rows(n: int, gen, use_ln: bool, suffix: str = ""):
     rows = []
     for d in (64, 2):
         zs, v, c, W, gout = _attention_case(n, d, gen, dev)
-        args = (*zs, v, c, W, use_ln, 3.0)
-        bargs = (*zs, gout, v, c, W, use_ln, 3.0)
+        args = (zs, v, c, W, use_ln, 3.0)
+        bargs = (zs, gout, v, c, W, use_ln, 3.0)
         e_fwd, e_bwd = _check_attention(layers, args, bargs, suffix,
                                         layers.attention_plan(d), True)
         first = layers.attention_mix_backward(*bargs)
@@ -869,9 +910,9 @@ def attention_rows(n: int, gen, use_ln: bool, suffix: str = ""):
                 _check_attention(layers, args, bargs,
                                  f"{suffix} {lanes} lanes", plan)
                 t_fwd = device_ms(lambda: layers._launch_forward(
-                    zs, *args[3:], plan))
+                    zs, *args[1:], plan))
                 t_bwd = device_ms(lambda: layers._launch_backward(
-                    zs, *bargs[3:], plan))
+                    zs, *bargs[1:], plan))
                 sweep.append(f"{lanes}: K2 {_ms(t_fwd)}, K3 {_ms(t_bwd)}")
             print(f"  k2/k3 d64{suffix} device ms by lanes a row (the "
                   f"plan uses {layers.attention_plan(64)[0]}): "
@@ -879,7 +920,7 @@ def attention_rows(n: int, gen, use_ln: bool, suffix: str = ""):
         # v, c and W in (K3: and dv, dc and dW out); K3 writes its
         # partials and the finishing kernel reads them
         params = 4 * (3 * d + 12)
-        k3_bytes = (28 * n * d + 2 * 4 * grid * (3 * d + layers.ROW_SUMS)
+        k3_bytes = (28 * n * d + 2 * 4 * grid * (3 * d + layers.row_sums(3))
                     + 2 * params)
         fwd = dict(
             counter=f"k2_attn_fwd_d{d}", err=e_fwd,
@@ -972,13 +1013,16 @@ def sequential_counts(bodies, gather, input_width, k4=True):
 
 def remat_counts(bodies, setup=1):
     """``joint_counts`` of the headline with ``remat``: the backward
-    re-runs the train forward once, so every K1 and K2 launch of the
-    forward (the paired eval branch's included) runs twice; the
-    transpose, K3 and ``setup`` set-up gathers do not
+    re-runs the train forward once, up to its last launch whose inputs
+    autograd saved (torch's non-reentrant checkpoint stops there), so
+    every K1 and K2 launch of the forward runs twice but the paired eval
+    branch's layer-2 K2, the last one, which feeds metrics only and saves
+    nothing; the transpose, K3 and ``setup`` set-up gathers run once
     (tests/test_torch_experiment.py pins this rule on the CPU)."""
     out = joint_counts(bodies, "k1_spmm", 7)
-    for name in ("k1_spmm_w8", "k2_attn_fwd_d64", "k2_attn_fwd_d2"):
+    for name in ("k1_spmm_w8", "k2_attn_fwd_d64"):
         out[name] *= 2
+    out["k2_attn_fwd_d2"] = 3 * bodies
     out["k1_spmm_w7"] = 2 * bodies + setup
     return out
 
@@ -1020,7 +1064,7 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
         masks = tuple(prep.place(m) for m in masks_np)
     torch.cuda.synchronize()
     t_prep = time.perf_counter() - t0
-    model = build_model(cfg, x.shape[1], nclass)
+    model = build_model(cfg, x.shape[1], nclass, nnodes=x.shape[0])
     warm = make_split_runner(model, cfg, group=group)
     _, warm_state = warm(ops, x, y, masks, seed=1, return_state=True,
                          labels_onehot=y1h)
@@ -1334,7 +1378,8 @@ def trained(data, cfg, masks_np, device, seed=3):
     )
 
     _, ops, x, y, y1h, nclass = prepare_data(data, cfg, device=device)
-    model = build_model(cfg, x.shape[1], nclass, device=device, seed=seed)
+    model = build_model(cfg, x.shape[1], nclass, device=device, seed=seed,
+                        nnodes=x.shape[0])
     masks = tuple(torch.from_numpy(m).to(device) for m in masks_np)
     res = make_split_runner(model, cfg, capturable=True)(
         ops, x, y, masks, labels_onehot=y1h)
@@ -2565,7 +2610,8 @@ def _split(prepared, cfg, masks, graph, seed=7):
     from acmgnn_tpu_torch.train.trainer import build_model, make_split_runner
 
     _, ops, x, y, y1h, nclass = prepared
-    model = build_model(cfg, x.shape[1], nclass, seed=seed)
+    model = build_model(cfg, x.shape[1], nclass, seed=seed,
+                        nnodes=x.shape[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2578,7 +2624,7 @@ def _split(prepared, cfg, masks, graph, seed=7):
                 counts=dict(kernels.launches),
                 peak=(torch.cuda.max_memory_allocated() - base) / 2**20,
                 params={k: p.detach().clone()
-                        for k, p in model.named_parameters()})
+                        for k, p in model.state_dict().items()})
 
 
 def _bit_equal(tag, eager, captured):
@@ -2744,6 +2790,650 @@ def phase_capture(adj, feats, labels, g_adj, g_feats, g_labels, g_masks):
     }
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 9: the operator layer and the model zoo
+# ---------------------------------------------------------------------------
+
+PP_EPOCHS, SYM_EPOCHS, DENSE_EPOCHS, ZOO_EPOCHS = 20, 20, 20, 8
+# 9c holds a card's trajectory to the CPU's only where the CPU port's own
+# runs with the features moved by one ulp, WITNESS_DRAWS draws
+# (``cpu_witness``), stay within WITNESS_SHARE of the tolerance
+WITNESS_SHARE, WITNESS_DRAWS = 0.1, 4
+# 9d holds the card to the CPU over ZOO_CPU_EPOCHS at lr 1e-3, weight
+# decay 5e-4, dropout 0: there the CPU port's own ELL and COO orders part
+# by at most 1.7e-5 on every case (this configuration measured on a CPU);
+# without decay a BatchNorm channel the ReLU leaves dead turns rounding
+# into Adam's ±lr steps (acmgcnpp with init_layers_X 2: 6.2e-3 after 8
+# epochs), with decay 1e-3 a gcnII weight whose gradient cancels its
+# decay does (4.6e-4), and at 8 epochs acmgcnp reads 6.2e-5
+ZOO_CPU_EPOCHS = 5
+# the structure operator's K1 widths on penn94_pp: hidden 64, 2 classes
+PP_STRUCT_WIDTHS = (64, 2)
+# a chameleon-shaped graph (the small heterophily benchmark of the paper's
+# ACM-Pytorch pipeline: 2,277 nodes, 36,101 edges, 2,325 bag-of-words
+# features, 5 classes): Chung-Lu pairs with a top degree of 700, binary
+# features at 2% density; 'auto' builds the dense operator
+CHAMELEON = dict(n=2277, e=36_101, f=2325, c=5, max_deg=700)
+ZOO_N = 2000             # 9d's graph
+# the K2/K3 instances (ReLU per channel; T is its length) checked in 9a,
+# each at the rows and widths of the run whose launches its rows report:
+# (mask, phase, case, rows (None: penn94_pp's), widths)
+INSTANCE_RUNS = (
+    ((True,) * 4, "9b", "penn94_pp", None, (64, 2)),
+    ((False, False, True, True), "9d", "acmgcnp structure variant 1", ZOO_N,
+     (64, 2)),
+    ((False, False, True, True), "9c", "acmgcnp structure variant 1",
+     CHAMELEON["n"], (64, CHAMELEON["c"])),
+    ((False, False, True), "9d", "acmgcn variant 1", ZOO_N, (64, 2)),
+    ((False, False, False), "9d", "acmsgc", ZOO_N, (2,)),
+    ((False, False, False), "9c", "acmsgc hops 2", CHAMELEON["n"],
+     (CHAMELEON["c"],)),
+)
+INSTANCE_SITE = {"9b": "penn94", "9c": "chameleon", "9d": "zoo"}
+
+
+def valued(counts):
+    """``counts`` with every K1 counter of a valued operator's name."""
+    return {(f"{k}_valued" if k.startswith("k1_spmm") else k): v
+            for k, v in counts.items()}
+
+
+def pp_counts(bodies, setup=1):
+    """Launches a joint penn94_pp run of ``bodies`` iterations implies
+    (acmgcnpp, hoist, structure channel, F = 4814 > HOIST_MAX_COLS):
+    layer 1's train branch projects and gathers 2·64 = 128 wide and
+    transposes as wide (its eval branch reads x_agg: one w4814 set-up
+    gather), the structure gather of each layer (w64, w2) and its
+    transpose, layer 2's paired gather (w8) and its prefix transpose
+    (w4); K2 at T = 4 per branch and layer, K3 per layer."""
+    b = bodies
+    return {"k1_spmm_w4814": setup, "k1_spmm_w128": 2 * b,
+            "k1_spmm_w64": 2 * b, "k1_spmm_w2": 2 * b, "k1_spmm_w8": b,
+            "k1_spmm_w4": b, "k2_attn_fwd_t4_d64": 2 * b,
+            "k2_attn_fwd_t4_d2": 2 * b, "k3_attn_bwd_t4_d64": b,
+            "k3_attn_bwd_t4_d2": b}
+
+
+def penn94_pp_config(**over):
+    """bench.py's penn94_pp scenario (``bench.py:562-564``, ``:599-660``):
+    ACM-GCN++ with the structure channel, hidden 64, dropout 0.5, Adam lr
+    0.01 wd 1e-3, projected LayerNorm, joint loop, hoist, bf16 gathers
+    and GEMMs, ELL."""
+    from acmgnn_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(**dict(dict(
+        model_type="acmgcnpp", structure_info=True, hidden=64, dropout=0.5,
+        lr=0.01, weight_decay=1e-3, epochs=WARM_EPOCHS, early_stopping=0,
+        selection="val_metric", operator_format="ell",
+        spmm_dtype="bfloat16", gemm_dtype="bfloat16", joint=True,
+        hoist_first=True), **over))
+
+
+def _k1_rows(op_half, xs, tag, counter_of, lib, replaces):
+    """K1 on ``op_half`` for each ``(operand, z, alpha, beta, name)``:
+    per element against the plain version, bit for bit against
+    ``k1_order_replay``, timed beside the plain version and
+    ``torch.sparse.mm`` on ``lib``; one kernel-table row each."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.ell import (
+        k1_order_replay,
+        row_gather_spmm,
+        row_gather_spmm_plain,
+    )
+
+    rows = []
+    n, nnz = op_half.num_rows, int(op_half.indices.numel())
+    for xg, z, alpha, beta, name in xs:
+        d = xg.shape[1]
+        a = tuple(alpha or (0.0,) * d)
+        b = tuple(beta or (1.0,) * d)
+        half_abs = (op_half if op_half.vals is None else
+                    dataclasses.replace(op_half, vals=op_half.vals.abs()))
+        got = row_gather_spmm(op_half, xg, z=z, alpha=alpha, beta=beta)
+        err = spmm_err(got, row_gather_spmm_plain(op_half, xg, z, a, b),
+                       row_gather_spmm_plain(half_abs, xg.abs(), _abs(z),
+                                             _abs(a), _abs(b)),
+                       _ell_row_terms(op_half) + int(z is not None),
+                       name + tag)
+        if not torch.equal(got, k1_order_replay(
+                op_half, xg, z if any(a) else None, a, b)):
+            fail(f"{name + tag}: K1 differs from its summation order "
+                 f"replayed")
+        vals = "none" if op_half.vals is None else op_half.vals.dtype
+        print(f"  {name + tag}: equal bit for bit to k1_order_replay "
+              f"(values {vals}, operand {xg.dtype}, row stride "
+              f"{xg.stride(0)})")
+
+        def run():
+            return row_gather_spmm(op_half, xg, z=z, alpha=alpha, beta=beta)
+
+        ms, dev_ms = time_ms(run, 50), device_ms(run)
+        plain_ms = time_ms(lambda: row_gather_spmm_plain(op_half, xg, z, a,
+                                                         b), 5)
+        xf = xg.float()
+        lib_ms = time_ms(lambda: torch.sparse.mm(lib, xf), 20)
+        lib_dev = device_ms(lambda: torch.sparse.mm(lib, xf))
+        vbytes = 0 if op_half.vals is None else \
+            nnz * op_half.vals.element_size()
+        nbytes = (8 * (n + 1) + 4 * nnz + vbytes + 4 * n
+                  + xg.element_size() * xg.shape[0] * d + 4 * n * d
+                  + (4 * n * d if z is not None else 0)
+                  + (4 * n if op_half.row_scale is not None else 0))
+        b_ms, b_by = bound(nbytes, (2 if op_half.vals is not None else 1)
+                           * nnz * d + 2 * n * d)
+        rows.append(dict(name=name + tag, counter=counter_of(d), route="cuda",
+                         source="acmgnn_tpu_torch/csrc/spmm.cu",
+                         replaces=replaces, max_abs_err=err, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms,
+                         library_device_ms=lib_dev))
+        print(f"  {name + tag}: {ms:.4f} ms, device {_ms(dev_ms)} (plain "
+              f"{plain_ms:.3f}, torch.sparse.mm f32 {lib_ms:.4f}, device "
+              f"{_ms(lib_dev)}; bound {b_ms:.4f} {b_by})")
+    return rows
+
+
+def _attention_instance_rows(n, gen, relu, use_ln, widths, tag):
+    """K2/K3 at one (T, ReLU mask) instance on ``n`` rows, against the
+    plain versions (planted faults included), bit-reproducible, timed."""
+    import torch
+
+    from acmgnn_tpu_torch.models import layers
+
+    dev = torch.device("cuda")
+    t = len(relu)
+    scale = 1.0 if t == 4 else 3.0
+    rows = []
+    for d in widths:
+        zs, v, c, W, gout = _attention_case(n, d, gen, dev, t)
+        args = (zs, v, c, W, use_ln, scale, relu)
+        bargs = (zs, gout, v, c, W, use_ln, scale, relu)
+        e_fwd, e_bwd = _check_attention(layers, args, bargs, tag,
+                                        layers.attention_plan(d), True)
+        first = layers.attention_mix_backward(*bargs)
+        if not all(torch.equal(a, b) for a, b in zip(
+                first, layers.attention_mix_backward(*bargs))):
+            fail(f"{layers._counter('bwd', relu, d)}{tag}: two launches "
+                 f"differ")
+        vec, g, e, resident = layers.attention_config(
+            "bwd", zs, [d] * t, d, layers.attention_plan(d), relu)
+        grid = layers.attention_grid(n, g, resident)
+        params = 4 * (t * d + 2 * t + t * t)
+        k3_bytes = (4 * n * d * (2 * t + 1)
+                    + 2 * 4 * grid * (t * d + layers.row_sums(t))
+                    + 2 * params)
+        for kind, fn, plain, err, nbytes, flops in (
+                ("fwd", layers.attention_mix_forward,
+                 layers.attention_mix_forward_plain, e_fwd,
+                 4 * n * d * (t + 1) + params, (6 * t + 2) * n * d),
+                ("bwd", layers.attention_mix_backward,
+                 layers.attention_mix_backward_plain, e_bwd, k3_bytes,
+                 (14 * t + 2) * n * d)):
+            a_ = args if kind == "fwd" else bargs
+            counter = layers._counter(kind, relu, d)
+            ms = time_ms(lambda: fn(*a_), 50)
+            dev_ms = device_ms(lambda: fn(*a_))
+            plain_ms = time_ms(lambda: plain(*a_), 10)
+            b_ms, b_by = bound(nbytes, flops)
+            rows.append(dict(
+                name=counter + tag, counter=counter, route="cuda",
+                source="acmgnn_tpu_torch/csrc/attention.cu",
+                replaces="acmgnn_tpu/models/layers.py:191",
+                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library_device_ms=None))
+            print(f"  {counter + tag}: {ms:.4f} ms, device {_ms(dev_ms)} "
+                  f"(plain {plain_ms:.3f}, bound {b_ms:.4f} {b_by}); "
+                  f"{g} lanes a row x {e} floats, grid {grid}")
+    return rows
+
+
+def phase_instances(adj, feats, p_adj):
+    """[9a] The kernel instances of this slice against their plain
+    versions: K2/K3 at each (T, ReLU mask) instance, with and without
+    LayerNorm, at the rows and widths of each run that launches it
+    (``INSTANCE_RUNS``); K1 with valued halves (bf16 and
+    f32 values) on the headline graph in symmetric normalization at the
+    joint epoch's widths 7, 8 (high-pass epilogue) and 4 (transpose), bit
+    for bit against ``k1_order_replay``; K1 on penn94_pp's structure
+    operator (value-free, its own transpose) at w64 and w2; K5 on the
+    symmetric-normalized COO operator at w7, w8 and w4."""
+    import scipy.sparse as sp
+    import torch
+
+    from acmgnn_tpu_torch.data.registry import row_normalize_features
+    from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain
+    from acmgnn_tpu_torch.ops.ell import k1_operand
+    from acmgnn_tpu_torch.ops.graph import (
+        make_coo_op,
+        precompute_operators,
+        sym_normalized_adjacency,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    n_pp = p_adj.shape[0]
+    for relu, phase, case, n_rows, widths in INSTANCE_RUNS:
+        for use_ln in (True, False):
+            for row in _attention_instance_rows(
+                    n_rows or n_pp, gen, relu, use_ln, widths,
+                    f"{'' if use_ln else '_noln'}@{INSTANCE_SITE[phase]}"):
+                rows.append(dict(row, run=(phase, case)))
+    # K1 valued halves: the headline graph, symmetric normalization
+    a_sym = sym_normalized_adjacency(adj)
+    lib = _csr_on_card(a_sym)
+    n = adj.shape[0]
+    x_in = torch.from_numpy(row_normalize_features(feats)).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        t0 = time.perf_counter()
+        op = precompute_operators(adj, normalization="sym", fmt="ell",
+                                  spmm_dtype=dtype).adj_low.to(dev)
+        if op.bwd is not op.fwd or op.fwd.vals.dtype != dtype:
+            fail(f"[9a] the symmetric operator should share one valued "
+                 f"half in {dtype}")
+        print(f"[9a] symmetric-normalized ELL operator, {dtype} values, one "
+              f"half for both directions (host build "
+              f"{time.perf_counter() - t0:.1f} s)")
+        cases = []
+        for (x, z, alpha, beta, tr), nm in zip(
+                _spmm_cases(n, gen, x_in), ("w7", "w8", "w4")):
+            cases.append((k1_operand(x, dtype), z, alpha, beta,
+                          f"k1_spmm_{nm}_valued"))
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        rows += _k1_rows(op.fwd, cases, f"_{dt}@twitch-sym",
+                         lambda d: f"k1_spmm_w{d}_valued",
+                         lib, "acmgnn_tpu/ops/ell.py:525")
+    # K1 on the structure operator of penn94_pp (the raw adjacency)
+    s_op = precompute_operators(p_adj, structure_info=True, fmt="ell",
+                                spmm_dtype=torch.bfloat16).adj_unnorm.to(dev)
+    if s_op.bwd is not s_op.fwd or s_op.fwd.vals is not None:
+        fail("[9a] the structure operator should be one value-free half, "
+             "its own transpose")
+    print("[9a] penn94_pp's structure operator: one value-free half for "
+          "both directions (its transpose is the same launch)")
+    s_lib = _csr_on_card(sp.csr_matrix(p_adj, dtype=np.float32))
+    cases = [(k1_operand(torch.randn(n_pp, d, generator=gen, device=dev),
+                         torch.bfloat16), None, None, None,
+              f"k1_spmm_w{d}") for d in PP_STRUCT_WIDTHS]
+    rows += _k1_rows(s_op.fwd, cases, "@penn94-structure",
+                     lambda d: f"k1_spmm_w{d}", s_lib,
+                     "acmgnn_tpu/ops/ell.py:693")
+    # K5 on the symmetric-normalized COO operator
+    coo = make_coo_op(a_sym).to(dev)
+    for (x, z, alpha, beta, tr), nm in zip(_spmm_cases(n, gen, x_in),
+                                           ("w7", "w8", "w4")):
+        d = x.shape[1]
+        half = coo.bwd if tr else coo.fwd
+        a = tuple(alpha or (0.0,) * d)
+        b = tuple(beta or (1.0,) * d)
+        got = coo_spmm(half, x, z=z, alpha=alpha, beta=beta)
+        err = spmm_err(got, coo_spmm_plain(half, x, z, a, b),
+                       coo_spmm_plain(dataclasses.replace(
+                           half, val=half.val.abs()), x.abs(), _abs(z),
+                           _abs(a), _abs(b)),
+                       _coo_row_terms(half) + int(z is not None),
+                       f"k5_coo_{nm}@twitch-sym")
+        if not torch.equal(got, coo_spmm(half, x, z=z, alpha=alpha,
+                                         beta=beta)):
+            fail(f"k5_coo_{nm}@twitch-sym: two launches differ")
+
+        def run():
+            return coo_spmm(half, x, z=z, alpha=alpha, beta=beta)
+
+        ms, dev_ms = time_ms(run, 50), device_ms(run)
+        plain_ms = time_ms(lambda: coo_spmm_plain(half, x, z, a, b), 5)
+        lib_ms = time_ms(lambda: torch.sparse.mm(lib, x), 20)
+        lib_dev = device_ms(lambda: torch.sparse.mm(lib, x))
+        nnz = coo.nnz
+        extra = 4 * (3 * half.span_rows.numel() + half.empty_rows.numel())
+        b_ms, b_by = bound(12 * nnz + extra + 8 * n * d
+                           + (4 * n * d if z is not None else 0),
+                           2 * nnz * d + 2 * n * d)
+        rows.append(dict(name=f"k5_coo_{nm}@twitch-sym",
+                         counter=f"k5_coo_{nm}", route="cuda",
+                         source="acmgnn_tpu_torch/csrc/coo.cu",
+                         replaces=K5_REPLACES[int(z is not None) + int(tr)],
+                         max_abs_err=err, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, library_device_ms=lib_dev))
+        print(f"  k5_coo_{nm}@twitch-sym: {ms:.4f} ms, device {_ms(dev_ms)} "
+              f"(plain {plain_ms:.3f}, torch.sparse.mm f32 {lib_ms:.4f}, "
+              f"device {_ms(lib_dev)}; bound {b_ms:.4f} {b_by}); "
+              f"bit-identical reruns")
+    return rows
+
+
+def phase_penn94_pp(p_adj, p_feats, p_labels):
+    """[9b] The slice at full width: penn94_pp (ACM-GCN++ with the
+    structure channel, Table 16's row) trained ``PP_EPOCHS`` captured
+    epochs, with the launch counts ``pp_counts`` implies and a profile."""
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    data = GraphData("penn94_pp-scale", p_adj, p_feats, p_labels)
+    return drive_path("[9b penn94_pp]", data, penn94_pp_config(),
+                      _masks(p_adj.shape[0]), PP_EPOCHS, pp_counts)
+
+
+def phase_symmetric_paths(adj, feats, labels):
+    """[9b sym] The headline configuration with symmetric normalization:
+    the valued ELL operator with bf16 and with f32 values, and the COO
+    operator, ``SYM_EPOCHS`` captured epochs each, launch counts as
+    ``joint_counts`` implies on the valued counters."""
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    data = GraphData("twitch-gamers-scale-uniform", adj, feats, labels)
+    masks = _masks(adj.shape[0])
+    out = {}
+    for fmt, dtype in (("ell", "bfloat16"), ("ell", "float32"),
+                       ("coo", "float32")):
+        cfg = headline_config(normalization="sym", operator_format=fmt,
+                              spmm_dtype=dtype)
+        gather = "k5_coo" if fmt == "coo" else "k1_spmm"
+        rename = valued if fmt == "ell" else (lambda c: c)
+        out[(fmt, dtype)] = drive_path(
+            f"[9b sym {fmt} {dtype}]", data, cfg, masks, SYM_EPOCHS,
+            lambda it, g=gather, r=rename: r(joint_counts(it, g, 7)),
+            profile=False)
+    return out
+
+
+def _chameleon_graph():
+    """A chameleon-shaped graph with labels taken from the features (a
+    configuration that does not amplify rounding, as phase 6c's)."""
+    from acmgnn_tpu_torch.data.synthetic_scale import (
+        build_sym_adjacency,
+        chung_lu_edges,
+    )
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    spec = CHAMELEON
+    src, dst = chung_lu_edges(spec["n"], spec["e"], spec["max_deg"], seed=3)
+    adj = build_sym_adjacency(src, dst, spec["n"], drop_self_loops=True)
+    rng = np.random.default_rng(3)
+    feats = (rng.random((spec["n"], spec["f"])) < 0.02).astype(np.float32)
+    proj = rng.normal(size=(spec["f"], spec["c"]))
+    labels = np.argmax(feats @ proj, axis=1).astype(np.int32)
+    return GraphData("chameleon-shaped", adj, feats, labels)
+
+
+def ulp_nudged(data, draw=0):
+    """``data`` with each non-zero feature moved one ulp up or down (the
+    direction drawn from ``draw``): inputs one rounding apart."""
+    rng = np.random.default_rng(draw)
+    feats = np.array(data.features, dtype=np.float32)
+    nz = feats != 0
+    to = np.where(rng.random(int(nz.sum())) < 0.5, -np.inf, np.inf)
+    feats[nz] = np.nextafter(feats[nz], to.astype(np.float32))
+    return dataclasses.replace(data, features=feats)
+
+
+def cpu_witness(data, cfg, masks_np, seed=3, draws=WITNESS_DRAWS,
+                threads=False):
+    """How far the CPU port parts from itself over ``cfg``, with no card
+    involved: the largest |Δparam| between its run on ``data`` and its runs
+    on ``ulp_nudged(data, draw)`` for each draw (and, with ``threads``,
+    its run on one thread against torch's default), all from
+    ``build_model(seed)``; the parts, by name."""
+    import torch
+
+    ref = trained(data, cfg, masks_np, "cpu", seed)[1]
+    out = {f"features one ulp apart (draw {k})": max_param_diff(ref, trained(
+        ulp_nudged(data, k), cfg, masks_np, "cpu", seed)[1])
+        for k in range(draws)}
+    if threads:
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            one = trained(data, cfg, masks_np, "cpu", seed)[1]
+        finally:
+            torch.set_num_threads(n)
+        out[f"1 thread against {n}"] = max_param_diff(ref, one)
+    return out
+
+
+def stepwise_card_vs_cpu(tag, data, cfg, masks_np, tol=1e-4, seed=3):
+    """``cfg.epochs`` optimizer steps of the train loss (the whole train
+    mask; the joint loop's paired forward where ``cfg`` runs it) on the
+    card, each taken again on the CPU from the card's state before it
+    (parameters and the optimizer's moments copied over), both in the
+    card's optimizer arithmetic: every step's parameters within ``tol``.
+    Each step starts both sides from one state, so a trajectory that turns
+    rounding into Adam steps (``_read_ill_conditioned``) cannot part
+    them."""
+    import torch
+
+    from acmgnn_tpu_torch.train.metrics import masked_nll
+    from acmgnn_tpu_torch.train.trainer import (
+        JOINT_CAPABLE,
+        build_model,
+        make_optimizer,
+        prepare_data,
+    )
+
+    paired = bool(cfg.joint) and cfg.model_type in JOINT_CAPABLE
+    sides = []
+    for device in ("cuda", "cpu"):
+        _, ops, x, y, _, nclass = prepare_data(data, cfg, device=device)
+        model = build_model(cfg, x.shape[1], nclass, device=device,
+                            seed=seed, nnodes=x.shape[0])
+        sides.append((model, make_optimizer(cfg, model.parameters(),
+                                            capturable=True), ops, x, y,
+                       torch.from_numpy(masks_np[0]).to(device)))
+
+    def step(model, opt, ops, x, y, mask):
+        opt.zero_grad(set_to_none=True)
+        out = model(x, ops, training=True, paired_eval=paired)
+        logits = out[0] if paired else out
+        masked_nll(torch.log_softmax(logits, dim=1), y, mask).backward()
+        opt.step()
+
+    card, cpu = sides
+    worst = []
+    for _ in range(cfg.epochs):
+        cpu[0].load_state_dict({k: v.cpu() for k, v in
+                                card[0].state_dict().items()})
+        cpu[1].load_state_dict(card[1].state_dict())   # copied to the host
+        step(*card)
+        step(*cpu)
+        worst.append(max_param_diff(
+            {k: p.detach().cpu() for k, p in card[0].named_parameters()},
+            {k: p.detach() for k, p in cpu[0].named_parameters()}))
+    print(f"{tag} card vs CPU step by step, each from the card's state, "
+          f"{cfg.epochs} steps (lr {cfg.lr:g}, decay {cfg.weight_decay:g}): "
+          f"max |Δparam| per step {' '.join(f'{w:.1e}' for w in worst)} "
+          f"(tolerance {tol:g})")
+    if max(worst) > tol:
+        fail(f"{tag} a step on the card and on the CPU disagree")
+
+
+def _capture_and_cpu(tag, data, cfg, masks_np, cpu_cfg=None):
+    """``cfg`` eager then captured on the card, bit for bit (8a's check:
+    parameters and BatchNorm statistics, histories, best metrics, launch
+    counts equal); then, given ``cpu_cfg``, card against the CPU's plain
+    versions in the card's optimizer arithmetic (1e-4).  Returns the
+    captured run's launch counts."""
+    import torch
+
+    from acmgnn_tpu_torch.models import layers
+    from acmgnn_tpu_torch.train.trainer import prepare_data
+
+    prepared = prepare_data(data, cfg)
+    masks = tuple(torch.from_numpy(m).cuda() for m in masks_np)
+    eager = _split(prepared, cfg, masks, False)
+    resident = set(layers._resident)
+    captured = _split(prepared, cfg, masks, True)
+    if set(layers._resident) != resident:
+        fail(f"{tag} the capture asked the occupancy of "
+             f"{set(layers._resident) - resident}")
+    n = _bit_equal(tag, eager, captured)
+    if eager["counts"] != captured["counts"]:
+        fail(f"{tag} launch counts eager {eager['counts']}, captured "
+             f"{captured['counts']}")
+    print(f"{tag} eager and captured, {cfg.epochs} epochs: bit-equal ({n} "
+          f"tensors), epochs_run {captured['res'].epochs_run}; capture "
+          f"{captured['state'].capture_ms:.1f} ms; launches "
+          f"{json.dumps(captured['counts'], sort_keys=True)}")
+    if cpu_cfg is not None:
+        card_vs_cpu(tag, data, cpu_cfg, masks_np)
+    return captured["counts"]
+
+
+def phase_dense_paths():
+    """[9c] The dense operator (``fmt="auto"`` at or below 4096 nodes) on
+    a chameleon-shaped graph: ACM-GCN+ with the structure channel and
+    variant 1 (joint), and acmsgc over Â² (sequential), ``DENSE_EPOCHS``
+    captured epochs each at full width, timed; each also eager against
+    captured bit for bit over as many epochs, and card against CPU with
+    dropout 0: every one of as many steps from the card's state, and the
+    whole trajectory where the CPU port's own runs with the features one
+    ulp apart stay within ``WITNESS_SHARE`` of the tolerance (else it is
+    printed beside them, not held)."""
+    data = _chameleon_graph()
+    n = data.num_nodes
+    masks = _masks(n, seed=2)
+    print(f"[9c] chameleon-shaped graph N={n} nnz={data.adj.nnz} "
+          f"F={data.features.shape[1]} C={data.num_classes}")
+    base = dict(hidden=64, dropout=0.5, lr=0.01, weight_decay=5e-4,
+                epochs=DENSE_EPOCHS, early_stopping=0,
+                selection="val_metric", operator_format="auto")
+    # the card against the CPU, dropout 0, lr 1e-3, decay 5e-4: each of
+    # DENSE_EPOCHS steps from the card's state (``stepwise_card_vs_cpu``);
+    # the whole run's trajectory where the CPU port agrees with itself
+    # (acmsgc). On the structure channel's case the CPU port alone parts by
+    # 7e-5 to 3.9e-3 over 20 epochs on seven seeds of eight (ROADMAP §C,
+    # acmgnn_tpu_torch/tools/cpu_witness.py): that trajectory is read
+    trajectory_held = {"acmgcnp structure variant 1": False,
+                       "acmsgc hops 2": True}
+    c = data.num_classes
+
+    def structure_v1(b):    # joint: K2 per branch and layer, K3 per layer
+        return {"k2_attn_fwd_t4_relu_ms_d64": 2 * b,
+                f"k2_attn_fwd_t4_relu_ms_d{c}": 2 * b,
+                "k3_attn_bwd_t4_relu_ms_d64": b,
+                f"k3_attn_bwd_t4_relu_ms_d{c}": b}
+
+    def acmsgc(b):          # sequential, one layer: train and eval forward
+        return {f"k2_attn_fwd_relu_none_d{c}": 2 * b,
+                f"k3_attn_bwd_relu_none_d{c}": b}
+
+    out = {}
+    for tag, over, expected in (
+            ("acmgcnp structure variant 1", dict(
+                model_type="acmgcnp", structure_info=True, variant=True,
+                joint=True), structure_v1),
+            ("acmsgc hops 2", dict(model_type="acmsgc", hops=2,
+                                   joint=False), acmsgc)):
+        from acmgnn_tpu_torch.train.config import TrainConfig
+
+        cfg = TrainConfig(**dict(base, **over))
+        counts, ms_run, res, _, ms_replay = drive_path(
+            f"[9c {tag}]", data, dataclasses.replace(cfg, epochs=WARM_EPOCHS),
+            masks, DENSE_EPOCHS, expected, profile=tag.startswith("acmgcnp"))
+        cpu = dataclasses.replace(cfg, dropout=0.0, lr=1e-3)
+        stepwise_card_vs_cpu(f"[9c {tag}]", data, cpu, masks)
+        if not trajectory_held[tag]:
+            _capture_and_cpu(f"[9c {tag}]", data, cfg, masks)
+            _read_ill_conditioned(f"[9c {tag}]", data, cpu, masks)
+        else:
+            witness = max(cpu_witness(data, cpu, masks).values())
+            print(f"[9c {tag}] the CPU port against itself with its "
+                  f"features one ulp apart ({WITNESS_DRAWS} draws), "
+                  f"{cpu.epochs} epochs: max |Δparam| {witness:.3e} (at "
+                  f"most {WITNESS_SHARE:g} of the tolerance)")
+            if not witness <= WITNESS_SHARE * 1e-4:
+                fail(f"[9c {tag}] the card-against-CPU configuration "
+                     f"amplifies rounding")
+            _capture_and_cpu(f"[9c {tag}]", data, cfg, masks, cpu)
+        out[tag] = (counts, ms_run, ms_replay)
+    return out
+
+
+def _read_ill_conditioned(tag, data, cfg, masks_np):
+    """Print, without holding it, the card against the CPU in ``cfg``
+    beside the CPU port against itself (features one ulp apart, one
+    thread against torch's default) in the same configuration."""
+    card = trained(data, cfg, masks_np, "cuda")[1]
+    cpu = trained(data, cfg, masks_np, "cpu")[1]
+    witness = cpu_witness(data, cfg, masks_np, threads=True)
+    print(f"{tag} read, not held: lr {cfg.lr:g}, decay {cfg.weight_decay:g}, "
+          f"{cfg.epochs} epochs, max |Δparam| card against CPU "
+          f"{max_param_diff(card, cpu):.3e}; the CPU against itself, "
+          + ", ".join(f"{k} {v:.3e}" for k, v in witness.items()))
+
+
+ZOO_CASES = {
+    "acmgcn": {}, "acmgcnp": {}, "acmgcnpp": {}, "acmsgc": {},
+    "acmsnowball": dict(nlayers=2), "acmgraphsage": {}, "gcn": {},
+    "sgc": dict(hops=2, hoist_first=False), "mlp": {}, "graphsage": {},
+    "snowball": dict(nlayers=2), "gcnII": dict(nlayers=2),
+    "acmgcnpp batchnorm": dict(model_type="acmgcnpp", init_layers_X=2),
+    "acmgcn variant 1": dict(model_type="acmgcn", variant=True),
+    "acmgcnp structure variant 1": dict(model_type="acmgcnp",
+                                        structure_info=True, variant=True),
+    "acmgcn sym": dict(model_type="acmgcn", normalization="sym"),
+}
+
+
+def phase_zoo():
+    """[9d] Every model type (and the BatchNorm, variant 1 and symmetric
+    cases) on a small twitch-shaped graph with the ELL operator:
+    ``ZOO_EPOCHS`` epochs eager against captured bit for bit (dropout
+    0.5; joint where the model is joint-capable), then card against CPU
+    (1e-4) in ``ZOO_CPU_EPOCHS``'s configuration.  Returns each case's
+    launch counts."""
+    from acmgnn_tpu_torch.data.synthetic_scale import \
+        twitch_gamers_scale_graph
+    from acmgnn_tpu_torch.ops.graph import GraphData
+    from acmgnn_tpu_torch.train.config import TrainConfig
+
+    adj, feats, _ = twitch_gamers_scale_graph(0, n=ZOO_N, pairs=20 * ZOO_N)
+    feats = np.abs(feats)
+    labels = (feats[:, 0] > np.median(feats[:, 0])).astype(np.int32)
+    data = GraphData("small", adj, feats, labels)
+    masks = _masks(ZOO_N)
+    out = {}
+    for tag, over in ZOO_CASES.items():
+        over = dict(over)
+        model_type = over.pop("model_type", tag)
+        cfg = TrainConfig(**dict(dict(
+            model_type=model_type, hidden=64, dropout=0.5, lr=0.01,
+            weight_decay=1e-3, epochs=ZOO_EPOCHS, early_stopping=0,
+            selection="val_metric", operator_format="ell",
+            spmm_dtype="float32", joint=True, hoist_first=True), **over))
+        out[tag] = _capture_and_cpu(
+            f"[9d {tag}]", data, cfg, masks,
+            dataclasses.replace(cfg, dropout=0.0, lr=1e-3, weight_decay=5e-4,
+                                epochs=ZOO_CPU_EPOCHS))
+    return out
+
+
+def _instance_launches(row, pp, sym, dense, zoo):
+    """The launches of a 9a row's instance, and the run they come from:
+    the symmetric headline runs (9b sym) for the valued K1 and K5,
+    penn94_pp (9b) for the structure operator's K1, and for K2/K3 the run
+    named in ``INSTANCE_RUNS`` (penn94_pp, 9c's dense runs or 9d's
+    zoo)."""
+    name, counter = row["name"], row["counter"]
+    if name.endswith("@twitch-sym"):
+        key = ("coo", "float32") if counter.startswith("k5") else (
+            "ell", "bfloat16" if "_bf16@" in name else "float32")
+        return (sym[key][0].get(counter, 0),
+                f"timed 9a; launches 9b: the headline, symmetric "
+                f"normalization, {key[0]} {key[1]}, {SYM_EPOCHS} epochs")
+    phase, case = row.get("run", ("9b", "penn94_pp"))
+    if phase == "9b":
+        return (pp[0].get(counter, 0),
+                f"timed 9a and launches 9b: penn94_pp's rows, {PP_EPOCHS} "
+                f"epochs")
+    n = CHAMELEON["n"] if phase == "9c" else ZOO_N
+    counts, epochs = ((dense[case][0], DENSE_EPOCHS) if phase == "9c" else
+                      (zoo[case], ZOO_EPOCHS))
+    return (counts.get(counter, 0),
+            f"timed 9a and launches {phase}: {case}, {n} rows, {epochs} "
+            f"epochs")
+
 
 def main() -> int:
     import torch
@@ -2816,6 +3506,23 @@ def main() -> int:
     phase_optimizer_check()
     capture = phase_capture(adj, feats, labels, g_adj, g_feats, g_labels,
                             g_masks)
+
+    t0 = time.perf_counter()
+    p_adj, p_feats, p_labels = linkx_scale_graph("penn94_pp")
+    print(f"[9a] penn94_pp-shaped graph N={p_adj.shape[0]} edges="
+          f"{p_adj.nnz} F={p_feats.shape[1]} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    i_rows = phase_instances(adj, feats, p_adj)
+    pp = phase_penn94_pp(p_adj, p_feats, p_labels)
+    del p_feats
+    sym = phase_symmetric_paths(adj, feats, labels)
+    dense = phase_dense_paths()
+    zoo = phase_zoo()
+    for row in i_rows:
+        row["launches"], row["path"] = _instance_launches(row, pp, sym,
+                                                          dense, zoo)
+        if row["launches"] == 0:
+            fail(f"{row['name']} was not launched on its path")
     steady = {k: entry[k][0]["epoch_ms_steady"]
               for k in ("experiment", "plain", "remat", "adamw", "bf16",
                         "rcm")}
@@ -2832,12 +3539,19 @@ def main() -> int:
           + f"; stepwise {entry['stepwise']['epoch_ms_steady']:.3f}; eager "
           f"/ captured run / captured replays ms/epoch (8b medians): "
           + ", ".join(f"{k} {e:.3f} / {c:.3f} / {r:.3f}"
-                      for k, (e, c, r) in capture["pairs"].items()))
+                      for k, (e, c, r) in capture["pairs"].items())
+          + f"; penn94_pp {pp[1]:.3f} ({pp[4]:.3f}) of {PP_EPOCHS}; "
+          + "symmetric headline " + ", ".join(
+              f"{f} {d} {v[1]:.3f} ({v[4]:.3f})" for (f, d), v in
+              sym.items())
+          + "; dense " + ", ".join(f"{k} {v[1]:.3f} ({v[2]:.3f})"
+                                   for k, v in dense.items()))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in rows + g_rows + s_rows + p_rows]}))
+                                  for r in rows + g_rows + s_rows + p_rows
+                                  + i_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

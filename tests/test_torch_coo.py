@@ -26,6 +26,7 @@ from acmgnn_tpu_torch.ops.coo import CooHalf, make_coo_half
 from acmgnn_tpu_torch.ops.ell import make_ell_op
 from acmgnn_tpu_torch.ops.graph import (
     CooOp,
+    DenseOp,
     EllOp,
     GraphData,
     make_coo_op,
@@ -157,7 +158,7 @@ def test_coo_and_ell_spmm_multi_agree():
 
 def test_auto_format_builds_the_genius_operator():
     """A default ``TrainConfig()`` ("auto") builds ELL above 4096 nodes;
-    at or below it picks the dense format, which is refused by name."""
+    at or below it picks the dense format."""
     adj, feats, labels = linkx_scale_graph("genius", n=5000, e=12_000,
                                            max_deg=200)
     cfg = TrainConfig()
@@ -165,8 +166,8 @@ def test_auto_format_builds_the_genius_operator():
     _, ops, x, _, _, _ = prepare_data(GraphData("g", adj, feats, labels), cfg,
                                       device="cpu")
     assert isinstance(ops.adj_low, EllOp) and ops.adj_low.num_nodes == 5000
-    with pytest.raises(NotImplementedError, match="dense operator format"):
-        precompute_operators(adj[:4096, :4096])
+    assert isinstance(precompute_operators(adj[:4096, :4096]).adj_low,
+                      DenseOp)
     coo = precompute_operators(adj, fmt="coo", spmm_dtype=torch.bfloat16)
     assert isinstance(coo.adj_low, CooOp)
     assert coo.adj_low.fwd.val.dtype == torch.float32

@@ -47,12 +47,12 @@ from acmgnn_tpu_torch.models.layers import (
     attention_mix_forward,
     attention_mix_forward_plain,
     ATTN_MAX_D,
-    ROW_SUMS,
     _launch_backward,
     _launch_forward,
     attention_grad_scales,
     attention_plan,
     bf16_matmul,
+    row_sums,
 )
 from acmgnn_tpu_torch.ops import kernels
 from acmgnn_tpu_torch.ops.coo import (
@@ -76,6 +76,7 @@ from acmgnn_tpu_torch.ops.graph import (
     GraphData,
     make_coo_op,
     row_normalized_adjacency,
+    sym_normalized_adjacency,
 )
 from acmgnn_tpu_torch.ops.halo import halo_pack, halo_pack_plain, padded_rows
 from acmgnn_tpu_torch.ops.panel_gather import (
@@ -131,6 +132,7 @@ def _matrices():
         "binary_sym": sp.csr_matrix(sym),
         "lowpass_directed": row_normalized_adjacency(sp.csr_matrix(dense)),
         "weighted": weighted,
+        "symnorm": sym_normalized_adjacency(sp.csr_matrix(sym)),
     }
 
 
@@ -151,16 +153,17 @@ def _attention_inputs(n, d, device):
 
 
 def assert_attention_grads_close(got, want, bargs, msg=""):
-    """K3's six outputs against the plain version's: ``dz_i`` as
+    """K3's outputs against the plain version's: ``dz_i`` as
     ``assert_close`` over a row of d; ``dv``, ``dc`` and ``dW``, sums over
     the N rows, per element to ``1e-6·max(1, Σ_rows|term|)`` (rounding
     reads ~1e-8 of Σ_rows|term|; a tolerance growing with sqrt(N) would
-    pass a sum that lost a block of rows)."""
-    d = bargs[0].shape[1]
-    for i in range(3):
+    pass a sum that lost a block of rows).  ``bargs``: the backward's
+    arguments, channels first."""
+    t, d = len(bargs[0]), bargs[0][0].shape[1]
+    for i in range(t):
         assert_close(got[i], want[i], d, f"{msg} dz{i}")
     scales = attention_grad_scales(*bargs)
-    for name, g, w, s in zip(("dv", "dc", "dW"), got[3:], want[3:], scales):
+    for name, g, w, s in zip(("dv", "dc", "dW"), got[t:], want[t:], scales):
         err = (g - w).abs()
         tol = 1e-6 * s.clamp_min(1.0)
         assert bool((err <= tol).all()), (
@@ -177,9 +180,9 @@ def test_wrappers_refuse_a_device_without_kernel():
         row_gather_spmm(op.fwd, x)
     z0, z1, z2, v, c, W, gout = _attention_inputs(20, 4, "meta")
     with pytest.raises(ValueError, match="CUDA"):
-        attention_mix_forward(z0, z1, z2, v, c, W, True, 3.0)
+        attention_mix_forward((z0, z1, z2), v, c, W, True, 3.0)
     with pytest.raises(ValueError, match="CUDA"):
-        attention_mix_backward(z0, z1, z2, gout, v, c, W, True, 3.0)
+        attention_mix_backward((z0, z1, z2), gout, v, c, W, True, 3.0)
     coo = make_coo_op(_matrices()["lowpass_sym"]).to("meta")
     with pytest.raises(ValueError, match="CUDA"):
         coo_spmm(coo.fwd, x)
@@ -252,7 +255,7 @@ def _k1_matrix(kind):
 
 
 K1_KINDS = ("lowpass_sym", "binary_sym", "lowpass_directed", "weighted",
-            "hub")
+            "hub", "symnorm")
 
 
 @pytest.mark.gpu
@@ -308,10 +311,10 @@ def test_k1_equals_its_order_replay(cuda, kind, dtype, width, padded):
 @pytest.mark.parametrize("d", (2, 7, 33, 64, 100))
 def test_k2_k3_match_plain(cuda, d, use_ln):
     z0, z1, z2, v, c, W, gout = _attention_inputs(3000, d, cuda)
-    args = (z0, z1, z2, v, c, W, use_ln, 3.0)
+    args = ((z0, z1, z2), v, c, W, use_ln, 3.0)
     assert_close(attention_mix_forward(*args),
                  attention_mix_forward_plain(*args), d, "K2")
-    bargs = (z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+    bargs = ((z0, z1, z2), gout, v, c, W, use_ln, 3.0)
     assert_attention_grads_close(attention_mix_backward(*bargs),
                                  attention_mix_backward_plain(*bargs), bargs,
                                  "K3")
@@ -324,7 +327,7 @@ def test_k3_is_bit_reproducible(cuda, d, use_ln):
     """Two K3 launches on the same inputs agree bit for bit: the
     parameter gradients are summed in a fixed order, without atomics."""
     z0, z1, z2, v, c, W, gout = _attention_inputs(30000, d, cuda)
-    bargs = (z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+    bargs = ((z0, z1, z2), gout, v, c, W, use_ln, 3.0)
     first = attention_mix_backward(*bargs)
     for a, b in zip(first, attention_mix_backward(*bargs)):
         assert torch.equal(a, b)
@@ -347,11 +350,11 @@ def test_k3_row_sum_check_catches_a_lost_block(cuda, d, use_ln):
     """The check of dv, dc and dW fails a sum that lost any one block's
     rows, or a dv of zeros, while it passes K3 itself."""
     z0, z1, z2, v, c, W, gout = _attention_inputs(30000, d, cuda)
-    bargs = (z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+    bargs = ((z0, z1, z2), gout, v, c, W, use_ln, 3.0)
     *got, partials = _launch_backward((z0, z1, z2), gout, v, c, W, use_ln,
                                       3.0, attention_plan(d))
     want = attention_mix_backward_plain(*bargs)
-    assert partials.shape[1] == 3 * d + ROW_SUMS and partials.shape[0] > 1
+    assert partials.shape[1] == 3 * d + row_sums(3) and partials.shape[0] > 1
     assert_attention_grads_close(got, want, bargs, "K3")
     for b in range(partials.shape[0]):
         with pytest.raises(AssertionError, match="dv"):
@@ -371,13 +374,13 @@ def test_k2_k3_take_column_views(cuda, d):
     wide = torch.cat([z0, z1, z2, z0], dim=1)
     views = [wide[:, i * d:(i + 1) * d] for i in range(3)]
     for use_ln in (False, True):
-        args = (*views, v, c, W, use_ln, 3.0)
+        args = (views, v, c, W, use_ln, 3.0)
         assert_close(attention_mix_forward(*args),
-                     attention_mix_forward_plain(z0, z1, z2, v, c, W,
+                     attention_mix_forward_plain((z0, z1, z2), v, c, W,
                                                  use_ln, 3.0), d, "K2 views")
-        bargs = (z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+        bargs = ((z0, z1, z2), gout, v, c, W, use_ln, 3.0)
         assert_attention_grads_close(
-            attention_mix_backward(*views, gout, v, c, W, use_ln, 3.0),
+            attention_mix_backward(views, gout, v, c, W, use_ln, 3.0),
             attention_mix_backward_plain(*bargs), bargs, "K3 views")
 
 
@@ -387,12 +390,12 @@ def test_k2_k3_lanes_per_row(cuda, lanes):
     """Every lanes-per-row instance that chip_smoke.py sweeps at d=64."""
     z0, z1, z2, v, c, W, gout = _attention_inputs(3000, 64, cuda)
     for use_ln in (False, True):
-        args = (z0, z1, z2, v, c, W, use_ln, 3.0)
+        args = ((z0, z1, z2), v, c, W, use_ln, 3.0)
         plan = (lanes, 64 // lanes)
         assert_close(_launch_forward((z0, z1, z2), v, c, W, use_ln, 3.0,
                                      plan),
                      attention_mix_forward_plain(*args), 64, "K2")
-        bargs = (z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+        bargs = ((z0, z1, z2), gout, v, c, W, use_ln, 3.0)
         assert_attention_grads_close(
             _launch_backward((z0, z1, z2), gout, v, c, W, use_ln, 3.0,
                              plan)[:6],
@@ -406,6 +409,57 @@ def _compiled_attention_instances():
     table = table[:table.index("\n\n")]
     return {tuple(map(int, m)) for m in
             re.findall(r"X\((\d+), (\d+), (\d+)\)", table)}
+
+
+def test_attention_channel_instances_are_compiled():
+    """Every (channels, ReLU mask) instance the layers launch
+    (``layers.ATTN_INSTANCES``) is one attention.cu compiles, and K3's
+    partials row holds T d columns and 2 T + T² row sums."""
+    src = (REPO / "acmgnn_tpu_torch" / "csrc" / "attention.cu").read_text()
+    table = src[src.index("#define ACM_K23_CHANNELS"):]
+    table = table[:table.index("\n")]
+    compiled = {tuple(map(int, m)) for m in
+                re.findall(r"X\((\d+), (\d+)\)", table)}
+    want = {(len(f), sum(1 << i for i, r in enumerate(f) if r))
+            for f in layers.ATTN_INSTANCES}
+    assert compiled == want
+    assert (row_sums(3), row_sums(4)) == (15, 24)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_ln", (False, True))
+@pytest.mark.parametrize("relu", layers.ATTN_INSTANCES)
+@pytest.mark.parametrize("d", (2, 5, 7, 64))
+def test_k2_k3_instances_match_plain(cuda, d, relu, use_ln):
+    """K2/K3 at every (channels, ReLU mask) instance against their plain
+    versions, K3 bit-equal across two launches, and the row-sum check
+    failing a lost block of the T d + 2 T + T² partials."""
+    t = len(relu)
+    z0, z1, z2, _, _, _, gout = _attention_inputs(3000, d, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(t * 100 + d)
+    zs = [z0, z1, z2, torch.randn(3000, d, generator=gen, device=cuda)][:t]
+    v = torch.randn(t, d, generator=gen, device=cuda)
+    c = torch.randn(t, generator=gen, device=cuda)
+    W = torch.rand(t, t, generator=gen, device=cuda) * 2 - 1
+    scale = 1.0 if t == 4 else 3.0
+    args = (zs, v, c, W, use_ln, scale, relu)
+    assert_close(attention_mix_forward(*args),
+                 attention_mix_forward_plain(*args), d, "K2")
+    bargs = (zs, gout, v, c, W, use_ln, scale, relu)
+    *got, partials = _launch_backward(zs, gout, v, c, W, use_ln, scale,
+                                      attention_plan(d), relu)
+    want = attention_mix_backward_plain(*bargs)
+    assert partials.shape[1] == t * d + row_sums(t)
+    assert_attention_grads_close(got, want, bargs, "K3")
+    for a, b in zip(attention_mix_backward(*bargs),
+                    attention_mix_backward(*bargs)):
+        assert torch.equal(a, b)
+    p = partials[0]
+    lost = (got[t] - p[:t * d].view(t, d) - p[t * d:t * d + t][:, None],
+            *got[t + 1:])
+    if partials.shape[0] > 1:
+        with pytest.raises(AssertionError, match="dv"):
+            assert_attention_grads_close((*got[:t], *lost), want, bargs)
 
 
 def test_attention_plan_has_a_compiled_instance_at_every_width():
@@ -491,6 +545,14 @@ CAPTURE_CASES = {
     "joint_ell_adamw": ("twitch", dict(model_type="acmgcnp",
                                        optimizer="adamw")),
     "joint_coo_rocauc": ("genius", dict(operator_format="coo")),
+    "joint_pp_structure": ("twitch", dict(
+        model_type="acmgcnpp", structure_info=True, spmm_dtype="bfloat16",
+        gemm_dtype="bfloat16")),
+    "joint_pp_batchnorm": ("twitch", dict(model_type="acmgcnpp",
+                                          init_layers_X=2)),
+    "sequential_acmsgc_sym": ("twitch", dict(
+        model_type="acmsgc", hops=2, joint=False, normalization="sym",
+        spmm_dtype="bfloat16")),
     "sequential_rocauc": ("genius", dict(joint=False)),
     "sequential_rocauc_stop": ("genius", dict(joint=False, dropout=0.0,
                                               epochs=40, early_stopping=5)),
@@ -524,13 +586,15 @@ def _run_form(data, cfg, masks_np, graph):
     parameters, launch counts)."""
     kernels.reset_launches()
     _, ops, x, y, y1h, nclass = prepare_data(data, cfg, device="cuda")
-    model = build_model(cfg, x.shape[1], nclass, device="cuda", seed=2)
+    model = build_model(cfg, x.shape[1], nclass, device="cuda", seed=2,
+                        nnodes=x.shape[0])
     masks = tuple(torch.from_numpy(m).cuda() for m in masks_np)
     res, state = make_split_runner(model, cfg, graph=graph)(
-        ops, x, y, masks, seed=5, labels_onehot=y1h, return_state=True)
+         ops, x, y, masks, seed=5, labels_onehot=y1h, return_state=True)
     torch.cuda.synchronize()
+    # parameters and buffers (BatchNorm's running statistics)
     return (res, state, {k: p.detach().clone()
-                         for k, p in model.named_parameters()},
+                         for k, p in model.state_dict().items()},
             dict(kernels.launches))
 
 
@@ -743,6 +807,30 @@ def test_k1_replay_matches_plain(kind, width):
         assert_close(k1_order_replay(half, x, z, alpha, beta),
                      row_gather_spmm_plain(half, x, z, alpha, beta),
                      n_terms, f"{kind} w{width}")
+
+
+@pytest.mark.parametrize("kind", ("weighted", "symnorm"))
+@pytest.mark.parametrize("width", (4, 7, 8))
+def test_k1_replay_matches_plain_with_bf16_values(kind, width):
+    """On valued halves in bf16 (the gather dtype) the replay and the
+    plain version round each term ``v·x`` to bf16 before the f32 sum, as
+    K1 does: they agree to the tolerance, and both part from the sum of
+    unrounded products by more than their own difference."""
+    op = make_ell_op(_k1_matrix(kind), gather_dtype=torch.bfloat16)
+    assert op.fwd.vals.dtype == torch.bfloat16
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.normal(size=(op.num_nodes, width))
+                         .astype(np.float32)).to(torch.bfloat16)
+    ones, zeros = (1.0,) * width, (0.0,) * width
+    for half in (op.fwd, op.bwd):
+        replay = k1_order_replay(half, x, None, zeros, ones)
+        plain = row_gather_spmm_plain(half, x, None, zeros, ones)
+        exact = row_gather_spmm_plain(
+            dataclasses.replace(half, vals=half.vals.float()), x, None,
+            zeros, ones)
+        assert_close(replay, plain, 64, f"{kind} w{width}")
+        assert float((replay - plain).abs().max()) < \
+            float((plain - exact).abs().max())
 
 
 def _sorted_lanes(half):

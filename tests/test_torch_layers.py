@@ -23,6 +23,7 @@ from acmgnn_tpu.ops.graph import precompute_operators as jax_precompute
 from acmgnn_tpu.ops.spmm import spmm as jax_spmm
 from acmgnn_tpu_torch.models.convert import params_from_flax
 from acmgnn_tpu_torch.models.layers import (
+    ATTN_INSTANCES,
     ACMConv,
     attention_mix_backward_plain,
     attention_mix_forward_plain,
@@ -204,9 +205,10 @@ def test_attention_backward_plain_matches_autograd(d, use_ln):
     K2's plain version on channels before the ReLU."""
     z0, z1, z2, v, c, W, gout = _attention_inputs(300, d, seed=d)
     leaves = [t.clone().requires_grad_(True) for t in (z0, z1, z2, v, c, W)]
-    attention_mix_forward_plain(*leaves, use_ln, 3.0).backward(gout)
+    attention_mix_forward_plain(leaves[:3], *leaves[3:], use_ln,
+                                3.0).backward(gout)
     dz0, dz1, dz2, dv, dc, dW = attention_mix_backward_plain(
-        z0, z1, z2, gout, v, c, W, use_ln, 3.0)
+        (z0, z1, z2), gout, v, c, W, use_ln, 3.0)
     n_terms = 300
     for i, dz in enumerate((dz0, dz1, dz2)):
         assert_close(dz, leaves[i].grad.numpy(), d, f"dz{i}")
@@ -216,6 +218,37 @@ def test_attention_backward_plain_matches_autograd(d, use_ln):
     else:                               # c is not used without LayerNorm
         assert leaves[4].grad is None and not dc.any()
     assert_close(dW, leaves[5].grad.numpy(), n_terms, "dW")
+
+
+@pytest.mark.parametrize("use_ln", (False, True))
+@pytest.mark.parametrize("relu", ATTN_INSTANCES)
+def test_attention_backward_plain_matches_autograd_at_every_instance(
+        relu, use_ln):
+    """The same at every (channels, ReLU mask) instance of K2/K3: four
+    channels with the scale 1 (the structure channel), the masks of
+    variant 1 and of acmsgc (no ReLU), on channels whose negative entries
+    then reach the attention."""
+    t, d = len(relu), 7
+    z0, z1, z2, v, c, W, gout = _attention_inputs(300, d, seed=t)
+    zs = [z0, z1, z2, z0.flip(0) - 0.3][:t]
+    rng = np.random.default_rng(t)
+    v = torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=t).astype(np.float32))
+    W = torch.from_numpy(rng.uniform(-1, 1, (t, t)).astype(np.float32))
+    scale = 1.0 if t == 4 else 3.0
+    leaves = [a.clone().requires_grad_(True) for a in (*zs, v, c, W)]
+    attention_mix_forward_plain(leaves[:t], *leaves[t:], use_ln, scale,
+                                relu).backward(gout)
+    *dzs, dv, dc, dW = attention_mix_backward_plain(
+        zs, gout, v, c, W, use_ln, scale, relu)
+    for i, dz in enumerate(dzs):
+        assert_close(dz, leaves[i].grad.numpy(), d, f"dz{i}")
+    assert_close(dv, leaves[t].grad.numpy(), 300, "dv")
+    if use_ln:
+        assert_close(dc, leaves[t + 1].grad.numpy(), 300, "dc")
+    else:
+        assert leaves[t + 1].grad is None and not dc.any()
+    assert_close(dW, leaves[t + 2].grad.numpy(), 300, "dW")
 
 
 @pytest.mark.parametrize("use_ln", (False, True))
@@ -270,11 +303,12 @@ def test_fused_attention_plain_matches_jax(d, use_ln):
     conv = ACMConv(1, d, model_type=model_type, use_layernorm=use_ln)
     state = params_from_flax(params)
     conv.load_state_dict(state, strict=False)
-    _, (v, c, W) = conv._branch_params(detach=False)
+    v, c, W = conv._branch_params(detach=False)
     v, c, W = v.double(), c.double(), W.double()
-    out = attention_mix_forward_plain(z0, z1, z2, v, c, W, use_ln, 3.0)
+    out = attention_mix_forward_plain((z0, z1, z2), v, c, W, use_ln, 3.0)
     dz0, dz1, dz2, dv, dc, dW = attention_mix_backward_plain(
-        z0, z1, z2, gout, v.detach(), c.detach(), W.detach(), use_ln, 3.0)
+        (z0, z1, z2), gout, v.detach(), c.detach(), W.detach(), use_ln,
+        3.0)
     assert_close(out, jout, d, "out")
     for i, dz in enumerate((dz0, dz1, dz2)):
         assert_close(dz, jdz[i], d, f"dz{i}")

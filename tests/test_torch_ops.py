@@ -37,6 +37,7 @@ from acmgnn_tpu_torch.ops.ell import (
     row_gather_spmm_plain,
 )
 from acmgnn_tpu_torch.ops.graph import (
+    DenseOp,
     precompute_operators,
     row_normalized_adjacency,
 )
@@ -175,8 +176,10 @@ def test_precompute_operators_matches_jax_lowpass(small_graph):
     dense = spmm(ops.adj_low, torch.eye(n)).numpy()
     ref = np.asarray(jax_row_normalized_adjacency(adj).todense())
     np.testing.assert_allclose(dense, ref, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError):
-        precompute_operators(adj, fmt="dense")
+    dense_op = precompute_operators(adj, fmt="dense").adj_low
+    assert isinstance(dense_op, DenseOp)
+    np.testing.assert_allclose(dense_op.mat.numpy(), ref, rtol=1e-6,
+                               atol=1e-7)
 
 
 def test_row_normalize_features_matches_jax():
