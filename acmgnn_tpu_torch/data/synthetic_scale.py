@@ -14,7 +14,8 @@
 from __future__ import annotations
 
 import numpy as np
-import scipy.sparse as sp
+
+from acmgnn_tpu_torch.ops.native import build_sym_adjacency
 
 TWITCH_NODES = 168_114
 TWITCH_PAIRS = 6_797_557
@@ -30,22 +31,6 @@ LINKX_SCALE = {
     # channel in its configuration
     "penn94_pp": dict(n=41_554, e=1_362_229, f=4814, c=2, max_deg=4_500),
 }
-
-
-def build_sym_adjacency(
-    src: np.ndarray, dst: np.ndarray, n: int, drop_self_loops: bool = False
-) -> sp.csr_matrix:
-    """Directed edge list -> undirected binary CSR adjacency (symmetrize +
-    dedup); the scipy path of ``acmgnn_tpu.ops.native.build_sym_adjacency``,
-    which gives the same CSR as its native path."""
-    src = np.ascontiguousarray(src, dtype=np.int64)
-    dst = np.ascontiguousarray(dst, dtype=np.int64)
-    a = sp.coo_matrix((np.ones(src.shape[0]), (src, dst)), shape=(n, n))
-    out = ((a + a.T) > 0).astype(np.float64).tocsr()
-    if drop_self_loops:
-        out.setdiag(0)
-        out.eliminate_zeros()
-    return out
 
 
 def twitch_gamers_scale_graph(

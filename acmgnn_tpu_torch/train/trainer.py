@@ -9,11 +9,13 @@ selection, the early-stopping window and ``remat``:
 - ``run``, the sequential loop: a train step, then a separate eval
   forward (every model type outside ``JOINT_CAPABLE``);
 
-``build_model`` for the twelve model types, the single-card entry points ``run_experiment`` (multi-split, the fast
-path) and ``run_experiment_stepwise`` (one epoch at a time with
-``RunStats``), ``prepare_data`` with ``maybe_reorder`` and bf16 feature
-storage; and the sharded path, ``prepare_sharded_data`` and
-``run_experiment_sharded``: the graph row-partitioned over the ranks of
+``build_model`` for the twelve model types, the single-card entry points
+``run_experiment`` (multi-split, the fast path), ``train_single_split``
+and ``run_experiment_stepwise`` (one epoch at a time with ``RunStats``,
+checkpointing and bit-exact resume), ``prepare_data`` (a ``GraphData`` or
+a dataset name, through ``data.registry.load_dataset``) with
+``maybe_reorder`` and bf16 feature storage; and the sharded path,
+``prepare_sharded_data`` and ``run_experiment_sharded``: the graph row-partitioned over the ranks of
 a process group, the same runner with global losses and metrics and
 all-reduced gradients (acmgcn/acmgcnp, variant 0, row normalization,
 ELL or COO: ``refuse_unported_sharded``).
@@ -33,7 +35,7 @@ import contextlib
 import dataclasses
 import math
 import time
-
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -42,9 +44,13 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from acmgnn_tpu_torch import resolve_device
-from acmgnn_tpu_torch.data.registry import row_normalize_features
+from acmgnn_tpu_torch.data.registry import (
+    load_dataset,
+    row_normalize_features,
+)
 from acmgnn_tpu_torch.data.splits import (
     indices_to_masks,
+    load_fixed_split_masks,
     random_disassortative_splits,
 )
 from acmgnn_tpu_torch.models.layers import batch_stats_frozen
@@ -76,6 +82,10 @@ from acmgnn_tpu_torch.train.metrics import (
     masked_nll,
     masked_rocauc_multi,
     pack_labels_and_masks,
+)
+from acmgnn_tpu_torch.utils.checkpoint import (
+    restore_checkpoint,
+    save_checkpoint,
 )
 from acmgnn_tpu_torch.utils.logging import RunStats
 from acmgnn_tpu_torch.utils.resilience import retry_transient
@@ -600,6 +610,18 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     return run_joint if joint else run
 
 
+def train_single_split(model: ACMGNN, cfg: TrainConfig, ops: Operators,
+                       x: torch.Tensor, labels: torch.Tensor,
+                       labels_onehot: torch.Tensor, masks,
+                       seed: int = 0) -> SplitResult:
+    """One split, one shot (JAX ``train_single_split``): the split runner
+    of ``cfg`` from the model's current parameters, dropout drawn from
+    ``seed``.  JAX's ``key`` also initialises the model; here the model
+    holds its initial parameters (``build_model(..., seed=...)``)."""
+    return make_split_runner(model, cfg)(ops, x, labels, masks, seed=seed,
+                                         labels_onehot=labels_onehot)
+
+
 def maybe_reorder(data: GraphData, cfg: TrainConfig) -> GraphData:
     """Apply ``cfg.reorder``'s locality permutation ("rcm", "degree") to
     the whole graph (adjacency, features, labels) once and record it in
@@ -625,17 +647,23 @@ def _features_on(features: torch.Tensor, cfg: TrainConfig, dev):
     return features.to(dev)
 
 
-def prepare_data(dataset: GraphData, cfg: TrainConfig, device=None):
-    """Preprocess a graph into device tensors and operators:
-    ``(data, ops, x, labels, labels_onehot, nclass)``, where ``data`` is
-    the graph after ``maybe_reorder``."""
+def load_graph(dataset: GraphData | str, cfg: TrainConfig) -> GraphData:
+    """``dataset`` itself, or the dataset of that name loaded from local
+    files (``load_dataset`` with ``cfg.sub_dataset`` and
+    ``cfg.directed``)."""
+    if isinstance(dataset, str):
+        return load_dataset(dataset, cfg.sub_dataset, directed=cfg.directed)
+    return dataset
+
+
+def prepare_data(dataset: GraphData | str, cfg: TrainConfig, device=None):
+    """Load (``load_graph``) and preprocess a graph into device tensors
+    and operators: ``(data, ops, x, labels, labels_onehot, nclass)``,
+    where ``data`` is the graph after ``maybe_reorder``."""
     dev = resolve_device(device)
-    if not isinstance(dataset, GraphData):
-        raise NotImplementedError("dataset loaders are not ported yet; "
-                                  "pass a GraphData")
     if cfg.ell_block not in (0, 1):
         raise NotImplementedError("block-column ELL is a TPU layout")
-    data = maybe_reorder(dataset, cfg)
+    data = maybe_reorder(load_graph(dataset, cfg), cfg)
     features = data.features
     if cfg.resolve_feature_normalize():
         features = row_normalize_features(features)
@@ -731,7 +759,7 @@ def refuse_unported_sharded(cfg: TrainConfig) -> None:
             + " yet (ROADMAP.md A8)")
 
 
-def prepare_sharded_data(dataset: GraphData, cfg: TrainConfig, *,
+def prepare_sharded_data(dataset: GraphData | str, cfg: TrainConfig, *,
                          group=None, device=None,
                          exchange: str = "auto") -> ShardedData:
     """Sharded counterpart of ``prepare_data`` for this rank of ``group``
@@ -746,10 +774,7 @@ def prepare_sharded_data(dataset: GraphData, cfg: TrainConfig, *,
     dev = resolve_device(device)
     rank, world = _rank_and_world(group)
     refuse_unported_sharded(cfg)
-    if not isinstance(dataset, GraphData):
-        raise NotImplementedError("dataset loaders are not ported yet; "
-                                  "pass a GraphData")
-    data = maybe_reorder(dataset, cfg)
+    data = maybe_reorder(load_graph(dataset, cfg), cfg)
     boundaries = None
     if cfg.partition in ("fennel", "balanced"):
         part = (fennel_partition(data.adj, world) if cfg.partition == "fennel"
@@ -796,20 +821,17 @@ def resolve_split(data: GraphData, cfg: TrainConfig, idx: int, rng, labels,
     """One (train, val, test) bool-mask triple, as the JAX package's:
 
     - with ``cfg.fixed_splits``, the dataset's own ``data.splits[idx]``
-      (index lists in the original node ids, permuted by ``data.perm``);
+      (index lists, e.g. the LINKX split files), else the Geom-GCN mask
+      file ``idx`` of ``data.name`` (``load_fixed_split_masks``); both in
+      the original node ids, permuted by ``data.perm``;
     - else the random disassortative 60/20/20 split drawn from ``rng`` in
-      the (possibly permuted) label space ``labels``.
-
-    The bundled Geom-GCN mask files wait for the data layer."""
+      the (possibly permuted) label space ``labels``."""
     n = data.num_nodes
     if data.splits is not None and cfg.fixed_splits:
         s = data.splits[idx % len(data.splits)]
         masks = indices_to_masks(n, s["train"], s["valid"], s["test"])
     elif cfg.fixed_splits:
-        raise NotImplementedError(
-            "file-based splits (the bundled Geom-GCN masks) wait for the "
-            "data layer (ROADMAP.md); pass GraphData.splits or use random "
-            "splits")
+        masks = load_fixed_split_masks(data.name, idx)
     else:
         return random_disassortative_splits(np.asarray(labels), nclass,
                                             rng=rng)
@@ -818,9 +840,12 @@ def resolve_split(data: GraphData, cfg: TrainConfig, idx: int, rng, labels,
     return masks
 
 
-def run_experiment_sharded(dataset: GraphData, cfg: TrainConfig, *,
+def run_experiment_sharded(dataset: GraphData | str, cfg: TrainConfig, *,
                            device=None, exchange: str = "auto",
-                           checkpoint_dir=None, return_model: bool = False):
+                           checkpoint_dir=None, checkpoint_every: int = 0,
+                           resume: bool = False,
+                           per_host_loading: bool = False,
+                           return_model: bool = False):
     """Multi-split full-batch training with the graph row-partitioned
     over the ranks of the default process group (``init_distributed``;
     without one, a single rank): the counterpart of the JAX package's
@@ -833,9 +858,17 @@ def run_experiment_sharded(dataset: GraphData, cfg: TrainConfig, *,
     ``make_split_runner`` keeps them equal.  Returns the JAX package's
     result dict (``devices`` is the world size); with ``return_model``
     also the last split's model, ``(result, model)``.
+
+    Checkpointing (``checkpoint_dir``, ``checkpoint_every``, ``resume``)
+    and per-rank slab loading (``per_host_loading``) are refused by name:
+    they are not ported to the sharded path yet (ROADMAP.md A8).
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpointing is not ported yet")
+    if checkpoint_dir is not None or checkpoint_every or resume:
+        raise NotImplementedError("checkpointing on the sharded path is not "
+                                  "ported yet (ROADMAP.md A8)")
+    if per_host_loading:
+        raise NotImplementedError("per-rank slab loading (per_host_loading)"
+                                  " is not ported yet (ROADMAP.md A8)")
     group = dist.group.WORLD if dist.is_initialized() else None
     prep = prepare_sharded_data(dataset, cfg, group=group, device=device,
                                 exchange=exchange)
@@ -900,7 +933,7 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_experiment(dataset: GraphData, cfg: TrainConfig, *, splits=None,
+def run_experiment(dataset: GraphData | str, cfg: TrainConfig, *, splits=None,
                    logger=None, prepared=None, runner=None, hparams=None,
                    device=None) -> dict:
     """Multi-split experiment, the counterpart of the JAX package's
@@ -1019,7 +1052,7 @@ def epoch_generator(device, seed: int, epoch: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state))
 
 
-def run_experiment_stepwise(dataset: GraphData, cfg: TrainConfig, *,
+def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
                             splits=None, logger=None, display_step: int = 25,
                             checkpoint_dir: Optional[str] = None,
                             checkpoint_every: int = 0, resume: bool = False,
@@ -1032,12 +1065,18 @@ def run_experiment_stepwise(dataset: GraphData, cfg: TrainConfig, *,
     epoch runs under ``retry_transient``; it trains in place, so a retry
     continues from the parameters the failed attempt left (JAX's epoch is
     a pure function of its inputs).  ``epoch_ms_steady`` excludes the
-    first executed epoch.  Checkpointing (``checkpoint_dir``,
-    ``checkpoint_every``, ``resume``) is not ported yet (ROADMAP.md)."""
-    if checkpoint_dir is not None or checkpoint_every or resume:
-        raise NotImplementedError("checkpointing (checkpoint_dir, "
-                                  "checkpoint_every, resume) is not ported "
-                                  "yet (ROADMAP.md)")
+    first executed epoch.
+
+    Checkpointing (``utils/checkpoint.py``): ``checkpoint_dir`` saves the
+    best-val weights of split ``idx`` (``split<idx>_best``: the model's
+    ``state_dict``, BatchNorm statistics included); ``checkpoint_every=k``
+    also snapshots the whole training state (``split<idx>_last``: weights,
+    the optimizer's state with its step count, the epochs done and the
+    best val metric; ``split<idx>_history.npy``: the per-epoch metrics)
+    every k epochs and at the split's end, and ``resume`` restores it and
+    continues.  An epoch's dropout depends on (seed, epoch) alone
+    (``epoch_generator``), so a resumed run equals the uninterrupted one
+    bit for bit."""
     data, ops, x, labels, labels_onehot, nclass = prepare_data(
         dataset, cfg, device=device)
     dev = x.device
@@ -1061,7 +1100,31 @@ def run_experiment_stepwise(dataset: GraphData, cfg: TrainConfig, *,
                             seed=cfg.seed + idx, nnodes=x.shape[0])
         opt = make_optimizer(cfg, list(model.parameters()))
         train_epoch, eval_epoch = make_epoch_fns(model, cfg)
-        for epoch in range(cfg.epochs):
+        best_val = -math.inf
+        start_epoch = 0
+        last_path = hist_path = None
+        if checkpoint_dir is not None:
+            last_path = f"{checkpoint_dir}/split{idx}_last"
+            hist_path = f"{checkpoint_dir}/split{idx}_history.npy"
+        if resume and last_path is not None and Path(last_path).exists():
+            snap = restore_checkpoint(last_path, map_location=dev)
+            model.load_state_dict(snap["variables"])
+            opt.load_state_dict(snap["opt_state"])
+            start_epoch = int(snap["step"])
+            best_val = float(snap["extra"]["best_val"])
+            for row in np.load(hist_path)[:start_epoch]:
+                stats.add_result(idx, tuple(row))
+            if logger is not None:
+                logger.info("split %d: resumed at epoch %d (best val %.4f)",
+                            idx, start_epoch, best_val)
+
+        def save_state(epochs_done):
+            save_checkpoint(last_path, model.state_dict(),
+                            opt_state=opt.state_dict(), step=epochs_done,
+                            extra={"best_val": float(best_val)})
+            np.save(hist_path, np.asarray(stats.results[idx], np.float64))
+
+        for epoch in range(start_epoch, cfg.epochs):
 
             def do_epoch():
                 gen = epoch_generator(dev, cfg.seed + idx, epoch)
@@ -1079,11 +1142,23 @@ def run_experiment_stepwise(dataset: GraphData, cfg: TrainConfig, *,
             first_epoch_done = True
             stats.add_result(idx, (ev["train_metric"], ev["val_metric"],
                                    ev["test_metric"]))
+            if ev["val_metric"] > best_val:
+                best_val = ev["val_metric"]
+                if checkpoint_dir is not None:
+                    save_checkpoint(f"{checkpoint_dir}/split{idx}_best",
+                                    model.state_dict(), step=epoch,
+                                    extra={"val_metric": best_val})
             if logger is not None and epoch % display_step == 0:
                 logger.info(
                     "split %d epoch %d: loss %.4f train %.4f val %.4f "
                     "test %.4f", idx, epoch, loss, ev["train_metric"],
                     ev["val_metric"], ev["test_metric"])
+            if (checkpoint_every and last_path is not None
+                    and (epoch + 1) % checkpoint_every == 0):
+                save_state(epoch + 1)
+        if (checkpoint_every and last_path is not None
+                and start_epoch < cfg.epochs):
+            save_state(cfg.epochs)
     summary = stats.summary()
     elapsed = time.time() - t_total
     epochs_total = cfg.num_splits * cfg.epochs

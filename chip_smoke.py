@@ -137,7 +137,9 @@ Phases (any failure exits non-zero and prints no result):
       K1 with valued halves (bf16 and f32 values) on the headline graph
       in symmetric normalization at widths 7, 8 and 4, bit for bit
       against ``k1_order_replay``; K1 on penn94_pp's structure operator
-      at w64 and w2 (its own transpose); K5 on the symmetric-normalized
+      at w64 and w2 (its own transpose), and on its row-normalized
+      operator at w128 (layer 1's train gather and its transpose); K5 on
+      the symmetric-normalized
       COO operator; each timed beside its plain version, its bound and
       ``torch.sparse.mm`` where one computes the same product;
    b. penn94_pp at full width (bench.py's row: ACM-GCN++ with the
@@ -160,6 +162,27 @@ Phases (any failure exits non-zero and prints no result):
       normalization) on a small twitch-shaped graph: a few epochs eager
       against captured bit for bit (parameters and BatchNorm statistics,
       launch counts equal), then card against CPU (1e-4).
+
+10. The CLI slice: datasets written in their loaders' on-disk layouts
+   under a temporary ``ACMGNN_DATA_PATH``, the subcommands of
+   ``acmgnn_tpu_torch.cli`` run in this process on the card:
+   a. genius at full width from ``genius.mat`` (the Chung-Lu stand-in's
+      edge list, N=421,961) and its LINKX split file: the load equal,
+      array for array, to the edge list symmetrized in memory with the
+      loader's rule (self-loops kept), its host seconds; ``cli train``
+      with genius's configuration (``config_from_args`` equal to
+      ``genius_config()`` but for the splits and epochs), 2 splits x 20
+      epochs, under ``--profile_dir``: launch counts as ``joint_counts``
+      implies, the trace naming K1-K4, the per-split test and val
+      ROC-AUC and the JSON equal bit for bit to ``run_experiment`` on the
+      loaded graph, ms/epoch over the whole runs and the replays;
+   b. a chameleon-shaped graph in Geom-GCN files: stepwise training with
+      checkpoints, the same cut at half the epochs and resumed (the
+      snapshots, histories, best weights and results equal bit for bit),
+      ``predict`` (logits equal to an eval forward of the checkpoint),
+      COO training (K5), ``homophily``, a 2 x 2 ``sweep`` (each point
+      equal to its own ``run_experiment``), ``gen-graphs``, ``gen-feats``
+      from cora-shaped Planetoid files and ``synthetic-train``.
 
 The line before the last is the kernel table as JSON (every row with
 ``ms`` and ``device_ms``, ``library_ms`` and ``library_device_ms``); the
@@ -2997,7 +3020,9 @@ def phase_instances(adj, feats, p_adj):
     f32 values) on the headline graph in symmetric normalization at the
     joint epoch's widths 7, 8 (high-pass epilogue) and 4 (transpose), bit
     for bit against ``k1_order_replay``; K1 on penn94_pp's structure
-    operator (value-free, its own transpose) at w64 and w2; K5 on the
+    operator (value-free, its own transpose) at w64 and w2, and on its
+    row-normalized operator at w128 (layer 1's train gather with the
+    high-pass epilogue, and its transpose); K5 on the
     symmetric-normalized COO operator at w7, w8 and w4."""
     import scipy.sparse as sp
     import torch
@@ -3008,6 +3033,7 @@ def phase_instances(adj, feats, p_adj):
     from acmgnn_tpu_torch.ops.graph import (
         make_coo_op,
         precompute_operators,
+        row_normalized_adjacency,
         sym_normalized_adjacency,
     )
 
@@ -3060,6 +3086,29 @@ def phase_instances(adj, feats, p_adj):
     rows += _k1_rows(s_op.fwd, cases, "@penn94-structure",
                      lambda d: f"k1_spmm_w{d}", s_lib,
                      "acmgnn_tpu/ops/ell.py:693")
+    # K1 at w128 on penn94_pp's row-normalized operator: layer 1's train
+    # gather (the low and the high projection, 64 wide each, the high one
+    # through the epilogue) and its transpose (the operand pre-scaled)
+    t0 = time.perf_counter()
+    low = precompute_operators(p_adj, fmt="ell",
+                               spmm_dtype=torch.bfloat16).adj_low.to(dev)
+    a_pp = row_normalized_adjacency(p_adj)
+    print(f"[9a] penn94_pp's row-normalized operator (host build "
+          f"{time.perf_counter() - t0:.1f} s)")
+    hp = [float(h) for h in (0,) * 64 + (1,) * 64]
+    z = torch.randn(n_pp, 128, generator=gen, device=dev)
+    rows += _k1_rows(low.fwd, [(k1_operand(z, torch.bfloat16), z, hp,
+                                [1.0 - 2.0 * h for h in hp], "k1_spmm_w128")],
+                     "@penn94", lambda d: "k1_spmm_w128", _csr_on_card(a_pp),
+                     "acmgnn_tpu/ops/spmm.py:153")
+    g = torch.randn(n_pp, 128, generator=gen, device=dev)
+    sign = torch.tensor([1.0 - 2.0 * h for h in hp], device=dev)
+    xg = k1_operand((g * sign).to(torch.bfloat16), torch.bfloat16,
+                    low.bwd.pre_scale)
+    rows += _k1_rows(low.bwd, [(xg, g, hp, [1.0] * 128,
+                                "k1_spmm_w128_transpose")],
+                     "@penn94", lambda d: "k1_spmm_w128",
+                     _csr_on_card(a_pp.T), "acmgnn_tpu/ops/spmm.py:143")
     # K5 on the symmetric-normalized COO operator
     coo = make_coo_op(a_sym).to(dev)
     for (x, z, alpha, beta, tr), nm in zip(_spmm_cases(n, gen, x_in),
@@ -3409,6 +3458,464 @@ def phase_zoo():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the CLI slice (the user's entry point, from files)
+# ---------------------------------------------------------------------------
+
+CLI_EPOCHS, CLI_SPLITS = 20, 2          # 10a: genius through the CLI
+CLI_SMALL_EPOCHS = 20                   # 10b: the chameleon-shaped files
+TRACE_KERNELS = {"K1": "spmm_rows_kernel", "K2": "attn_fwd_kernel",
+                 "K3": "attn_bwd_kernel", "K4": "rocauc_pass_kernel"}
+
+
+class _Recording:
+    """Wrap ``owner.name`` (a module function or a class method) for the
+    ``with`` block; ``seen`` receives every call's return value (or
+    ``record(*args)`` of each call's arguments)."""
+
+    def __init__(self, owner, name, record=None):
+        self.owner, self.name, self.record = owner, name, record
+        self.fn, self.seen = getattr(owner, name), []
+
+    def __enter__(self):
+        fn, seen, record = self.fn, self.seen, self.record
+
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen.append(out if record is None else record(*args))
+            return out
+
+        setattr(self.owner, self.name, wrapped)
+        return self.seen
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def _cli(argv):
+    """``acmgnn_tpu_torch.cli.main(argv)`` in this process, its standard
+    output captured: (the last line's JSON or None, the output)."""
+    import contextlib
+    import io
+
+    from acmgnn_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    out = buf.getvalue()
+    try:
+        return json.loads(out.strip().splitlines()[-1]), out
+    except (json.JSONDecodeError, IndexError):
+        return None, out
+
+
+def _cli_config(argv):
+    """The ``TrainConfig`` that ``cli train argv`` runs with."""
+    from acmgnn_tpu_torch import cli
+
+    got, cmd = [], cli.cmd_train
+    cli.cmd_train = got.append
+    try:
+        cli.main(["train"] + argv)
+    finally:
+        cli.cmd_train = cmd
+    return cli.config_from_args(got[0])
+
+
+def _split_log(idx, res):
+    return idx, float(res.test_metric), float(res.val_metric)
+
+
+def _write_genius_files(root, n, src, dst, feats, labels):
+    """genius's on-disk layout: ``large_scale_data/genius.mat`` and the
+    LINKX split file (2 splits of 50/25/25, ``rand_train_test_idx``)."""
+    import scipy.io
+
+    from acmgnn_tpu_torch.data.splits import rand_train_test_idx
+
+    (root / "large_scale_data").mkdir(parents=True)
+    scipy.io.savemat(root / "large_scale_data" / "genius.mat", {
+        "edge_index": np.vstack([src, dst]), "node_feat": feats,
+        "label": labels})
+    splits = [dict(zip(("train", "valid", "test"), rand_train_test_idx(
+        labels, rng=np.random.default_rng(i)))) for i in range(CLI_SPLITS)]
+    (root / "ACM-Geometric" / "splits").mkdir(parents=True)
+    np.save(root / "ACM-Geometric" / "splits" / "genius-splits.npy",
+            np.array(splits, dtype=object), allow_pickle=True)
+    return splits
+
+
+def phase_cli_genius(root, ms_5b):
+    """[10a] genius from files at full width through ``cli train``."""
+    import torch
+
+    from acmgnn_tpu_torch.data.registry import load_dataset
+    from acmgnn_tpu_torch.data.synthetic_scale import (
+        LINKX_SCALE,
+        chung_lu_edges,
+    )
+    from acmgnn_tpu_torch.ops import kernels, native
+    from acmgnn_tpu_torch.train import trainer
+    from acmgnn_tpu_torch.utils.logging import ExperimentLogger
+
+    spec = LINKX_SCALE["genius"]
+    n = spec["n"]
+    t0 = time.perf_counter()
+    src, dst = chung_lu_edges(n, spec["e"], spec["max_deg"], seed=0)
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(n, spec["f"])).astype(np.float32)
+    labels = rng.integers(0, spec["c"], size=n).astype(np.int32)
+    splits = _write_genius_files(root, n, src, dst, feats, labels)
+    print(f"[10a] wrote genius.mat (N={n}, {src.shape[0]} directed edges, "
+          f"F={spec['f']}) and genius-splits.npy under the data root "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    data = load_dataset("genius")
+    t_load = time.perf_counter() - t0
+    want = native.build_sym_adjacency_scipy(src, dst, n)
+    for part in ("indptr", "indices", "data"):
+        if not np.array_equal(getattr(data.adj, part), getattr(want, part)):
+            fail(f"[10a] genius.mat's CSR {part} differs from the edge "
+                 f"list symmetrized in memory (self-loops kept)")
+    if not (np.array_equal(data.features, feats)
+            and np.array_equal(data.labels, labels)
+            and len(data.splits) == CLI_SPLITS
+            and all(np.array_equal(a[k], b[k]) for a, b in zip(
+                data.splits, splits) for k in ("train", "valid", "test"))):
+        fail("[10a] genius.mat's features, labels or splits differ")
+    if not data.adj.diagonal().any():
+        fail("[10a] genius.mat's graph has no self-loop to keep")
+    print(f"[10a] load_dataset('genius'): {t_load:.2f} s on the host "
+          f"(compiled graph prep: {native.native_available()}); CSR "
+          f"nnz={data.adj.nnz} (self-loops kept), features, labels and "
+          f"{CLI_SPLITS} splits equal to the arrays written")
+
+    argv = ["--dataset", "genius", "--fixed_splits", "1", "--num_splits",
+            str(CLI_SPLITS), "--model", "acmgcn", "--hidden", "64",
+            "--dropout", "0.5", "--lr", "0.01", "--weight_decay", "1e-3",
+            "--epochs", str(CLI_EPOCHS), "--early_stopping", "0",
+            "--operator_format", "ell", "--spmm_dtype", "bfloat16",
+            "--joint", "1", "--hoist_first", "1",
+            "--log_dir", str(root / "logs")]
+    cfg = _cli_config(argv)
+    want_cfg = genius_config(epochs=CLI_EPOCHS, num_splits=CLI_SPLITS,
+                             fixed_splits=True)
+    if cfg != want_cfg:
+        fail(f"[10a] the CLI's config {dataclasses.asdict(cfg)} != "
+             f"genius_config() {dataclasses.asdict(want_cfg)}")
+    prof = root / "profile"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _Recording(trainer, "run_experiment") as outs, \
+            _Recording(ExperimentLogger, "log_split",
+                       record=lambda self, i, r: _split_log(i, r)) as logs:
+        line, _ = _cli(["train"] + argv + ["--profile_dir", str(prof)])
+    t_cli = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    # the loader keeps genius's self-loops, so Â = D^-1 (A + I) has rows
+    # that are not uniform: its ELL halves carry values (K1's valued form)
+    bodies = CLI_SPLITS * (CLI_EPOCHS + 1)
+    want = valued(joint_counts(bodies, "k1_spmm", 12, k4=True))
+    print(f"[10a] cli train: {t_cli:.1f} s (prepare, {CLI_SPLITS} splits, "
+          f"profiler trace written); launches "
+          f"{json.dumps(counts, sort_keys=True)}")
+    if counts != want:
+        fail(f"[10a] cli train launch counts {counts} != expected {want}")
+    trace = (prof / "trace.json").read_text()
+    missing = [k for k, v in TRACE_KERNELS.items() if v not in trace]
+    if missing:
+        fail(f"[10a] the --profile_dir trace names no {missing} kernel")
+    print(f"[10a] --profile_dir trace.json ({len(trace) / 2**20:.1f} MiB) "
+          f"names " + ", ".join(f"{k} ({v})" for k, v in
+                                TRACE_KERNELS.items()))
+
+    timings = []
+
+    def runner(model, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res, state = trainer.make_split_runner(model, cfg)(
+            *args, return_state=True, **kwargs)
+        torch.cuda.synchronize()
+        timings.append((1e3 * (time.perf_counter() - t), state.setup_ms,
+                        state.epoch))
+        return res
+
+    with _Recording(ExperimentLogger, "log_split",
+                    record=lambda self, i, r: _split_log(i, r)) as ref_logs:
+        ref = trainer.run_experiment(
+            data, cfg, runner=runner,
+            logger=ExperimentLogger("ref", log_dir=str(root / "logs"),
+                                    to_file=False))
+    cli_out = outs[0]
+    if (cli_out["per_split"] != ref["per_split"] or logs != ref_logs
+            or line["test_mean"] != ref["test_mean"]
+            or line["test_std"] != ref["test_std"]
+            or line["epochs_total"] != ref["epochs_total"]):
+        fail(f"[10a] cli train {cli_out['per_split']} {logs} {line} != "
+             f"run_experiment {ref['per_split']} {ref_logs} {ref}")
+    valid_mean = float(np.mean([v for _, _, v in logs]))
+    print(f"[10a] cli train = run_experiment on the loaded graph, bit for "
+          f"bit: per-split test ROC-AUC {cli_out['per_split']}, val "
+          f"{[v for _, _, v in logs]} (valid_mean {valid_mean!r}), "
+          f"test_mean {line['test_mean']!r}, {line['epochs_total']} epochs")
+    whole = [ms / e for ms, _, e in timings]
+    replays = [(ms - setup) / (e - 1) for ms, setup, e in timings]
+    print(f"[10a] run_experiment ms/epoch by split, whole run "
+          f"{', '.join(f'{v:.3f}' for v in whole)}; over the replays "
+          f"{', '.join(f'{v:.3f}' for v in replays)} (set-up "
+          f"{', '.join(f'{t[1]:.1f}' for t in timings)} ms); the CLI's "
+          f"own (profiled) epoch_ms_avg {line['epoch_ms_avg']:.3f}, "
+          f"epoch_ms_steady {line['epoch_ms_steady']:.3f}")
+    ratio = replays[-1] / ms_5b
+    print(f"[10a] prediction: replays within +-10% of 5b's genius joint "
+          f"ELL replays ({ms_5b:.3f}): {replays[-1]:.3f} = {ratio:.3f}x, "
+          f"{'held' if abs(ratio - 1) <= 0.1 else 'missed'}; host load "
+          f"<= 5 s: {t_load:.2f} s, "
+          f"{'held' if t_load <= 5 else 'missed'}")
+    return dict(load_s=t_load, whole=whole, replays=replays, counts=counts)
+
+
+def _write_geomgcn_files(root, data, name, n_splits=2):
+    """Geom-GCN's layout of ``data``: ``new_data/<name>/out1_*`` (binary
+    features as text, the edge list) and the fixed split files
+    ``ACM-Pytorch/splits/<name>_split_0.6_0.2_<i>.npz`` (48/32/20)."""
+    d = root / "new_data" / name
+    d.mkdir(parents=True)
+    coo = data.adj.tocoo()
+    with open(d / "out1_graph_edges.txt", "w") as fh:
+        fh.write("node_id\tnode_id\n")
+        fh.writelines(f"{u}\t{v}\n" for u, v in zip(coo.row, coo.col))
+    feats = data.features.astype(np.int64)
+    with open(d / "out1_node_feature_label.txt", "w") as fh:
+        fh.write("node_id\tfeature\tlabel\n")
+        fh.writelines(f"{i}\t{','.join(map(str, feats[i]))}\t"
+                      f"{data.labels[i]}\n" for i in range(data.num_nodes))
+    s = root / "ACM-Pytorch" / "splits"
+    s.mkdir(parents=True, exist_ok=True)
+    n = data.num_nodes
+    for i in range(n_splits):
+        perm = np.random.default_rng(i).permutation(n)
+        cut = (int(0.48 * n), int(0.8 * n))
+        np.savez(s / f"{name}_split_0.6_0.2_{i}.npz",
+                 **{k: np.isin(np.arange(n), perm[a:b]) for k, (a, b) in
+                    zip(("train_mask", "val_mask", "test_mask"),
+                        ((0, cut[0]), cut, (cut[1], n)))})
+
+
+def _write_planetoid_files(root, name, n=2708, f=1433, c=7, seed=0):
+    """Planetoid's ``data/ind.<name>.*`` pickles of a random graph of the
+    given shape (cora's: 2,708 nodes, 1,433 binary features, 7 classes;
+    140 labelled rows, 1,000 test rows)."""
+    import pickle
+
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    n_test = 1000
+    n_allx = n - n_test
+    onehot = np.eye(c)[rng.integers(0, c, n)]
+    x_all = sp.csr_matrix((rng.random((n, f)) < 0.013).astype(np.float32))
+    parts = {"x": x_all[:140], "y": onehot[:140], "allx": x_all[:n_allx],
+             "ally": onehot[:n_allx], "tx": x_all[n_allx:],
+             "ty": onehot[n_allx:],
+             "graph": {i: [int(v) for v in rng.integers(0, n, 2)]
+                       for i in range(n)}}
+    (root / "data").mkdir(exist_ok=True)
+    for part, obj in parts.items():
+        with open(root / "data" / f"ind.{name}.{part}", "wb") as fh:
+            pickle.dump(obj, fh)
+    (root / "data" / f"ind.{name}.test.index").write_text("\n".join(
+        str(i) for i in rng.permutation(np.arange(n_allx, n))) + "\n")
+
+
+def _snapshots_equal(a, b, what):
+    """Two ``save_checkpoint`` files hold equal payloads, bit for bit."""
+    import torch
+
+    from acmgnn_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    sa, sb = restore_checkpoint(a), restore_checkpoint(b)
+    ok = (sa.keys() == sb.keys() and sa["step"] == sb["step"]
+          and sa.get("extra") == sb.get("extra")
+          and sa["variables"].keys() == sb["variables"].keys()
+          and all(torch.equal(v, sb["variables"][k])
+                  for k, v in sa["variables"].items()))
+    if "opt_state" in sa:
+        oa, ob = sa["opt_state"], sb["opt_state"]
+        ok = ok and oa["param_groups"] == ob["param_groups"] and all(
+            torch.equal(v, ob["state"][i][k])
+            for i, st in oa["state"].items() for k, v in st.items())
+    if not ok:
+        fail(f"[10b] {what}: the snapshots differ")
+    return sa
+
+
+def phase_cli_small(root):
+    """[10b] A small dataset end to end through every subcommand."""
+    import torch
+
+    from acmgnn_tpu_torch.data import homophily as H
+    from acmgnn_tpu_torch.data.registry import load_dataset
+    from acmgnn_tpu_torch.ops import kernels
+    from acmgnn_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    name = "chameleon"
+    graph = _chameleon_graph()
+    _write_geomgcn_files(root, graph, name)
+    data = load_dataset(name)
+    if ((data.adj != graph.adj).nnz or not np.array_equal(
+            data.features, graph.features)
+            or not np.array_equal(data.labels, graph.labels)):
+        fail("[10b] the Geom-GCN files do not load back as written")
+    print(f"[10b] {name}: Geom-GCN files of the chameleon-shaped graph "
+          f"(N={data.num_nodes}, F={data.features.shape[1]}, "
+          f"C={data.num_classes}) load back equal")
+    logs = ["--log_dir", str(root / "logs")]
+    base = ["--dataset", name, "--fixed_splits", "1", "--num_splits", "2"]
+    ckpt = ["--operator_format", "ell", "--stepwise", "--checkpoint_every",
+            "5"]
+    whole, cut = root / "whole", root / "cut"
+    t0 = time.perf_counter()
+    out, _ = _cli(["train"] + base + ckpt + logs + [
+        "--checkpoint_dir", str(whole), "--epochs", str(CLI_SMALL_EPOCHS)])
+    t_whole = time.perf_counter() - t0
+    _cli(["train"] + base + ckpt + logs + [
+        "--checkpoint_dir", str(cut), "--epochs",
+        str(CLI_SMALL_EPOCHS // 2)])
+    resumed, _ = _cli(["train"] + base + ckpt + logs + [
+        "--checkpoint_dir", str(cut), "--epochs", str(CLI_SMALL_EPOCHS),
+        "--resume"])
+    for idx in range(2):
+        snap = _snapshots_equal(whole / f"split{idx}_last",
+                                cut / f"split{idx}_last",
+                                f"split {idx} resumed at epoch "
+                                f"{CLI_SMALL_EPOCHS // 2}")
+        _snapshots_equal(whole / f"split{idx}_best", cut / f"split{idx}_best",
+                         f"split {idx}'s best weights")
+        if snap["step"] != CLI_SMALL_EPOCHS or not np.array_equal(
+                np.load(whole / f"split{idx}_history.npy"),
+                np.load(cut / f"split{idx}_history.npy")):
+            fail(f"[10b] split {idx}: the resumed history differs")
+    keys = ("test_mean", "test_std", "valid_mean", "valid_std",
+            "epochs_total")
+    if any(out[k] != resumed[k] for k in keys):
+        fail(f"[10b] resumed result {resumed} != uninterrupted {out}")
+    print(f"[10b] stepwise ELL, {CLI_SMALL_EPOCHS} epochs x 2 splits "
+          f"({t_whole:.1f} s, epoch_ms_steady "
+          f"{out['epoch_ms_steady']:.3f}): cut at "
+          f"{CLI_SMALL_EPOCHS // 2} and resumed = uninterrupted, bit for "
+          f"bit (weights, Adam's moments and step, history, best weights; "
+          f"test_mean {out['test_mean']!r})")
+
+    pred = root / "pred.npz"
+    summary, _ = _cli(["predict"] + base + logs + [
+        "--checkpoint", str(whole / "split0_best"), "--output", str(pred)])
+    cfg = _cli_config(base)
+    _, ops, x, _, _, nclass = trainer.prepare_data(name, cfg)
+    model = trainer.build_model(cfg, x.shape[1], nclass, nnodes=x.shape[0])
+    from acmgnn_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    model.load_state_dict(restore_checkpoint(whole / "split0_best")[
+        "variables"])
+    with torch.no_grad():
+        want = model(x, ops, training=False).cpu()
+    if not torch.equal(torch.from_numpy(np.load(pred)["logits"]), want):
+        fail("[10b] predict's logits differ from an eval forward of the "
+             "checkpoint's weights")
+    print(f"[10b] predict: logits = an eval forward of split0_best, bit for "
+          f"bit ({summary['nodes']} nodes, label agreement "
+          f"{summary['label_agreement']})")
+
+    kernels.reset_launches()
+    coo, _ = _cli(["train"] + base + logs + [
+        "--operator_format", "coo", "--epochs", "5", "--num_splits", "1"])
+    k5 = {k: v for k, v in kernels.launches.items() if k.startswith("k5")}
+    if not k5 or not math.isfinite(coo["test_mean"]):
+        fail(f"[10b] train --operator_format coo: K5 {k5}, {coo}")
+    print(f"[10b] train --operator_format coo, 5 epochs: K5 launches {k5}, "
+          f"test_mean {coo['test_mean']:.4f}")
+
+    hom, _ = _cli(["homophily", "--dataset", name])
+    want_h = {"edge_homophily": H.edge_homophily(data.adj, data.labels),
+              "node_homophily": H.node_homophily(data.adj, data.labels),
+              "class_homophily": H.class_homophily(data.adj, data.labels),
+              "aggregation_homophily": H.aggregation_homophily(
+                  data.features, data.adj, data.labels)}
+    if any(hom[k] != v for k, v in want_h.items()):
+        fail(f"[10b] homophily {hom} != {want_h}")
+    print(f"[10b] homophily = the metrics on the loaded arrays: {hom}")
+
+    grid = {"lr": [0.01, 0.05], "weight_decay": [0.0, 5e-4],
+            "dropout": [0.5]}
+    with _Recording(trainer, "run_experiment") as points:
+        best, _ = _cli(["sweep"] + base + logs + [
+            "--epochs", "10", "--grid", json.dumps(grid)])
+    if len(points) != 4:
+        fail(f"[10b] sweep ran {len(points)} grid points, not 4")
+    for p in points:
+        ref = trainer.run_experiment(name, trainer.TrainConfig(**p["config"]))
+        if ref["per_split"] != p["per_split"]:
+            fail(f"[10b] sweep point {p['config']['lr']}, "
+                 f"{p['config']['weight_decay']}: {p['per_split']} != its "
+                 f"own run_experiment {ref['per_split']}")
+    if best["test_mean"] != max(p["test_mean"] for p in points):
+        fail(f"[10b] sweep best {best['test_mean']} is not the highest")
+    print(f"[10b] sweep 2 x 2 (lr x wd), dropout 0.5: each point = its own "
+          f"run_experiment bit for bit; best test_mean "
+          f"{best['test_mean']:.4f} at lr {best['config']['lr']}, wd "
+          f"{best['config']['weight_decay']}")
+
+    _write_planetoid_files(root, "cora")
+    syn = root / "synthetic"
+    _cli(["gen-graphs", "--base_dir", str(syn), "--edge_homos", "0.5",
+          "--num_graph", "1"])
+    _cli(["gen-feats", "--base_dataset", "cora", "--out_dir",
+          str(syn / "features"), "--num_realizations", "1"])
+    with np.load(syn / "features" / "features_0.npz") as f:
+        feats = f["features"]
+    if feats.shape != (2000, 1433) or not np.isfinite(feats).all():
+        fail(f"[10b] gen-feats wrote {feats.shape}")
+    st, _ = _cli(["synthetic-train", "--base_dir", str(syn), "--edge_homo",
+                  "0.5", "--num_graph", "1", "--features_dir",
+                  str(syn / "features"), "--epochs", "20", "--num_splits",
+                  "1"] + logs)
+    if not math.isfinite(st["test_mean"]):
+        fail(f"[10b] synthetic-train: {st}")
+    print(f"[10b] gen-graphs, gen-feats (from cora-shaped Planetoid files) "
+          f"and synthetic-train (1 graph at edge homophily 0.5): "
+          f"test_mean {st['test_mean']:.4f}; phase 10b "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_cli(ms_5b):
+    """[10] The CLI slice: datasets written in their loaders' layouts
+    under a temporary data root (``ACMGNN_DATA_PATH``), then the
+    subcommands run in this process on the card."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    old = os.environ.get("ACMGNN_DATA_PATH")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["ACMGNN_DATA_PATH"] = tmp
+        try:
+            out = phase_cli_genius(Path(tmp), ms_5b)
+            phase_cli_small(Path(tmp))
+        finally:
+            if old is None:
+                os.environ.pop("ACMGNN_DATA_PATH", None)
+            else:
+                os.environ["ACMGNN_DATA_PATH"] = old
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[10] the CLI slice: {out['seconds']:.1f} s")
+    return out
+
+
 def _instance_launches(row, pp, sym, dense, zoo):
     """The launches of a 9a row's instance, and the run they come from:
     the symmetric headline runs (9b sym) for the valued K1 and K5,
@@ -3523,6 +4030,7 @@ def main() -> int:
                                                           dense, zoo)
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on its path")
+    cli_out = phase_cli(paths["ell"][4])
     steady = {k: entry[k][0]["epoch_ms_steady"]
               for k in ("experiment", "plain", "remat", "adamw", "bf16",
                         "rcm")}
@@ -3545,7 +4053,10 @@ def main() -> int:
               f"{f} {d} {v[1]:.3f} ({v[4]:.3f})" for (f, d), v in
               sym.items())
           + "; dense " + ", ".join(f"{k} {v[1]:.3f} ({v[2]:.3f})"
-                                   for k, v in dense.items()))
+                                   for k, v in dense.items())
+          + f"; cli train genius {cli_out['whole'][-1]:.3f} "
+          f"({cli_out['replays'][-1]:.3f}), load {cli_out['load_s']:.2f} s, "
+          f"phase 10 {cli_out['seconds']:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "path")

@@ -251,13 +251,21 @@ def test_run_experiment_stepwise_rocauc_matches_jax(graph, monkeypatch):
                                loss="bce"))
 
 
-def test_stepwise_refuses_checkpointing(graph):
-    cfg = TrainConfig(**BASE)
+def test_stepwise_refuses_checkpointing(graph, tmp_path):
+    """Checkpointing is ported to the stepwise path (it writes the best
+    and the whole-state snapshots and the history) and refused by name on
+    the sharded path only."""
+    cfg = TrainConfig(**dict(BASE, epochs=2, num_splits=1))
     for kw in (dict(checkpoint_dir="x"), dict(checkpoint_every=2),
                dict(resume=True)):
         with pytest.raises(NotImplementedError, match="checkpointing"):
-            trainer.run_experiment_stepwise(_data(graph), cfg, device="cpu",
-                                            **kw)
+            trainer.run_experiment_sharded(_data(graph), cfg, device="cpu",
+                                           **kw)
+    trainer.run_experiment_stepwise(_data(graph), cfg, device="cpu",
+                                    checkpoint_dir=str(tmp_path),
+                                    checkpoint_every=1)
+    assert {p.name for p in tmp_path.iterdir()} == {
+        "split0_best", "split0_last", "split0_history.npy"}
 
 
 # ---------------------------------------------------------------------------
@@ -513,10 +521,11 @@ def test_maybe_reorder_matches_jax(graph, method):
     assert trainer.maybe_reorder(got, cfg) is got
 
 
-def test_resolve_split_matches_jax(graph):
+def test_resolve_split_matches_jax(graph, tmp_path, monkeypatch):
     """Dataset-attached splits (index lists in original node ids, wrapped
     by ``idx % len``), the same after a locality reorder (masks permuted
-    by ``perm``), and random splits drawn in the permuted label space."""
+    by ``perm``), random splits drawn in the permuted label space, and
+    the mask files of a dataset without attached splits."""
     n = graph[0].shape[0]
     rng = np.random.default_rng(2)
     splits = [{k: rng.permutation(n)[:m] for k, m in
@@ -540,9 +549,24 @@ def test_resolve_split_matches_jax(graph):
                                 (jtrainer.resolve_split, jdata, jcfg))]
         for a, b in zip(*rand):
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="file-based splits"):
-        trainer.resolve_split(_data(graph), TrainConfig(fixed_splits=True),
-                              0, None, graph[2], 2)
+    # without attached splits: the Geom-GCN mask files of the data roots
+    root = tmp_path / "ACM-Pytorch" / "splits"
+    root.mkdir(parents=True)
+    monkeypatch.setenv("ACMGNN_DATA_PATH", str(tmp_path))
+    masks = rng.random((3, n)) < 0.3
+    np.savez(root / "g_split_0.6_0.2_1.npz", train_mask=masks[0],
+             val_mask=masks[1], test_mask=masks[2])
+    for reorder in ("none", "rcm"):
+        cfg = TrainConfig(reorder=reorder, fixed_splits=True)
+        jcfg = JaxTrainConfig(reorder=reorder, fixed_splits=True)
+        data = trainer.maybe_reorder(_data(graph), cfg)
+        jdata = jtrainer.maybe_reorder(_data(graph, jax_side=True), jcfg)
+        got = trainer.resolve_split(data, cfg, 1, None, data.labels, 2)
+        want = jtrainer.resolve_split(jdata, jcfg, 1, None, jdata.labels, 2)
+        for a, b, m in zip(got, want, masks):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(
+                a, m if data.perm is None else m[data.perm])
 
 
 def test_card_check_of_bf16_knobs_is_well_conditioned():

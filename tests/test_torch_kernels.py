@@ -199,13 +199,15 @@ def test_wrappers_refuse_a_device_without_kernel():
 
 def test_port_imports_no_jax():
     """The package and chip_smoke.py import nothing of JAX, acmgnn_tpu or
-    bench.py: every module imports with those names blocked."""
+    bench.py, nor pandas, scikit-learn or orbax (absent where the card
+    is): every module imports with those names blocked."""
     code = """
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "acmgnn_tpu", "bench"):
+                                  "acmgnn_tpu", "bench", "pandas",
+                                  "sklearn", "orbax"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import acmgnn_tpu_torch
@@ -221,7 +223,19 @@ print(" ".join(sorted(sys.modules)))
     assert {"acmgnn_tpu_torch.ops.panel_gather",
             "acmgnn_tpu_torch.tools.gather_probe",
             "acmgnn_tpu_torch.utils.logging",
-            "acmgnn_tpu_torch.utils.resilience"} <= imported
+            "acmgnn_tpu_torch.utils.resilience",
+            "acmgnn_tpu_torch.cli",
+            "acmgnn_tpu_torch.data.paths",
+            "acmgnn_tpu_torch.data.planetoid",
+            "acmgnn_tpu_torch.data.geomgcn",
+            "acmgnn_tpu_torch.data.linkx",
+            "acmgnn_tpu_torch.data.homophily",
+            "acmgnn_tpu_torch.data.synthetic",
+            "acmgnn_tpu_torch.ops.native",
+            "acmgnn_tpu_torch.utils.checkpoint",
+            "acmgnn_tpu_torch.utils.profiling",
+            "acmgnn_tpu_torch.train.sweep",
+            "acmgnn_tpu_torch.train.synthetic_exp"} <= imported
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

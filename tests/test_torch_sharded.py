@@ -732,7 +732,9 @@ def test_init_distributed_needs_a_group_or_the_card(monkeypatch):
                          init_method="tcp://127.0.0.1:1")
 
 
-def test_sharded_path_refuses_what_is_not_ported(model_graph):
+def test_sharded_path_refuses_what_is_not_ported(model_graph, monkeypatch,
+                                                 tmp_path):
+    monkeypatch.setenv("ACMGNN_DATA_PATH", str(tmp_path))
     adj, feats, labels = model_graph
     data = GraphData("g", adj, feats, labels)
     cfg = TrainConfig(**EXPERIMENT_CFG)
@@ -745,6 +747,9 @@ def test_sharded_path_refuses_what_is_not_ported(model_graph):
                           group=object())
     with pytest.raises(NotImplementedError, match="checkpointing"):
         run_experiment_sharded(data, cfg, device="cpu", checkpoint_dir="x")
-    with pytest.raises(NotImplementedError, match="file-based splits"):
+    with pytest.raises(NotImplementedError, match="per_host_loading"):
+        run_experiment_sharded(data, cfg, device="cpu", per_host_loading=True)
+    # fixed splits without attached ones: the mask files, searched by name
+    with pytest.raises(FileNotFoundError, match="g_split_0.6_0.2_0.npz"):
         run_experiment_sharded(data, dataclasses.replace(
             cfg, fixed_splits=True), device="cpu")
