@@ -26,6 +26,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 
 from acmgnn_tpu_torch.train.config import TrainConfig
 
@@ -118,8 +119,10 @@ def _add_train_args(p: argparse.ArgumentParser):
                         "all-gather, boundary halo exchange, or auto by "
                         "volume")
     p.add_argument("--per_host_loading", type=int, default=0,
-                   help="sharded runs: per-rank slab loading (not ported "
-                        "yet: refused)")
+                   help="accepted for the JAX CLI's flags: on the sharded "
+                        "path every rank always places only its own rows "
+                        "of the node arrays, through a loader of its row "
+                        "range")
     p.add_argument("--partition", choices=["contiguous", "fennel",
                                            "balanced"],
                    default="contiguous",
@@ -200,8 +203,10 @@ def cmd_train(args):
     from acmgnn_tpu_torch.utils.profiling import profile_trace
 
     cfg = config_from_args(args)
-    logger = ExperimentLogger(name=f"{args.dataset}_{args.model}",
-                              log_dir=args.log_dir)
+    name = f"{args.dataset}_{args.model}"
+    if args.sharded and "RANK" in os.environ:
+        name += f"_rank{os.environ['RANK']}"   # one log file per rank
+    logger = ExperimentLogger(name=name, log_dir=args.log_dir)
     logger.info("config: %s", dataclasses.asdict(cfg))
     trace = (profile_trace(args.profile_dir) if args.profile_dir
              else contextlib.nullcontext())
@@ -226,7 +231,7 @@ def _run_train(args, cfg, logger):
     from acmgnn_tpu_torch.train import trainer
 
     if args.sharded:
-        return _run_sharded(args, cfg)
+        return _run_sharded(args, cfg, logger)
     if args.stepwise or args.checkpoint_dir:
         return trainer.run_experiment_stepwise(
             args.dataset, cfg, logger=logger,
@@ -237,7 +242,7 @@ def _run_train(args, cfg, logger):
                                   device=args.device)
 
 
-def _run_sharded(args, cfg):
+def _run_sharded(args, cfg, logger):
     """``run_experiment_sharded`` in the process group the launcher made
     (``init_distributed`` reads torchrun's environment); ``--sharded N``
     must name its world size (-1: whatever it is)."""
@@ -255,7 +260,7 @@ def _run_sharded(args, cfg):
                          f"(torchrun --nproc_per_node={args.sharded})")
     return trainer.run_experiment_sharded(
         args.dataset, cfg, device=args.device, exchange=args.exchange,
-        checkpoint_dir=args.checkpoint_dir or None,
+        logger=logger, checkpoint_dir=args.checkpoint_dir or None,
         checkpoint_every=args.checkpoint_every, resume=args.resume,
         per_host_loading=bool(args.per_host_loading))
 

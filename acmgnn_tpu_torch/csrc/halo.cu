@@ -34,6 +34,13 @@
 // Staging a block's tile of x in shared memory first (cp.async) measured
 // no faster on the H100 at the sharded headline's shapes, so rows are
 // read straight from device memory.
+// Rows of kWideMin columns or more (the zoo's hidden widths, layer 1's
+// w128 gather, the wide-feature hoist at w600) take a warp per row: its
+// lanes write the row's store pieces in turn, so a warp's loads and
+// stores cover consecutive bytes of one row.  A thread per row there read
+// 2,400-byte strided rows: 14.1 ms for the wiki hoist's [1.9M, 600] pack
+// against a 2.1 ms bytes bound (H100, PERF.md).  Same products, same
+// order, same rounding.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,6 +48,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWideMin = 32;   // columns from which a warp packs a row
 
 // bytes of one store: the largest power of two up to 16 dividing a row's
 // bytes (the output's base is 16-byte aligned)
@@ -173,6 +181,60 @@ cudaError_t launch(const float* x, const float* sign, const float* s,
   return cudaGetLastError();
 }
 
+// A warp per output row (rows of at least kWideMin columns): lane l
+// writes the row's store pieces l, l + 32, ...; out[j] = cast((x[j]·
+// sign[j])·s) for j < d, 0 up to ld, as write_row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+halo_pack_wide_kernel(const float* __restrict__ x,
+                      const float* __restrict__ sign,
+                      const float* __restrict__ s, int rows, int d, int ld,
+                      T* __restrict__ own, const int32_t* __restrict__ send_idx,
+                      int n_send, T* __restrict__ send) {
+  constexpr int kMax = 16 / sizeof(T);
+  const int64_t k =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (k >= static_cast<int64_t>(rows) + n_send) return;  // the whole warp
+  const bool is_own = k < rows;
+  const int64_t r = is_own ? k : static_cast<int64_t>(send_idx[k - rows]);
+  T* out = is_own ? own + k * ld : send + (k - rows) * ld;
+  const float* src = x + r * d;
+  const float sc = s != nullptr ? __ldg(s + r) : 1.f;
+  const int per = store_bytes(ld * static_cast<int>(sizeof(T))) /
+                  static_cast<int>(sizeof(T));
+  for (int c0 = lane * per; c0 < ld; c0 += 32 * per) {
+    Piece<T> v;
+    v.u = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int q = 0; q < kMax; ++q) {
+      const int j = c0 + q;
+      if (q < per && j < d) {
+        float y = src[j];
+        if (sign != nullptr) y *= __ldg(sign + j);
+        if (s != nullptr) y *= sc;
+        v.e[q] = to_out(y, T());
+      }
+    }
+    store_piece(out + c0, v, per * static_cast<int>(sizeof(T)));
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const float* x, const float* sign, const float* s,
+                        int rows, int d, int ld, T* own,
+                        const int32_t* send_idx, int n_send, T* send,
+                        cudaStream_t stream) {
+  const int64_t n = static_cast<int64_t>(rows) + n_send;
+  if (n == 0) return cudaSuccess;
+  constexpr int kRowsPerBlock = kThreads / 32;
+  const auto blocks =
+      static_cast<unsigned>((n + kRowsPerBlock - 1) / kRowsPerBlock);
+  halo_pack_wide_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      x, sign, s, rows, d, ld, own, send_idx, n_send, send);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch(const float* x, const float* sign, const float* s,
                      int rows, int d, int ld, T* own,
@@ -189,6 +251,9 @@ cudaError_t dispatch(const float* x, const float* sign, const float* s,
   ACM_K6_CASE(12, 16)
   ACM_K6_CASE(12, 12)
 #undef ACM_K6_CASE
+  if (d >= kWideMin)
+    return launch_wide<T>(x, sign, s, rows, d, ld, own, send_idx, n_send,
+                          send, st);
   return launch<T, 0, 0>(x, sign, s, rows, d, ld, own, send_idx, n_send,
                          send, st);
 }

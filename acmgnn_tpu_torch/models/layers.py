@@ -48,7 +48,13 @@ from torch import nn
 
 from acmgnn_tpu_torch.ops import kernels
 from acmgnn_tpu_torch.ops.graph import Operators
-from acmgnn_tpu_torch.ops.spmm import spmm, spmm_dual, spmm_high, spmm_multi
+from acmgnn_tpu_torch.ops.spmm import (
+    node_rows,
+    spmm,
+    spmm_dual,
+    spmm_high,
+    spmm_multi,
+)
 
 # Widest layer-1 input the hoist gathers directly (kept from the JAX
 # package, where a wider gather fell off the gather engine's full rate).
@@ -859,8 +865,10 @@ class ACMConv(nn.Module):
                                  "operator (precompute_operators("
                                  "structure_info=True))")
             # depends on parameters only: one gather serves both branches
-            # (K2 applies its ReLU)
-            struc = spmm(ops.adj_unnorm, self.struc_low)
+            # (K2 applies its ReLU); a rank of a sharded run gathers from
+            # its slab of the embedding's rows
+            struc = spmm(ops.adj_unnorm,
+                         node_rows(ops.adj_unnorm, self.struc_low))
         results = []
         for b, xb in enumerate(branches):
             wl, wh, wm = ws[b]

@@ -161,6 +161,16 @@ def spmm_multi(op_low: SparseOp, zs: Sequence[torch.Tensor],
     return list(torch.split(both, dims, dim=1))
 
 
+def node_rows(op: SparseOp, t: torch.Tensor) -> torch.Tensor:
+    """The rows of a replicated ``[N, ...]`` node tensor that ``op``'s
+    products take as their operand: all of them, or on a rank's share of
+    a sharded operator that rank's zero-padded slab
+    (``ShardedOp.node_rows``)."""
+    if isinstance(op, (ShardedEllOp, ShardedCooOp)):
+        return op.node_rows(t)
+    return t
+
+
 def spmm(op: SparseOp, x: torch.Tensor) -> torch.Tensor:
     """``Â @ x`` (f32 result; the operand is gathered in the op's dtype)."""
     return spmm_multi(op, [x], [False])[0]

@@ -8,9 +8,16 @@ its own ``rows_per_part`` rows of every node array, and every collective
 of the path is explicit:
 
 - ``all_gather_rows`` / ``all_to_all_rows``: the SpMM's exchange of
-  packed operand rows (all-gather, or the halo slabs);
+  packed operand rows (all-gather, or the halo slabs); ``gather_rows``:
+  every rank's slab of the logits and of the split's packed label/mask
+  words, for a ROC-AUC over all nodes;
 - ``all_reduce_sum``: gradients, mask counts and the epoch's metric
   shares.
+
+Per-rank loading (``rank_rows``, ``shard_node_array_per_host``): a rank
+reads only its own row range of a node array through a loader, the
+counterpart of the JAX package's per-host loading, and the one way the
+port places a node array.
 
 Backends: ``nccl`` for ranks on cards (one card per rank), ``gloo`` for
 ranks on the CPU, or when several ranks share one card (NCCL refuses two
@@ -76,16 +83,65 @@ def init_distributed(*, backend: str | None = None, device=None,
     return True
 
 
-def local_node_slab(arr: np.ndarray, boundaries, rows_per_part: int,
-                    rank: int, dtype=None) -> np.ndarray:
-    """This rank's ``[rows_per_part, ...]`` slab of the node array ``arr``
-    (its rows ``boundaries[rank]:boundaries[rank + 1]``), zero padded."""
-    arr = np.asarray(arr)
-    r0, r1 = int(boundaries[rank]), int(boundaries[rank + 1])
-    block = np.zeros((rows_per_part,) + arr.shape[1:],
-                     dtype=arr.dtype if dtype is None else dtype)
-    block[: r1 - r0] = arr[r0:r1]
-    return block
+def rank_rows(boundaries, rank: int) -> tuple:
+    """``(r0, r1)``: the node rows this rank owns.  The counterpart of the
+    JAX package's ``host_local_rows``, whose list holds one such range
+    (with its partition and offset) per partition a host owns: here a
+    rank owns one."""
+    return int(boundaries[rank]), int(boundaries[rank + 1])
+
+
+def shard_node_array_per_host(loader, boundaries, rows_per_part: int,
+                              rank: int, dtype, trailing_shape=(),
+                              device=None) -> torch.Tensor:
+    """This rank's zero-padded ``[rows_per_part, *trailing_shape]`` slab of
+    a node array, read through ``loader(r0, r1)``, called once with this
+    rank's rows (``rank_rows``; a rank that owns none calls nothing).
+    Every node array of the sharded path is placed through it: the loader
+    may read just those rows from a file or a memory map, or slice an
+    array in memory (``parallel.sharded.shard_node_array``)."""
+    r0, r1 = rank_rows(boundaries, rank)
+    block = np.zeros((rows_per_part,) + tuple(trailing_shape), dtype=dtype)
+    if r1 > r0:
+        block[: r1 - r0] = loader(r0, r1)
+    return torch.from_numpy(block).to(device)
+
+
+_issued = 0   # collectives this process has issued through this module
+
+
+def _issue() -> None:
+    global _issued
+    _issued += 1
+
+
+def failure_vote(group=None):
+    """An ``agree`` hook for ``utils.resilience.retry_transient`` on every
+    rank of ``group``: after each attempt the ranks all-reduce, over a
+    gloo group of their own (so that the vote cannot be matched with a
+    collective a peer still waits in), whether the attempt failed,
+    whether the failure is transient, and how many collectives of this
+    module each rank had issued.  The attempt is retried only when every
+    rank failed transiently at the same count, that is in the same
+    collective or between the same two, so that every rank restarts from
+    the same point of the group's sequence; if any rank failed otherwise,
+    all of them raise.  A rank whose peer failed alone still waits in its
+    pending collective until that fails or times out, then votes."""
+    from acmgnn_tpu_torch.utils.resilience import is_transient
+
+    vote_group = dist.new_group(backend="gloo")
+
+    def agree(exc) -> str:
+        failed = int(exc is not None)
+        flags = torch.tensor([failed, -failed,
+                              int(failed and is_transient(exc)),
+                              _issued, -_issued], dtype=torch.int64)
+        dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=vote_group)
+        every, neg_any, transient, lo, neg_hi = flags.tolist()
+        if not -neg_any:
+            return "done"
+        return "retry" if every and transient and lo == -neg_hi else "raise"
+    return agree
 
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -104,6 +160,7 @@ def _pinned(t: torch.Tensor, fill: bool = True) -> torch.Tensor:
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """In-place sum over the group's ranks; returns ``t``."""
+    _issue()
     if _staged(t, group):
         host = _pinned(t)
         dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
@@ -115,6 +172,7 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
 
 def all_gather_rows(out: torch.Tensor, own: torch.Tensor, group=None) -> None:
     """``out[q * rows:(q + 1) * rows] = own`` of rank q, for every q."""
+    _issue()
     if _staged(out, group):
         host = _pinned(out, fill=False)
         dist.all_gather_into_tensor(host, _pinned(own), group=group)
@@ -123,11 +181,21 @@ def all_gather_rows(out: torch.Tensor, own: torch.Tensor, group=None) -> None:
         dist.all_gather_into_tensor(out, own, group=group)
 
 
+def gather_rows(own: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``own`` (``[rows, ...]``, the same shape on each),
+    stacked in rank order: ``[world · rows, ...]``."""
+    world = dist.get_world_size(group)
+    out = own.new_empty((world * own.shape[0],) + tuple(own.shape[1:]))
+    all_gather_rows(out, own.contiguous(), group)
+    return out
+
+
 def all_to_all_rows(out: torch.Tensor, send: torch.Tensor,
                     group=None) -> None:
     """Equal split along rows: slot q of ``send`` goes to rank q, and slot
     q of ``out`` (a contiguous view, written in place) receives what rank
     q sent."""
+    _issue()
     if _staged(out, group):
         host = _pinned(out, fill=False)
         dist.all_to_all_single(host, _pinned(send), group=group)

@@ -38,9 +38,13 @@ matrix's K5 slice grid (``nnz_offset``).
 The ELL halves follow the single-chip port's rules (``ops/ell.py``):
 value-free halves with a per-row ``row_scale``, a column-uniform
 transpose that pre-scales the operand (here: each rank its own slab,
-inside K6), and a transpose that shares the forward's structure arrays
-when the binary structure is symmetric.  The JAX package's class planes,
-hub blocks and their environment knobs are its TPU layout and are not
+inside K6), a transpose that shares the forward's structure arrays when
+the binary structure is symmetric, and valued halves (symmetric
+normalization, weighted graphs) whose values are stored in the gather
+dtype, each product rounded to it.  A matrix equal to its transpose
+(the symmetric operator, the raw adjacency of the structure channel)
+has one half for both directions.  The JAX package's class planes, hub
+blocks and their environment knobs are its TPU layout and are not
 ported.
 """
 
@@ -61,12 +65,16 @@ from acmgnn_tpu_torch.ops.ell import (
     k1_operand_ld,
     row_gather_spmm,
 )
-from acmgnn_tpu_torch.ops.graph import Operators, row_normalized_adjacency
+from acmgnn_tpu_torch.ops.graph import (
+    Operators,
+    row_normalized_adjacency,
+    sym_normalized_adjacency,
+)
 from acmgnn_tpu_torch.ops.halo import halo_pack, padded_rows
 from acmgnn_tpu_torch.parallel.multihost import (
     all_gather_rows,
     all_to_all_rows,
-    local_node_slab,
+    shard_node_array_per_host,
 )
 from acmgnn_tpu_torch.parallel.partition import (
     build_halo_schedule,
@@ -96,6 +104,19 @@ class _ShardedOp:
     rows_sent: int = 0
     rows_received: int = 0
     group: object = None            # process group; None: the default one
+
+    def node_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's zero-padded ``[rows_per_part, ...]`` slab of a
+        replicated ``[N, ...]`` node tensor (rows ``boundaries[rank]:
+        boundaries[rank + 1]``), differentiable: the structure channel's
+        embedding, a parameter every rank holds whole."""
+        r0, r1 = (int(self.boundaries[self.rank]),
+                  int(self.boundaries[self.rank + 1]))
+        rows = t[r0:r1]
+        pad = self.rows_per_part - (r1 - r0)
+        if pad:
+            rows = torch.cat([rows, rows.new_zeros((pad,) + t.shape[1:])])
+        return rows
 
     def exchange_rows(self, transpose: bool = False) -> int:
         """Rows of the receive buffer a product gathers from."""
@@ -172,8 +193,8 @@ def _choose_halo(blocks: dict, exchange: str, n_parts: int) -> dict:
 
 def _slab(values: np.ndarray, boundaries, rows_per_part: int, rank: int):
     """This rank's zero-padded f32 slab of a per-node vector."""
-    return torch.from_numpy(local_node_slab(values, boundaries,
-                                            rows_per_part, rank, np.float32))
+    return shard_node_array(np.asarray(values, np.float32), boundaries,
+                            rows_per_part, rank)
 
 
 def _build_blocks(adj_op, world_size, boundaries, exchange):
@@ -232,7 +253,10 @@ def make_sharded_ell_op(adj_op: sp.spmatrix, world_size: int,
     "auto" (halo when its padded volume is under half the all-gather's).
     The half-selection rules are the single-chip ``make_ell_op``'s, on
     the global matrix: a row partition keeps whole rows, so global row
-    and column uniformity hold for every block.
+    and column uniformity hold for every block, and a matrix equal to
+    its transpose (values included) gives every rank one half for both
+    directions (its transpose schedule is the forward's).  Valued halves
+    store their values in ``gather_dtype``.
     """
     csr = sp.csr_matrix(adj_op)
     csr.sort_indices()
@@ -261,7 +285,8 @@ def make_sharded_ell_op(adj_op: sp.spmatrix, world_size: int,
         n_cols = _n_cols(halo, "halo_pad", rpp, world_size)
         fwd = _build_half(
             local(blocks["row_l"][p], src[ck][p], blocks["val"][p], n_cols),
-            None if scale_fwd is None else slab(scale_fwd), "post")
+            None if scale_fwd is None else slab(scale_fwd), "post",
+            gather_dtype)
         if sym_struct and np.array_equal(csr.data, csr_t.data):
             bwd = fwd                                   # Aᵀ == A
         elif sym_struct and scale_fwd is not None and scale_bwd is None:
@@ -279,7 +304,7 @@ def make_sharded_ell_op(adj_op: sp.spmatrix, world_size: int,
             elif scale_fwd is not None:
                 bwd = _build_half(mat_t, slab(scale_fwd), "pre")
             else:
-                bwd = _build_half(mat_t)
+                bwd = _build_half(mat_t, vals_dtype=gather_dtype)
         return ShardedEllOp(fwd=fwd, bwd=bwd, gather_dtype=gather_dtype,
                             **_common(blocks, halo, p, world_size))
 
@@ -325,36 +350,57 @@ def make_sharded_coo_op(adj_op: sp.spmatrix, world_size: int,
 
 
 def make_sharded_operators(adj: sp.spmatrix, world_size: int, rank: int, *,
-                           normalization: str = "row", fmt: str = "ell",
+                           normalization: str = "row",
+                           structure_info: bool = False, fmt: str = "ell",
                            exchange: str = "allgather", boundaries=None,
                            spmm_dtype: torch.dtype = torch.float32):
     """Sharded counterpart of ``ops.graph.precompute_operators`` for one
-    rank: ``(Operators, boundaries, rows_per_part)``.  ``fmt``: "ell"
-    (K1) or "coo" (K5, f32; ignores ``spmm_dtype``, as the JAX package
-    does).  Node arrays are placed with ``shard_node_array``."""
-    if normalization != "row":
-        raise NotImplementedError(f"normalization {normalization!r} is not "
-                                  "ported yet")
-    adj_low = row_normalized_adjacency(sp.csr_matrix(adj))
+    rank: ``(Operators, boundaries, rows_per_part)``.
+
+    - ``normalization``: "row" (``D^-1 (A + I)``, value-free halves) or
+      "sym" (``D^-1/2 (A + I) D^-1/2``: valued ELL halves in the gather
+      dtype, f32 COO), as the JAX package's ``make_sharded_operators``;
+    - ``structure_info``: also ``adj_unnorm``, the raw adjacency of the
+      structure channel, on ``adj_low``'s boundaries and exchange mode so
+      every node slab lines up (value-free, its own transpose when the
+      graph is undirected);
+    - ``fmt``: "ell" (K1) or "coo" (K5, f32; ignores ``spmm_dtype``, as
+      the JAX package does).
+
+    Node arrays are placed with ``shard_node_array``."""
+    adj = sp.csr_matrix(adj)
+    if normalization == "row":
+        adj_low = row_normalized_adjacency(adj)
+    elif normalization == "sym":
+        adj_low = sym_normalized_adjacency(adj)
+    else:
+        raise ValueError(f"unknown normalization: {normalization!r}")
     if fmt == "ell":
-        op, boundaries = make_sharded_ell_op(
-            adj_low, world_size, rank, boundaries=boundaries,
-            exchange=exchange, gather_dtype=spmm_dtype)
+        def make(mat, b):
+            return make_sharded_ell_op(mat, world_size, rank, boundaries=b,
+                                       exchange=exchange,
+                                       gather_dtype=spmm_dtype)
     elif fmt == "coo":
-        op, boundaries = make_sharded_coo_op(
-            adj_low, world_size, rank, boundaries=boundaries,
-            exchange=exchange)
+        def make(mat, b):
+            return make_sharded_coo_op(mat, world_size, rank, boundaries=b,
+                                       exchange=exchange)
     else:
         raise ValueError(f"unknown sharded operator format: {fmt!r}")
-    return Operators(adj_low=op), boundaries, op.rows_per_part
+    op, boundaries = make(adj_low, boundaries)
+    unnorm = make(adj, boundaries)[0] if structure_info else None
+    return (Operators(adj_low=op, adj_unnorm=unnorm), boundaries,
+            op.rows_per_part)
 
 
 def shard_node_array(arr: np.ndarray, boundaries, rows_per_part: int,
                      rank: int, device=None) -> torch.Tensor:
     """This rank's zero-padded ``[rows_per_part, ...]`` slab of a node
-    array, as a tensor on ``device``."""
-    return torch.from_numpy(local_node_slab(arr, boundaries, rows_per_part,
-                                            rank)).to(device)
+    array in memory, as a tensor on ``device``
+    (``shard_node_array_per_host`` over a slice of it)."""
+    arr = np.asarray(arr)
+    return shard_node_array_per_host(lambda r0, r1: arr[r0:r1], boundaries,
+                                     rows_per_part, rank, arr.dtype,
+                                     arr.shape[1:], device)
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,12 @@ and ``run_experiment_stepwise`` (one epoch at a time with ``RunStats``,
 checkpointing and bit-exact resume), ``prepare_data`` (a ``GraphData`` or
 a dataset name, through ``data.registry.load_dataset``) with
 ``maybe_reorder`` and bf16 feature storage; and the sharded path,
-``prepare_sharded_data`` and ``run_experiment_sharded``: the graph row-partitioned over the ranks of
-a process group, the same runner with global losses and metrics and
-all-reduced gradients (acmgcn/acmgcnp, variant 0, row normalization,
-ELL or COO: ``refuse_unported_sharded``).
+``prepare_sharded_data`` and ``run_experiment_sharded``: the graph
+row-partitioned over the ranks of a process group, the same runner with
+global losses and metrics (ROC-AUC over the gathered logits) and
+all-reduced gradients, every model type, per-rank slab loading, and
+checkpointed segments with bit-exact resume (``refuse_unported_sharded``
+names what it still refuses).
 
 The JAX package fuses the whole split into one ``lax.while_loop`` whose
 body carries a ``SplitState`` on the device.  Here the loop body keeps the
@@ -32,6 +34,7 @@ The model's parameters are trained in place.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import math
 import time
@@ -64,7 +67,11 @@ from acmgnn_tpu_torch.ops.graph import (
     precompute_operators,
 )
 from acmgnn_tpu_torch.ops.spmm import spmm
-from acmgnn_tpu_torch.parallel.multihost import all_reduce_sum
+from acmgnn_tpu_torch.parallel.multihost import (
+    all_reduce_sum,
+    failure_vote,
+    gather_rows,
+)
 from acmgnn_tpu_torch.parallel.partition import (
     degree_balanced_partition,
     fennel_partition,
@@ -253,6 +260,8 @@ class SplitState:
     capture_ms: Optional[float] = None   # host ms of the capture (eager: None)
     setup_ms: Optional[float] = None     # host ms from the call to the first
     #                                      replay (eager: None)
+    runner: Optional["RunnerState"] = None   # a segment's (``epoch_limit``)
+    #                                          state, for the next one
 
 
 @dataclasses.dataclass
@@ -289,6 +298,46 @@ class LoopState:
         for best, new in zip((self.best_val_loss, self.best_val_metric,
                               self.best_test_metric), evals):
             best.copy_(torch.where(improved, new, best))
+
+    def clone(self, dev=None) -> "LoopState":
+        """A copy (on ``dev``, or where it is)."""
+        return LoopState(**{
+            f.name: getattr(self, f.name).detach().to(dev, copy=True)
+            for f in dataclasses.fields(self)})
+
+    def result(self, joint: bool, bodies: Optional[int] = None
+               ) -> "SplitResult":
+        """The split's result after ``bodies`` bodies (default: read
+        ``k`` on the host)."""
+        if bodies is None:
+            bodies = int(self.k)
+        return SplitResult(
+            test_metric=self.best_test_metric, val_metric=self.best_val_metric,
+            val_loss=self.best_val_loss,
+            train_loss=self.train_losses[max(bodies - 1, 0)],
+            epochs_run=max(bodies - 1, 0) if joint else bodies)
+
+
+@dataclasses.dataclass
+class RunnerState:
+    """A split runner's whole state between two segments of one split
+    (``make_split_runner``'s ``init_state``): the model's ``state_dict``
+    (parameters and buffers), the optimizer's (Adam's moments and step),
+    the loop's device state, and the state of this rank's dropout
+    generator and of its remat twin (None without remat).  JAX's keys are
+    stateless (``fold_in(key, epoch)``); the port's generators are
+    stateful and seeded by ``(seed, rank)``, so their states are part of
+    it, one per rank.  Held as copies: running a segment from it leaves
+    it as it was, so a failed segment can be run again."""
+
+    variables: dict
+    opt_state: dict
+    loop: LoopState
+    generators: list
+
+    @property
+    def bodies(self) -> int:
+        return int(self.loop.k)
 
 
 def write_at(hist: torch.Tensor, idx: torch.Tensor, value: torch.Tensor,
@@ -370,13 +419,24 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
                       group=None, graph: bool = True,
                       capturable: Optional[bool] = None):
     """``run(ops, x, labels, masks, seed=0, return_state=False,
-    labels_onehot=None, hparams=None)`` — one split's training from the
-    model's current parameters (the joint loop for joint-capable models
-    when ``cfg.joint``, else the sequential one).  ``labels_onehot`` is
-    the BCE target, ``prepare_data``'s ``labels_onehot``; ``hparams``, an
-    ``(lr, weight_decay)`` pair, builds the optimizer from those values
-    in place of the config's.  With ``cfg.remat`` the train forward runs
-    under activation checkpointing (``train_forward``).
+    labels_onehot=None, hparams=None, init_state=None, epoch_limit=None)``
+    — one split's training from the model's current parameters (the joint
+    loop for joint-capable models when ``cfg.joint``, else the sequential
+    one).  ``labels_onehot`` is the BCE target, ``prepare_data``'s
+    ``labels_onehot``; ``hparams``, an ``(lr, weight_decay)`` pair, builds
+    the optimizer from those values in place of the config's.  With
+    ``cfg.remat`` the train forward runs under activation checkpointing
+    (``train_forward``).
+
+    Segments (JAX's ``init_state`` / ``epoch_limit``): the loop runs while
+    its body counter is under ``epoch_limit`` (and its budget: ``epochs``,
+    the joint loop's ``epochs + 1``), and with ``return_state`` returns
+    the ``RunnerState`` the next segment starts from (``SplitState.runner``);
+    ``init_state``, such a state, restores the model's
+    parameters and buffers, the optimizer, the loop state and the dropout
+    generators first, so a split run in segments equals the uninterrupted
+    run bit for bit, and a segment run twice from one state gives the same
+    result.
 
     The loop body is JAX's (``acmgnn_tpu/train/trainer.py:234-305``,
     ``:338-426``): it keeps the split's state on the device
@@ -410,7 +470,14 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     counts.  The gradients are all-reduced (summed) in one flat buffer
     before the optimizer step, so the replicas stay equal, and every rank
     reads the same stop flag.  Dropout draws from a generator seeded by
-    ``(seed, rank)``."""
+    ``(seed, rank)``.  ROC-AUC ranks all nodes on every rank: each rank
+    gathers every rank's logits slab (``[P·rows_per_part, C]``) and the
+    split's packed label/mask words in that layout (gathered once a
+    split), then sorts and runs one K4 launch, so every rank reads the
+    same AUCs and the same stop flag.  Pad rows carry mask 0, and K4
+    counts average ranks over the masked nodes alone, so where the pad
+    rows fall among ties cannot move an AUC; at one rank the gathered
+    logits are the single card's, and so are the AUCs, bit for bit."""
     if cfg.loss not in ("nll", "bce"):
         raise ValueError(f"unknown loss {cfg.loss!r}")
     if cfg.metric not in ("acc", "rocauc"):
@@ -424,9 +491,6 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     if joint is None:
         joint = bool(cfg.joint) and cfg.model_type in JOINT_CAPABLE
     sel_metric = cfg.selection == "val_metric"
-    if group is not None and use_rocauc:
-        raise NotImplementedError("ROC-AUC on the sharded path is not "
-                                  "ported yet (ROADMAP.md)")
     params = list(model.parameters())
 
     def loss_of(logits, labels, labels_onehot, mask, count=None):
@@ -442,14 +506,21 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         counts; ``loss``: this rank's train-loss share)."""
         _, val_mask, test_mask = masks
         if counts is not None:
-            shares = torch.stack([
-                loss.detach(),
-                loss_of(logits, labels, labels_onehot, val_mask, counts[1]),
-                masked_correct(logits, labels, val_mask).float(),
-                masked_correct(logits, labels, test_mask).float()])
-            all_reduce_sum(shares, group)
-            return ((shares[1], shares[2] / counts[1], shares[3] / counts[2]),
-                    shares[0])
+            shares = [loss.detach(),
+                      loss_of(logits, labels, labels_onehot, val_mask,
+                              counts[1])]
+            if not use_rocauc:
+                shares += [masked_correct(logits, labels, val_mask).float(),
+                           masked_correct(logits, labels, test_mask).float()]
+            shares = all_reduce_sum(torch.stack(shares), group)
+            if use_rocauc:
+                # every rank ranks all nodes (``packed`` is gathered too)
+                metrics = masked_rocauc_multi(gather_rows(logits, group),
+                                              labels, masks[1:],
+                                              packed=packed)
+            else:
+                metrics = (shares[2] / counts[1], shares[3] / counts[2])
+            return (shares[1], *metrics), shares[0]
         if use_rocauc:
             # one score sort and one rank pass serve both masks
             val_metric, test_metric = masked_rocauc_multi(
@@ -488,12 +559,17 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
 
     def packed_words(labels, masks, labels_onehot):
         """The rank pass's packed label/mask words (val and test masks),
-        fixed for the split."""
+        fixed for the split; sharded, every rank's in the gathered
+        layout."""
         if use_bce and labels_onehot is None:
             raise ValueError("the BCE loss needs labels_onehot "
                              "(prepare_data's)")
-        return (pack_labels_and_masks(labels, masks[1:]) if use_rocauc
-                else None)
+        if not use_rocauc:
+            return None
+        packed = pack_labels_and_masks(labels, masks[1:])
+        if group is not None:
+            packed = gather_rows(packed.T, group).T.contiguous()
+        return packed
 
     def improved(state, evals):
         """Whether ``evals`` beat the best so far; a NaN metric never
@@ -507,9 +583,22 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         return make_optimizer(cfg, params, lr=hparams[0],
                               weight_decay=hparams[1], capturable=capturable)
 
-    def drive(body_of, limit, ops, x, labels, masks, seed, return_state,
-              labels_onehot, hparams):
-        """Set-up, the loop of ``limit`` bodies, and the results;
+    def restore(init, dev, gens, opt):
+        """The loop state of ``init`` (a ``RunnerState``), with the model,
+        the optimizer and the generators set from it."""
+        if init is None:
+            return LoopState.initial(epochs, dev)
+        model.load_state_dict(init.variables)
+        opt.load_state_dict(copy.deepcopy(init.opt_state))
+        for gen, st in zip(gens, init.generators):
+            if gen is not None:
+                gen.set_state(st)
+        return init.loop.clone(dev)
+
+    def drive(body_of, budget, ops, x, labels, masks, seed, return_state,
+              labels_onehot, hparams, init_state, epoch_limit):
+        """Set-up, the loop up to ``budget`` bodies in all (or to
+        ``epoch_limit``) from ``init_state``, and the results;
         ``body_of(state, gens, opt, packed, counts)`` makes the body."""
         t0 = time.perf_counter()
         dev = x.device
@@ -517,30 +606,40 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         opt = optimizer(hparams)
         packed = packed_words(labels, masks, labels_onehot)
         counts = global_counts(masks)
-        state = LoopState.initial(epochs, dev)
+        state = restore(init_state, dev, gens, opt)
+        limit = budget if epoch_limit is None else min(int(epoch_limit),
+                                                        budget)
+        done = 0 if init_state is None else init_state.bodies
+        if init_state is not None and bool(init_state.loop.stop):
+            limit = done
         body = body_of(state, gens, opt, packed, counts)
-        bodies, capture_ms, setup_ms = _run_loop(
-            body, limit, state.stop if es else None,
+        ran, capture_ms, setup_ms = _run_loop(
+            body, max(limit - done, 0), state.stop if es else None,
             [g for g in gens if g is not None],
             dev if graph and dev.type == "cuda" and group is None else None,
             t0)
         opt.zero_grad(set_to_none=True)   # frees the graph's gradients
-        epochs_run = max(bodies - 1, 0) if joint else bodies
-        result = SplitResult(
-            test_metric=state.best_test_metric,
-            val_metric=state.best_val_metric,
-            val_loss=state.best_val_loss,
-            train_loss=state.train_losses[max(bodies - 1, 0)],
-            epochs_run=epochs_run)
-        if return_state:
-            return result, SplitState(
-                epoch=bodies, train_losses=state.train_losses[:bodies],
-                val_hist=state.val_hist[:epochs_run], optimizer=opt,
-                capture_ms=capture_ms, setup_ms=setup_ms)
-        return result
+        bodies = done + ran
+        result = state.result(joint, bodies)
+        if not return_state:
+            return result
+        runner = None
+        if epoch_limit is not None:   # a segment: what the next starts from
+            runner = RunnerState(
+                variables={k: v.detach().clone()
+                           for k, v in model.state_dict().items()},
+                opt_state=copy.deepcopy(opt.state_dict()),
+                loop=state.clone(),
+                generators=[None if g is None else g.get_state()
+                            for g in gens])
+        return result, SplitState(
+            epoch=bodies, train_losses=state.train_losses[:bodies],
+            val_hist=state.val_hist[:result.epochs_run], optimizer=opt,
+            capture_ms=capture_ms, setup_ms=setup_ms, runner=runner)
 
     def run(ops, x, labels, masks, seed: int = 0,
-            return_state: bool = False, labels_onehot=None, hparams=None):
+            return_state: bool = False, labels_onehot=None, hparams=None,
+            init_state=None, epoch_limit=None):
         """Sequential loop: each epoch trains, then evaluates the updated
         parameters in a separate forward; stops after ``epochs`` or when
         the early-stopping rule fires (that epoch counts)."""
@@ -567,11 +666,12 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
             return body
 
         return drive(body_of, epochs, ops, x, labels, masks, seed,
-                     return_state, labels_onehot, hparams)
+                     return_state, labels_onehot, hparams, init_state,
+                     epoch_limit)
 
     def run_joint(ops, x, labels, masks, seed: int = 0,
                   return_state: bool = False, labels_onehot=None,
-                  hparams=None):
+                  hparams=None, init_state=None, epoch_limit=None):
         """Iteration k evaluates epoch k-1 (parameters after k updates)
         and trains epoch k in one paired forward; ``epochs + 1``
         iterations, the first one's evaluation is skipped.  An iteration
@@ -605,7 +705,8 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
             return body
 
         return drive(body_of, epochs + 1, ops, x, labels, masks, seed,
-                     return_state, labels_onehot, hparams)
+                     return_state, labels_onehot, hparams, init_state,
+                     epoch_limit)
 
     return run_joint if joint else run
 
@@ -739,20 +840,24 @@ def _rank_and_world(group):
 
 
 def refuse_unported_sharded(cfg: TrainConfig) -> None:
-    """The sharded path runs acmgcn/acmgcnp, variant 0, on the
-    row-normalized ELL or COO operator; it refuses by name what it does
-    not port yet (ROADMAP.md A8)."""
+    """The sharded path runs every model type, variant 1, the structure
+    channel, row or symmetric normalization on the ELL or COO operator
+    (the dense format maps to ELL, as in the JAX package), and refuses by
+    name the two cases it cannot run as one card does (ROADMAP.md A8):
+
+    - acmgcnpp with ``init_layers_X > 1``: its skip-MLP's BatchNorm would
+      need statistics synchronised across the ranks, forward and
+      backward (the JAX package's sharded BatchNorm also counts the zero
+      pad rows);
+    - acmsgc/sgc with ``hops > 1``: there is no sharded k-hop operator
+      (the JAX package's sharded bundle has none either and trains over
+      ``Â`` instead; ROADMAP.md §C)."""
     unported = []
-    if cfg.model_type not in ("acmgcn", "acmgcnp"):
-        unported.append(f"model_type {cfg.model_type!r}")
-    if cfg.variant:
-        unported.append("variant 1")
-    if cfg.structure_info:
-        unported.append("the structure channel (structure_info)")
-    if cfg.normalization != "row":
-        unported.append(f"normalization {cfg.normalization!r}")
-    if cfg.operator_format == "dense":
-        unported.append("the dense operator format")
+    if cfg.model_type == "acmgcnpp" and cfg.init_layers_X > 1:
+        unported.append("acmgcnpp's BatchNorm across ranks "
+                        f"(init_layers_X {cfg.init_layers_X} > 1)")
+    if cfg.model_type in ("acmsgc", "sgc") and cfg.hops > 1:
+        unported.append(f"the k-hop operator (hops {cfg.hops} > 1)")
     if unported:
         raise NotImplementedError(
             "the sharded path does not port " + ", ".join(unported)
@@ -760,17 +865,21 @@ def refuse_unported_sharded(cfg: TrainConfig) -> None:
 
 
 def prepare_sharded_data(dataset: GraphData | str, cfg: TrainConfig, *,
-                         group=None, device=None,
-                         exchange: str = "auto") -> ShardedData:
+                         group=None, device=None, exchange: str = "auto"
+                         ) -> ShardedData:
     """Sharded counterpart of ``prepare_data`` for this rank of ``group``
     (None: one rank, no collectives): ``maybe_reorder`` first (a
     locality order shrinks each part's halo), the partition
     (``cfg.partition``: "contiguous" nnz-balanced blocks, or "fennel" /
     "balanced" with a contiguity permutation of the whole graph, composed
-    into ``data.perm``), this rank's share of the operator (``exchange``:
-    "allgather", "halo" or "auto"), its slabs of the features (in
-    ``cfg.feature_dtype``), labels and one-hot labels, and the hoisted
-    ``Â X`` through the sharded operator."""
+    into ``data.perm``), this rank's share of the operators (``exchange``:
+    "allgather", "halo" or "auto"; ``cfg.normalization``, the structure
+    channel's raw adjacency with ``cfg.structure_info``; the "dense" and
+    "auto" formats map to ELL, as in the JAX package), its slabs of the
+    features (in ``cfg.feature_dtype``), labels and one-hot labels, and
+    the hoisted ``Â X`` through the sharded operator.  Every node array
+    is placed through a loader of this rank's rows alone
+    (``shard_node_array``)."""
     dev = resolve_device(device)
     rank, world = _rank_and_world(group)
     refuse_unported_sharded(cfg)
@@ -792,18 +901,21 @@ def prepare_sharded_data(dataset: GraphData | str, cfg: TrainConfig, *,
         features = row_normalize_features(features)
     ops, boundaries, rpp = make_sharded_operators(
         data.adj, world, rank, normalization=cfg.normalization,
+        structure_info=cfg.structure_info,
         fmt="coo" if cfg.operator_format == "coo" else "ell",
         exchange=exchange, boundaries=boundaries,
         spmm_dtype=_DTYPES[cfg.spmm_dtype])
-    ops.adj_low.group = group
+    for op in (ops.adj_low, ops.adj_unnorm):
+        if op is not None:
+            op.group = group
     ops = ops.to(dev)
 
-    def place(arr):
-        return shard_node_array(arr, boundaries, rpp, rank, dev)
+    def place(arr, device=dev):
+        return shard_node_array(arr, boundaries, rpp, rank, device)
 
     labels = _host_labels(data.labels)
-    x = _features_on(shard_node_array(np.asarray(features, np.float32),
-                                      boundaries, rpp, rank, "cpu"), cfg, dev)
+    x = _features_on(place(np.asarray(features, np.float32), "cpu"), cfg,
+                     dev)
     if cfg.resolve_hoist():
         # Â X once, through the sharded operator (lands row-partitioned)
         agg = spmm(ops.adj_low, x)
@@ -841,7 +953,7 @@ def resolve_split(data: GraphData, cfg: TrainConfig, idx: int, rng, labels,
 
 
 def run_experiment_sharded(dataset: GraphData | str, cfg: TrainConfig, *,
-                           device=None, exchange: str = "auto",
+                           device=None, exchange: str = "auto", logger=None,
                            checkpoint_dir=None, checkpoint_every: int = 0,
                            resume: bool = False,
                            per_host_loading: bool = False,
@@ -854,24 +966,45 @@ def run_experiment_sharded(dataset: GraphData | str, cfg: TrainConfig, *,
     Every rank calls it with the same arguments.  Split ``idx`` takes its
     masks from ``resolve_split`` (random ones from
     ``numpy.random.default_rng(cfg.seed)``) and starts from ``build_model(...,
-    seed=cfg.seed + idx)`` on every rank, so the replicas start equal;
-    ``make_split_runner`` keeps them equal.  Returns the JAX package's
-    result dict (``devices`` is the world size); with ``return_model``
-    also the last split's model, ``(result, model)``.
+    seed=cfg.seed + idx)`` on every rank (the structure channel's
+    embedding has the graph's N rows, each rank gathering from its own),
+    so the replicas start equal; ``make_split_runner`` keeps them equal.
+    Every rank places only its own rows of the features, labels, one-hot
+    labels and masks, through a loader of its row range
+    (``shard_node_array_per_host``): ``per_host_loading``, the JAX
+    package's switch for that, is accepted and changes nothing.  Returns
+    the JAX package's result dict (``devices`` is the world size); with
+    ``return_model`` also the last split's model, ``(result, model)``.
 
-    Checkpointing (``checkpoint_dir``, ``checkpoint_every``, ``resume``)
-    and per-rank slab loading (``per_host_loading``) are refused by name:
-    they are not ported to the sharded path yet (ROADMAP.md A8).
+    ``checkpoint_dir`` with ``checkpoint_every=k`` runs each split in
+    k-epoch segments (the joint loop's budget is ``epochs + 1`` bodies)
+    and snapshots the runner's state between them (``utils/checkpoint.py``):
+    rank 0 writes the replicated state to ``split<idx>_state`` (the
+    model's ``state_dict``, the optimizer's, the loop state) and every
+    rank its dropout generators' state to ``split<idx>_rng_rank<r>``;
+    ``resume`` continues each split from them, equal bit for bit to the
+    uninterrupted run.  (Without ``checkpoint_every`` nothing is saved,
+    as in the JAX package.)
+
+    ``logger``: an ``ExperimentLogger`` or any object with its ``info`` /
+    ``log_split`` / ``log_result``.  Each split, or each segment when
+    checkpointing, runs under ``retry_transient`` from its initial state
+    (the split's initial parameters, or the segment's ``RunnerState``).
+    At several ranks a retry is sound only when every rank fails
+    together: a rank that retried alone would issue its collectives again
+    while the others wait in later ones, and sum gradients of different
+    steps.  So the ranks vote after every attempt
+    (``multihost.failure_vote``) and retry only when every rank failed
+    transiently in the same collective; otherwise every rank raises.
     """
-    if checkpoint_dir is not None or checkpoint_every or resume:
-        raise NotImplementedError("checkpointing on the sharded path is not "
-                                  "ported yet (ROADMAP.md A8)")
-    if per_host_loading:
-        raise NotImplementedError("per-rank slab loading (per_host_loading)"
-                                  " is not ported yet (ROADMAP.md A8)")
     group = dist.group.WORLD if dist.is_initialized() else None
     prep = prepare_sharded_data(dataset, cfg, group=group, device=device,
                                 exchange=exchange)
+    dev = prep.x.device
+    agree = failure_vote() if prep.world_size > 1 else None
+    checkpointing = checkpoint_dir is not None and checkpoint_every > 0
+    joint = bool(cfg.joint) and cfg.model_type in JOINT_CAPABLE
+    budget = cfg.epochs + (1 if joint else 0)
     masks_rng = np.random.default_rng(cfg.seed)
     labels_np = _host_labels(prep.data.labels)
     results = []
@@ -882,21 +1015,94 @@ def run_experiment_sharded(dataset: GraphData | str, cfg: TrainConfig, *,
     for idx in range(cfg.num_splits):
         masks = tuple(prep.place(m) for m in resolve_split(
             prep.data, cfg, idx, masks_rng, labels_np, prep.nclass))
-        model = build_model(cfg, prep.x.shape[1], prep.nclass,
-                            device=prep.x.device, seed=cfg.seed + idx)
+
+        def new_runner(idx=idx):
+            mdl = build_model(cfg, prep.x.shape[1], prep.nclass, device=dev,
+                              seed=cfg.seed + idx,
+                              nnodes=prep.data.num_nodes)
+            return mdl, make_split_runner(mdl, cfg, group=group)
+
+        args = (prep.ops, prep.x, prep.labels, masks)
+        kwargs = dict(seed=cfg.seed + idx, labels_onehot=prep.labels_onehot)
         t_split = time.time()
-        res = make_split_runner(model, cfg, group=group)(
-            prep.ops, prep.x, prep.labels, masks, seed=cfg.seed + idx,
-            labels_onehot=prep.labels_onehot)
-        _sync(prep.x.device)
+        if checkpointing:
+            model, res = _segmented_split(
+                new_runner, args, kwargs, budget, joint, checkpoint_every,
+                f"{checkpoint_dir}/split{idx}", resume, prep.rank, dev,
+                logger, agree)
+        else:
+            def run_once():
+                mdl, runner = new_runner()
+                out = runner(*args, **kwargs)
+                _sync(dev)
+                return mdl, out
+
+            model, res = retry_transient(run_once, logger=logger,
+                                         agree=agree)()
         results.append(res)
         if idx > 0:   # split 0 pays the warm-up; excluded from the rate
             steady_time += time.time() - t_split
             steady_epochs += int(res.epochs_run)
+        if logger is not None:
+            logger.log_split(idx, res)
     out = _experiment_result(prep.data, cfg, results, time.time() - t_total,
                              steady_time, steady_epochs,
                              devices=prep.world_size)
+    if logger is not None:
+        logger.log_result(out)
     return (out, model) if return_model else out
+
+
+def _segmented_split(new_runner, args, kwargs, budget: int, joint: bool,
+                     every: int, prefix: str, resume: bool, rank: int, dev,
+                     logger, agree):
+    """One split of ``run_experiment_sharded`` in ``every``-body segments
+    (the JAX package's ``run_segment`` loop): the zero-body state first
+    (the split's initial parameters, moments, loop state and generators),
+    or the snapshot at ``prefix`` when resuming; then segment after
+    segment until the budget or the stop flag, each snapshotted.
+    Returns (the model with the split's final parameters, its result)."""
+    model, runner = new_runner()
+
+    def run_segment(init, limit):
+        _, st = runner(*args, **kwargs, init_state=init, epoch_limit=limit,
+                       return_state=True)
+        _sync(dev)
+        return st.runner
+
+    run_segment = retry_transient(run_segment, logger=logger, agree=agree)
+    state = run_segment(None, 0)
+    state_path, rng_path = f"{prefix}_state", f"{prefix}_rng_rank{rank}"
+    if resume and Path(state_path).exists():
+        state = _restore_segment(state_path, rng_path, dev)
+        if logger is not None:
+            logger.info("%s: resumed after %d bodies", prefix, state.bodies)
+    while not bool(state.loop.stop) and state.bodies < budget:
+        state = run_segment(state, state.bodies + every)
+        if rank == 0:
+            save_checkpoint(state_path, state.variables,
+                            opt_state=state.opt_state, step=state.bodies,
+                            extra={"loop": dataclasses.asdict(state.loop)})
+        save_checkpoint(rng_path, {"generators": state.generators},
+                        step=state.bodies)
+    model.load_state_dict(state.variables)
+    return model, state.loop.result(joint)
+
+
+def _restore_segment(state_path: str, rng_path: str, dev) -> RunnerState:
+    """A ``RunnerState`` from rank 0's snapshot and this rank's
+    generators, which must come from the same segment's end."""
+    snap = restore_checkpoint(state_path, map_location=dev)
+    rng = restore_checkpoint(rng_path, map_location="cpu")
+    if rng["step"] != snap["step"]:
+        raise RuntimeError(
+            f"{rng_path} holds the generators after {rng['step']} bodies, "
+            f"{state_path} the state after {snap['step']}: not one "
+            f"segment's end")
+    return RunnerState(variables=snap["variables"],
+                       opt_state=snap["opt_state"],
+                       loop=LoopState(**snap["extra"]["loop"]),
+                       generators=rng["variables"]["generators"])
 
 
 def _experiment_result(data, cfg, results, elapsed, steady_time,

@@ -184,6 +184,42 @@ Phases (any failure exits non-zero and prints no result):
       equal to its own ``run_experiment``), ``gen-graphs``, ``gen-feats``
       from cora-shaped Planetoid files and ``synthetic-train``.
 
+11. The sharded path as the JAX package runs it (``run_experiment_sharded``):
+   a. wiki at full width (bench.py:942-1045's ``bench_wiki_sharded``:
+      N=1,925,342 Chung-Lu, F=600, C=5; acmgcnp hidden 64, dropout 0.5,
+      ELL, bf16 gathers, with the hoist) at world size 1 over NCCL
+      through per-rank slab loading, 2 splits: the features' loader
+      called once with (0, N), its slab the loaded rows, zero padded;
+      host seconds of the graph, operator build and loads; ms/epoch, peak
+      memory, finite losses, launch counts as ``wiki_counts`` implies, a
+      profile of ``WIKI_EPOCHS`` epochs (device time by kernel group);
+      K6 and K1 at w600 (the hoist aggregate; K1's plain version in row
+      chunks) and at the epoch's widths (w128 and its transpose, w10)
+      against their plain versions, bounds and ``torch.sparse.mm``;
+   b. genius ROC-AUC (phase 5's configuration, f32 gathers) at world
+      size 1 over NCCL: every split's best val and test AUC equal to the
+      single-card ``run_experiment``'s bit for bit, K4 once an
+      evaluation, K4 on the gathered scores bit-equal to its plain
+      version, timed;
+   c. the zoo on 4 gloo ranks on the one card (phase 6c's graph and
+      configuration): acmgcnpp with the structure channel, variant 1,
+      symmetric normalization on ELL (bf16, f32 values) and COO, gcnII,
+      graphsage, BCE + ROC-AUC, 20 epochs with each exchange, against
+      the single card: every step from the single card's states (each
+      tensor's gradients over the run within 1e-5 of their norm plus 3x
+      the single card's own ELL-COO distance), the whole run within 1e-4
+      where the single card's own ELL and COO orders part by under 1e-5,
+      else within 2x that distance (the structure channel's, sym's),
+      and each halo run against its all-gather twin;
+      K1 on every rank's valued symmetric block bit for bit against
+      ``k1_order_replay``; rank 0's blocks timed: K1 valued and on the
+      structure operator, K5 symmetric, K6 for the structure operand and
+      the valued transpose, K2/K3 at T = 4 and variant 1's mask;
+   d. a checkpointed run cut at half the last split's epochs and resumed
+      on 2 gloo ranks, joint and sequential: equal bit for bit to the
+      uninterrupted run and to the run without checkpoints, snapshots
+      included.
+
 The line before the last is the kernel table as JSON (every row with
 ``ms`` and ``device_ms``, ``library_ms`` and ``library_device_ms``); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -191,9 +227,11 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1749,7 +1787,7 @@ def phase_sharded_kernels(adj, feats):
     return rows
 
 
-def _k6_row(op, x, bnd, rpp, tr, path_sign, tag, run, err):
+def _k6_row(op, x, bnd, rpp, tr, path_sign, tag, run, err, dev_reps=20):
     """K6 on rank 0's slab of ``x``: every combination of pre-scale, sign
     and dtype bit-equal to the plain version on the whole buffers, at
     K1's row stride (the ELL receive buffer's) and at rows of d (the COO
@@ -1783,13 +1821,13 @@ def _k6_row(op, x, bnd, rpp, tr, path_sign, tag, run, err):
                          send_idx=send_idx, ld=ld)
 
     ms = time_ms(pack, 50)
-    dev_ms = device_ms(pack)
+    dev_ms = device_ms(pack, dev_reps)
     plain_ms = time_ms(lambda: halo_pack_plain(xs, own, pre, path_sign,
                                                send_idx, ld=ld), 5)
     lib_ms = lib_dev = None
     if pre is None and path_sign is None and send_idx is None:
         lib_ms = time_ms(lambda: xs.to(op.gather_dtype), 50)
-        lib_dev = device_ms(lambda: xs.to(op.gather_dtype))
+        lib_dev = device_ms(lambda: xs.to(op.gather_dtype), dev_reps)
     n_send = 0 if send_idx is None else send_idx.numel()
     b_ms, b_by = _k6_bound(rpp, d, ld, n_send, own.element_size(),
                            pre is not None)
@@ -1830,13 +1868,14 @@ def single_chip_reference(data, cfg):
         prepare_data,
     )
 
-    _, ops, x, y, _, nclass = prepare_data(data, cfg)
+    _, ops, x, y, y1h, nclass = prepare_data(data, cfg)
     masks = random_disassortative_splits(
         np.asarray(data.labels), nclass, rng=np.random.default_rng(cfg.seed))
-    model = build_model(cfg, x.shape[1], nclass, seed=cfg.seed)
+    model = build_model(cfg, x.shape[1], nclass, seed=cfg.seed,
+                        nnodes=x.shape[0])
     res = make_split_runner(model, cfg)(
         ops, x, y, tuple(torch.from_numpy(m).cuda() for m in masks),
-        seed=cfg.seed)
+        seed=cfg.seed, labels_onehot=y1h)
     return res, {k: p.detach().cpu() for k, p in model.named_parameters()}
 
 
@@ -1864,12 +1903,9 @@ def phase_sharded_main_path(adj, feats, labels, ms_single):
     import torch.distributed as dist
 
     from acmgnn_tpu_torch.ops.graph import GraphData
-    from acmgnn_tpu_torch.parallel.multihost import init_distributed
     from acmgnn_tpu_torch.train.trainer import run_experiment_sharded
 
-    init_distributed(backend="nccl", device="cuda",
-                     init_method=f"tcp://localhost:{_free_port()}", rank=0,
-                     world_size=1)
+    init_distributed_nccl()
     try:
         data = GraphData("twitch-gamers-scale-uniform", adj, feats, labels)
         cfg = headline_config(dropout=0.0, spmm_dtype="float32", epochs=10,
@@ -2089,36 +2125,21 @@ def phase_sharded_gloo():
     ``SHARDED_CHECK_EPOCHS`` epochs of ``sharded_check_config``, the f32
     ones against the single-chip port on the card, each halo run against
     its all-gather twin.  Returns each run's rank-0 launch counts."""
-    import tempfile
+    import shutil
 
     import torch
-    import torch.multiprocessing as mp
 
     from acmgnn_tpu_torch.ops.graph import row_normalized_adjacency
     from acmgnn_tpu_torch.parallel.sharded import make_sharded_ell_op
 
     data = _small_twitch()
     counts = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ctx = mp.start_processes(_sharded_rank,
-                                 args=(SHARDED_P, f"{tmp}/store", tmp),
-                                 nprocs=SHARDED_P, join=False,
-                                 start_method="spawn")
-        try:
-            while not ctx.join(timeout=5):
-                if time.perf_counter() - t0 > RANK_DEADLINE_S:
-                    fail(f"[6c] the ranks did not finish in "
-                         f"{RANK_DEADLINE_S} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.terminate()
+    tmp, secs = _spawn_ranks(_sharded_rank, SHARDED_P, "[6c]")
+    try:
         print(f"[6c] {SHARDED_P} ranks (gloo on CUDA tensors staged through "
               f"the host, one card), graph N={data.num_nodes} "
               f"nnz={data.adj.nnz}, {len(SHARDED_RUNS)} runs of "
-              f"{SHARDED_CHECK_EPOCHS} epochs: "
-              f"{time.perf_counter() - t0:.1f} s with start-up")
+              f"{SHARDED_CHECK_EPOCHS} epochs: {secs:.1f} s with start-up")
         checks = [torch.load(f"{tmp}/checks-rank{r}.pt")
                   for r in range(SHARDED_P)]
         bad = [c["exchange"] for c in checks]
@@ -2158,6 +2179,8 @@ def phase_sharded_gloo():
                   f"{json.dumps(r0['launches'], sort_keys=True)}")
             counts[(exchange, fmt, dtype)] = r0["launches"]
             params[(exchange, fmt, dtype)] = r0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for exchange, fmt, dtype in SHARDED_RUNS:
         if exchange == "halo":
             _halo_against_allgather(f"[6c halo {fmt} {dtype}]",
@@ -3733,24 +3756,27 @@ def _write_planetoid_files(root, name, n=2708, f=1433, c=7, seed=0):
 
 def _snapshots_equal(a, b, what):
     """Two ``save_checkpoint`` files hold equal payloads, bit for bit."""
-    import torch
-
     from acmgnn_tpu_torch.utils.checkpoint import restore_checkpoint
 
-    sa, sb = restore_checkpoint(a), restore_checkpoint(b)
-    ok = (sa.keys() == sb.keys() and sa["step"] == sb["step"]
-          and sa.get("extra") == sb.get("extra")
-          and sa["variables"].keys() == sb["variables"].keys()
-          and all(torch.equal(v, sb["variables"][k])
-                  for k, v in sa["variables"].items()))
-    if "opt_state" in sa:
-        oa, ob = sa["opt_state"], sb["opt_state"]
-        ok = ok and oa["param_groups"] == ob["param_groups"] and all(
-            torch.equal(v, ob["state"][i][k])
-            for i, st in oa["state"].items() for k, v in st.items())
-    if not ok:
+    sa = restore_checkpoint(a)
+    if not _tree_equal(sa, restore_checkpoint(b)):
         fail(f"[10b] {what}: the snapshots differ")
     return sa
+
+
+def _tree_equal(a, b) -> bool:
+    """Nested dicts, lists and tensors equal, tensors bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_tree_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_tree_equal(x, y) for x, y in zip(a, b)))
+    return a == b
 
 
 def phase_cli_small(root):
@@ -3916,6 +3942,997 @@ def phase_cli(ms_5b):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the sharded path as the JAX package runs it — wiki at full
+# width through per-rank slab loading, ROC-AUC across ranks, the zoo on
+# sharded operators, cut and resume
+# ---------------------------------------------------------------------------
+
+CARD = "cuda"                    # the device phase 11 makes its tensors on
+# bench.py:965-982's wiki scenario (``bench_wiki_sharded``)
+WIKI = dict(n=1_925_342, e=6_500_000, f=600, c=5, max_deg=30_000)
+WIKI_EPOCHS = 4                  # per split, 2 splits
+# phase 11c's cases: config over ``sharded_check_config``'s
+ZOO11_CASES = {
+    "acmgcnpp+structure": dict(model_type="acmgcnpp", structure_info=True),
+    "acmgcnp variant 1": dict(variant=True),
+    "sym ell bf16": dict(normalization="sym", spmm_dtype="bfloat16"),
+    "sym ell f32": dict(normalization="sym"),
+    "sym coo": dict(normalization="sym", operator_format="coo"),
+    "gcnII": dict(model_type="gcnII"),
+    "graphsage": dict(model_type="graphsage"),
+    "bce rocauc": dict(loss="bce", metric="rocauc"),
+}
+# 11c holds every case step by step (each step's gradient from the single
+# card's state, per tensor within GRAD_REL of its norm plus GRAD_ORDERS
+# times the single card's own ELL-COO distance), and its whole 20-epoch
+# run within 1e-4 of the single card where the single card's own ELL and
+# COO orders part by less than WELL_CONDITIONED: where they part by more
+# (the structure channel: ~1e-2, Adam's steps of ±lr on gradients at
+# rounding distance from zero), no other summation order can be held to
+# 1e-4, and the run is held to TRAJECTORY_ORDERS times that distance
+WELL_CONDITIONED = 1e-5
+GRAD_REL, GRAD_ORDERS = 1e-5, 3.0
+TRAJECTORY_ORDERS = 2.0
+RESUME_EVERY, RESUME_EPOCHS = 3, 12
+
+
+def wiki_graph():
+    """bench.py:965-975's graph: N=1,925,342 nodes, 6,500,000 Chung-Lu
+    endpoint pairs with a top expected degree of 30,000, symmetrized
+    without self-loops; 600 normal features and 5 uniform classes.  The
+    features are drawn on the card (``torch.randn``, seed 0) and copied
+    to the host, not by numpy as bench.py draws them (the same law; 1.2e9
+    numpy draws take the host tens of seconds); the labels come from
+    ``numpy.random.default_rng(1)``.  Returns (GraphData, host seconds of
+    the graph, of the features)."""
+    import torch
+
+    from acmgnn_tpu_torch.data.synthetic_scale import chung_lu_edges
+    from acmgnn_tpu_torch.ops.graph import GraphData
+    from acmgnn_tpu_torch.ops.native import build_sym_adjacency
+
+    t0 = time.perf_counter()
+    src, dst = chung_lu_edges(WIKI["n"], WIKI["e"], WIKI["max_deg"], seed=0)
+    adj = build_sym_adjacency(src, dst, WIKI["n"], drop_self_loops=True)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    feats = torch.randn(WIKI["n"], WIKI["f"], generator=gen,
+                        device=CARD).cpu().numpy()
+    labels = np.random.default_rng(1).integers(
+        0, WIKI["c"], size=WIKI["n"]).astype(np.int32)
+    return (GraphData("wiki-scale", adj, feats, labels), t_graph,
+            time.perf_counter() - t0)
+
+
+def wiki_config(**over):
+    """bench.py:978-982's ``TrainConfig`` (acmgcnp, hidden 64, dropout 0.5,
+    ELL, bf16 gathers, the sequential loop) with the first-layer hoist on:
+    its ``Â X`` at w600 is the aggregate the wide-feature path stores in
+    bf16 (4·N·F > 2^30), made once at set-up through the sharded
+    operator."""
+    from acmgnn_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(**dict(dict(
+        model_type="acmgcnp", hidden=64, dropout=0.5, epochs=WIKI_EPOCHS,
+        early_stopping=0, selection="val_metric", operator_format="ell",
+        spmm_dtype="bfloat16", hoist_first=True, num_splits=2, seed=0),
+        **over))
+
+
+def wiki_counts(bodies):
+    """Launches the sharded wiki run implies (F = 600 > HOIST_MAX_COLS,
+    sequential loop): at set-up K6 + K1 at w600 (the hoist aggregate);
+    per epoch layer 1's train gather of [z_low | z_high] at w128 and its
+    transpose, layer 2's gather at w10 in the train and the eval forward
+    and its transpose (the eval forward's layer 1 reads the aggregate),
+    each product packed by K6 first; K2 per forward and layer, K3 per
+    layer."""
+    b = bodies
+    out = {"k1_spmm_w600": 1, "k1_spmm_w128": 2 * b, "k1_spmm_w10": 3 * b,
+           "k2_attn_fwd_d64": 2 * b, "k2_attn_fwd_d5": 2 * b,
+           "k3_attn_bwd_d64": b, "k3_attn_bwd_d5": b}
+    out.update({f"k6_pack_w{d}": out[f"k1_spmm_w{d}"]
+                for d in (600, 128, 10)})
+    return out
+
+
+@contextlib.contextmanager
+def _wrapped(module, name, make):
+    """``module.name`` replaced by ``make(original)`` for the block."""
+    orig = getattr(module, name)
+    setattr(module, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _k1_plain_chunked(half, x, max_bytes=2**32):
+    """K1's plain version (``row_gather_spmm_plain``, value-free or
+    valued, no epilogue) over chunks of sorted rows, each gathering at
+    most ``max_bytes`` of f32 terms: at w600 on the wiki graph the whole
+    gather would be 36 GB."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.ell import _valued_terms
+
+    n, d = half.num_rows, x.shape[1]
+    indptr = half.indptr.cpu()
+    acc = torch.zeros(n, d, device=x.device)
+    per = max(1, max_bytes // (4 * d))
+    row0 = 0
+    while row0 < n:
+        lo = int(indptr[row0])
+        row1 = int(torch.searchsorted(indptr, lo + per, right=True)) - 1
+        row1 = min(max(row1, row0 + 1), n)
+        hi = int(indptr[row1])
+        deg = half.indptr[row0 + 1:row1 + 1] - half.indptr[row0:row1]
+        rows = torch.repeat_interleave(half.row_ids[row0:row1].long(), deg)
+        g = x.float()[half.indices[lo:hi].long()]
+        if half.vals is not None:
+            g = _valued_terms(g, half.vals[lo:hi, None])
+        acc.index_add_(0, rows, g)
+        row0 = row1
+    if half.row_scale is not None:
+        acc = acc * half.row_scale[:, None]
+    return acc
+
+
+def _k1_wide_row(half, xg, name, tag, lib):
+    """K1 at a width whose gather the plain version cannot hold whole:
+    per element against ``_k1_plain_chunked``, timed beside it (one call)
+    and ``torch.sparse.mm``."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.ell import row_gather_spmm
+
+    n, nnz, d = half.num_rows, int(half.indices.numel()), xg.shape[1]
+    got = row_gather_spmm(half, xg)
+    err = spmm_err(got, _k1_plain_chunked(half, xg),
+                   _k1_plain_chunked(half, xg.abs()), _ell_row_terms(half),
+                   name + tag)
+    del got
+
+    def run():
+        return row_gather_spmm(half, xg)
+
+    ms, dev_ms = time_ms(run, 5), device_ms(run, reps=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _k1_plain_chunked(half, xg)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    xf = xg.float()
+    lib_ms = time_ms(lambda: torch.sparse.mm(lib, xf), 3)
+    lib_dev = device_ms(lambda: torch.sparse.mm(lib, xf), reps=3)
+    del xf
+    nbytes = (8 * (n + 1) + 4 * nnz + 4 * n + xg.element_size() * n * d
+              + 4 * n * d + 4 * n)
+    b_ms, b_by = bound(nbytes, nnz * d + 2 * n * d)
+    print(f"  {name + tag}: {ms:.4f} ms, device {_ms(dev_ms)} (plain, in "
+          f"row chunks of <= 4 GiB of terms, {plain_ms:.3f}; "
+          f"torch.sparse.mm f32 {lib_ms:.4f}, device {_ms(lib_dev)}; bound "
+          f"{b_ms:.4f} {b_by})")
+    return dict(name=name + tag, counter=f"k1_spmm_w{d}", route="cuda",
+                source="acmgnn_tpu_torch/csrc/spmm.cu",
+                replaces=K1_LOCAL_REPLACES, max_abs_err=err, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev)
+
+
+def phase_wiki_sharded():
+    """[11a] wiki at full width on the sharded path, world size 1 over
+    NCCL: ``run_experiment_sharded(..., per_host_loading=True)`` (2 splits
+    x ``WIKI_EPOCHS``), the features' loader called once with (0, N) and
+    its slab the loaded rows, zero padded; host seconds of
+    the graph, the operator build and the load; ms/epoch, peak memory,
+    finite losses, launch counts as ``wiki_counts`` implies, a profile of
+    ``WIKI_EPOCHS`` epochs (profiler on, the whole eager run); then K6 and
+    K1 at w600 and at the epoch's widths (w128 and its transpose, w10)
+    against their plain versions, bounds and ``torch.sparse.mm``.
+    Returns (kernel rows, launch counts)."""
+    import torch
+    import torch.distributed as dist
+
+    from acmgnn_tpu_torch.ops import kernels
+    from acmgnn_tpu_torch.ops.ell import k1_operand
+    from acmgnn_tpu_torch.parallel import sharded
+    from acmgnn_tpu_torch.train import trainer
+
+    data, t_graph, t_feats = wiki_graph()
+    print(f"[11a] wiki-shaped graph N={data.num_nodes} nnz(A)={data.adj.nnz} "
+          f"F={WIKI['f']}: edges and adjacency {t_graph:.1f} s on the host, "
+          f"features {t_feats:.1f} s (drawn on the card)")
+    print(f"[11a] memory reckoned beforehand: features {4 * WIKI['n'] * 600 / 1e9:.2f} "
+          f"GB f32 (host and card), the hoist aggregate "
+          f"{2 * WIKI['n'] * 600 / 1e9:.2f} GB bf16, its receive buffer as "
+          f"much, activations [N, 64] f32 {4 * WIKI['n'] * 64 / 1e9:.2f} GB "
+          f"each")
+    cfg = wiki_config()
+    seen = {"prep": [], "ops_s": [], "loads": [], "splits": []}
+
+    def timed_ops(fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            seen["ops_s"].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def recorded_load(fn):
+        def wrapper(loader, boundaries, rpp, rank, dtype, trailing=(),
+                    device=None):
+            calls, views = [], []
+
+            def load(r0, r1):
+                calls.append((r0, r1))
+                views.append(loader(r0, r1))
+                return views[-1]
+
+            t0 = time.perf_counter()
+            slab = fn(load, boundaries, rpp, rank, dtype, trailing, device)
+            dt = time.perf_counter() - t0
+            same = None
+            if tuple(trailing) == (WIKI["f"],):
+                # the whole array (world size 1): its rows, then zeros
+                rows = views[0].shape[0]
+                same = (torch.equal(slab[:rows], torch.from_numpy(views[0]))
+                        and not slab[rows:].any())
+            seen["loads"].append((tuple(trailing), calls, dt, same))
+            return slab
+        return wrapper
+
+    def kept_prep(fn):
+        def wrapper(*a, **k):
+            out = fn(*a, **k)
+            seen["prep"].append(out)
+            return out
+        return wrapper
+
+    class SplitLog:
+        def info(self, *a):
+            pass
+
+        def log_split(self, idx, res):
+            seen["splits"].append(res)
+
+        def log_result(self, out):
+            pass
+
+    init_distributed_nccl()
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _wrapped(trainer, "make_sharded_operators", timed_ops), \
+                _wrapped(sharded, "shard_node_array_per_host",
+                         recorded_load), \
+                _wrapped(trainer, "prepare_sharded_data", kept_prep):
+            out = trainer.run_experiment_sharded(
+                data, cfg, per_host_loading=True, logger=SplitLog())
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prep = seen["prep"][0]
+        model = trainer.build_model(cfg, prep.x.shape[1], prep.nclass,
+                                    seed=cfg.seed, nnodes=data.num_nodes)
+        masks = tuple(prep.place(m) for m in _masks(data.num_nodes))
+
+        def run_of(epochs):
+            return trainer.make_split_runner(
+                model, dataclasses.replace(cfg, epochs=epochs),
+                group=dist.group.WORLD)(
+                prep.ops, prep.x, prep.labels, masks, seed=3,
+                labels_onehot=prep.labels_onehot, return_state=True)[1].epoch
+
+        phase_profile("[11a]", run_of, epochs=WIKI_EPOCHS)
+        del model
+    finally:
+        dist.destroy_process_group()
+    feat_loads = [ld for ld in seen["loads"] if ld[0] == (WIKI["f"],)]
+    print(f"[11a] run_experiment_sharded, world size 1 (nccl), per-rank "
+          f"slab loading, {cfg.num_splits} splits x {cfg.epochs} epochs: "
+          f"{t_run:.1f} s in all; operator build {sum(seen['ops_s']):.1f} s "
+          f"(host); slab loads {sum(ld[2] for ld in seen['loads']):.2f} s "
+          f"(host, {len(seen['loads'])} arrays: features, labels, one-hot "
+          f"labels, 3 masks a split, the operators' per-node vectors); "
+          f"features loader calls "
+          f"{[ld[1] for ld in feat_loads]}")
+    if (len(feat_loads) != 1 or feat_loads[0][1] != [(0, data.num_nodes)]
+            or not feat_loads[0][3]):
+        fail("[11a] the features' loader was not called once with (0, N), "
+             "or its slab is not the loaded rows")
+    losses = [(float(r.train_loss), float(r.val_loss)) for r in
+              seen["splits"]]
+    print(f"[11a] epoch_ms_steady {out['epoch_ms_steady']:.3f} ms/epoch "
+          f"(split 1, eager: the sharded path is not captured), "
+          f"epoch_ms_avg {out['epoch_ms_avg']:.3f}; peak memory "
+          f"{peak:.2f} GiB; (train, val) loss by split {losses}; test "
+          f"accuracy {out['test_mean']:.4f}")
+    if not np.all(np.isfinite(losses)) or not np.isfinite(out["test_mean"]):
+        fail("[11a] non-finite loss")
+    want = wiki_counts(out["epochs_total"])
+    print(f"[11a] launches {json.dumps(counts, sort_keys=True)}")
+    if counts != want:
+        fail(f"[11a] launch counts {counts} != expected {want}")
+
+    # the kernels at the path's shapes
+    op, x = prep.ops.adj_low, prep.x
+    rpp, bnd = prep.rows_per_part, prep.boundaries
+    prep.ops.x_agg = None
+    seen.clear()
+    del prep
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=CARD).manual_seed(11)
+    rows = []
+    row = _k6_row(op, x, bnd, rpp, False, None, "@wiki", None, 0.0,
+                  dev_reps=3)
+    row.pop("run")
+    rows.append(row)
+    lib = _local_csr(op.fwd)
+    rows.append(_k1_wide_row(op.fwd, k1_operand(x, torch.bfloat16),
+                             "k1_spmm_w600", "@wiki", lib))
+    del x
+    torch.cuda.empty_cache()
+    hp = [float(h) for h in (0,) * 64 + (1,) * 64]
+    sign = [1.0 - 2.0 * h for h in hp]
+    z = torch.randn(rpp, 128, generator=gen, device=CARD)
+    row = _k6_row(op, z, bnd, rpp, True, sign, "_transpose@wiki", None, 0.0)
+    row.pop("run")
+    rows.append(row)
+    rows += _k1_rows(op.fwd, [(k1_operand(z, torch.bfloat16), z, hp, sign,
+                               "k1_spmm_w128")], "@wiki",
+                     lambda d: f"k1_spmm_w{d}", lib, K1_LOCAL_REPLACES)
+    signed = (z * torch.tensor(sign, device=CARD)).to(torch.bfloat16)
+    rows += _k1_rows(op.bwd, [(k1_operand(signed, torch.bfloat16,
+                                          op.bwd.pre_scale), z, hp,
+                               [1.0] * 128, "k1_spmm_w128_transpose")],
+                     "@wiki", lambda d: f"k1_spmm_w{d}", lib,
+                     K1_LOCAL_REPLACES)
+    hp10 = [0.0] * 5 + [1.0] * 5
+    z10 = torch.randn(rpp, 10, generator=gen, device=CARD)
+    row = _k6_row(op, z10, bnd, rpp, False, None, "@wiki", None, 0.0)
+    row.pop("run")
+    rows.append(row)
+    rows += _k1_rows(op.fwd, [(k1_operand(z10, torch.bfloat16), z10, hp10,
+                               [1.0 - 2.0 * h for h in hp10],
+                               "k1_spmm_w10")], "@wiki",
+                     lambda d: f"k1_spmm_w{d}", lib, K1_LOCAL_REPLACES)
+    for r in rows:
+        r.update(path=f"11a: wiki, world size 1 (nccl), {cfg.num_splits} "
+                      f"splits x {cfg.epochs} epochs",
+                 launches=counts.get(r["counter"], 0))
+    return rows, counts
+
+
+def init_distributed_nccl():
+    from acmgnn_tpu_torch.parallel.multihost import init_distributed
+
+    init_distributed(backend="nccl", device="cuda",
+                     init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                     world_size=1)
+
+
+def phase_genius_sharded_rocauc(g_adj, g_feats, g_labels):
+    """[11b] genius (phase 5's configuration at full width, f32 gathers)
+    through ``run_experiment_sharded`` at world size 1 over NCCL, ROC-AUC
+    over the gathered logits: each split's best val and test AUC equal to the
+    single-card ``run_experiment``'s bit for bit, K4 launched once per
+    evaluation; then K4 on the gathered scores of the trained model
+    against its plain version (counts and AUCs bit for bit), timed.
+    Returns the kernel row."""
+    import torch
+    import torch.distributed as dist
+
+    from acmgnn_tpu_torch.ops import kernels
+    from acmgnn_tpu_torch.ops.graph import GraphData
+    from acmgnn_tpu_torch.parallel.multihost import gather_rows
+    from acmgnn_tpu_torch.train import metrics, trainer
+
+    data = GraphData("genius-scale", g_adj, g_feats, g_labels)
+    # f32 gathers: with bf16 ones the two paths round the ELL transpose's
+    # operand apart, as the JAX package's do (the single card casts, then
+    # pre-scales and rounds again; the sharded path pre-scales in f32 and
+    # rounds once), so only the f32 form can be equal bit for bit
+    cfg = genius_config(epochs=GENIUS_TIMED_EPOCHS, num_splits=2, seed=0,
+                        spmm_dtype="float32")
+    splits = {"sharded": [], "single": []}
+
+    def log(key):
+        class Log:
+            def info(self, *a):
+                pass
+
+            def log_split(self, idx, res):
+                splits[key].append((float(res.val_metric),
+                                    float(res.test_metric),
+                                    int(res.epochs_run)))
+
+            def log_result(self, out):
+                pass
+        return Log()
+
+    preps = []
+
+    def kept(fn):
+        def wrapper(*a, **k):
+            preps.append(fn(*a, **k))
+            return preps[-1]
+        return wrapper
+
+    init_distributed_nccl()
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with _wrapped(trainer, "prepare_sharded_data", kept):
+            out, model = trainer.run_experiment_sharded(
+                data, cfg, logger=log("sharded"), return_model=True)
+        torch.cuda.synchronize()
+        t_sharded = time.perf_counter() - t0
+        k4 = dict(kernels.launches).get("k4_auc_m2", 0)
+        prep = preps[0]
+        with torch.no_grad():
+            logits = gather_rows(model(prep.x, prep.ops, training=False),
+                                 dist.group.WORLD)
+        scores = torch.softmax(logits, dim=-1)[:, 1][None].contiguous()
+        packed = metrics.pack_labels_and_masks(
+            prep.labels, tuple(prep.place(m) for m in _masks(
+                data.num_nodes, seed=1)[1:]))
+        packed = gather_rows(packed.T, dist.group.WORLD).T.contiguous()
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    single = trainer.run_experiment(data, cfg, logger=log("single"))
+    t_single = time.perf_counter() - t0
+    bodies = sum(e + 1 for _, _, e in splits["sharded"])
+    print(f"[11b] genius ROC-AUC, {cfg.num_splits} splits x {cfg.epochs} "
+          f"joint epochs: sharded world size 1 (nccl, eager) {t_sharded:.1f} "
+          f"s, single card (captured) {t_single:.1f} s; (val, test, epochs) "
+          f"by split: sharded {splits['sharded']}, single {splits['single']};"
+          f" K4 launches on the sharded path {k4} (one per evaluation: "
+          f"{bodies})")
+    if splits["sharded"] != splits["single"] or out["per_split"] != \
+            single["per_split"]:
+        fail("[11b] the sharded AUCs differ from the single card's")
+    if k4 != bodies:
+        fail(f"[11b] K4 launched {k4} times, not once per evaluation")
+    order, s_sorted = metrics.sort_scores(scores)
+    counts, auc = metrics._launch(s_sorted, order, packed, 2)
+    p_counts, p_auc = metrics.rocauc_from_sorted_plain(s_sorted, order,
+                                                       packed, 2)
+    torch.cuda.synchronize()
+    if not (torch.equal(counts, p_counts) and torch.equal(auc, p_auc)):
+        fail("[11b] K4 on the gathered scores differs from its plain "
+             "version")
+    n = scores.shape[1]
+
+    def run():
+        return metrics._launch(s_sorted, order, packed, 2)
+
+    ms, dev_ms = time_ms(run, 50), device_ms(run)
+    plain_ms = time_ms(lambda: metrics.rocauc_from_sorted_plain(
+        s_sorted, order, packed, 2), 5)
+    lib_ms = time_ms(lambda: torch.sort(scores, dim=-1), 50)
+    lib_dev = device_ms(lambda: torch.sort(scores, dim=-1))
+    b_ms, b_by = bound(13 * n, 6 * n)
+    print(f"  k4_auc_m2@genius-sharded (gathered scores, {n} nodes): counts "
+          f"and AUCs {auc.tolist()} bit-equal to the plain version; "
+          f"{ms:.4f} ms, device {_ms(dev_ms)} (plain {plain_ms:.3f}, "
+          f"torch.sort {lib_ms:.4f}, device {_ms(lib_dev)}; bound "
+          f"{b_ms:.4f} {b_by})")
+    return dict(name="k4_auc_m2@genius-sharded", counter="k4_auc_m2",
+                route="cuda", source="acmgnn_tpu_torch/csrc/rocauc.cu",
+                replaces="acmgnn_tpu/train/metrics.py:68", max_abs_err=0.0,
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev,
+                launches=k4, path=f"11b: genius ROC-AUC, sharded world size "
+                                  f"1 (nccl), {cfg.num_splits} splits x "
+                                  f"{cfg.epochs} joint epochs")
+
+
+def zoo11_config(case):
+    """Phase 11c's configuration of ``case``: ``sharded_check_config``
+    (the headline model, dropout 0, lr 1e-3, no weight decay) with the
+    case's changes."""
+    over = dict(ZOO11_CASES[case])
+    fmt = over.pop("operator_format", "ell")
+    return dataclasses.replace(sharded_check_config(fmt), **over)
+
+
+def _zoo_rank(rank, world, store_path, out_dir):
+    """One rank of phase 11c: every case of ``ZOO11_CASES`` with each
+    exchange through ``run_experiment_sharded``; its result, parameters
+    and launch counts written for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from acmgnn_tpu_torch.ops import kernels
+    from acmgnn_tpu_torch.parallel.multihost import init_distributed
+    from acmgnn_tpu_torch.train.trainer import run_experiment_sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", device="cuda", rank=rank,
+                     world_size=world,
+                     store=dist.FileStore(store_path, world))
+    data = _small_twitch()
+    for i, case in enumerate(ZOO11_CASES):
+        for exchange in ("allgather", "halo"):
+            kernels.reset_launches()
+            result, model = run_experiment_sharded(
+                data, zoo11_config(case), exchange=exchange,
+                return_model=True)
+            torch.save(dict(result=result, launches=dict(kernels.launches),
+                            params={k: p.detach().cpu()
+                                    for k, p in model.named_parameters()}),
+                       f"{out_dir}/zoo{i}-{exchange}-rank{rank}.pt")
+        torch.save(_stepwise_gaps(data, zoo11_config(case)),
+                   f"{out_dir}/zoo{i}-steps-rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _stepwise_gaps(data, cfg):
+    """The sharded runner against the single card step by step (in a
+    rank of a group): the single card's trajectory in one-body segments
+    (``make_split_runner``'s ``init_state`` / ``epoch_limit``); from each
+    of its states, one body on the sharded path (the largest |Δparameter|
+    after it), and one body with Adam's first moments zeroed on the
+    sharded path, on the single card and on the single card's ELL and COO
+    operators at f32 gathers: each then leaves ``exp_avg = (1 - beta1) ·
+    gradient``.  Per step, per parameter tensor, the L2 norms of the
+    sharded gradient's distance from the single card's, of the single
+    card's gradient, and of the distance between the single card's own
+    ELL and COO gradients (split 0's masks and parameters, as
+    ``run_experiment_sharded``)."""
+    import torch
+    import torch.distributed as dist
+
+    from acmgnn_tpu_torch.data.splits import random_disassortative_splits
+    from acmgnn_tpu_torch.train import trainer
+
+    masks_np = random_disassortative_splits(
+        np.asarray(data.labels), data.num_classes,
+        rng=np.random.default_rng(cfg.seed))
+
+    def single_runner(c):
+        _, ops, x, y, y1h, nclass = trainer.prepare_data(data, c)
+        run = trainer.make_split_runner(trainer.build_model(
+            c, x.shape[1], nclass, seed=c.seed, nnodes=data.num_nodes), c)
+        masks = tuple(torch.from_numpy(m).to(x.device) for m in masks_np)
+        return lambda init, k: run(ops, x, y, masks, seed=c.seed,
+                                   labels_onehot=y1h, init_state=init,
+                                   epoch_limit=k, return_state=True)[1].runner
+
+    single = single_runner(cfg)
+    orders = [single_runner(dataclasses.replace(
+        cfg, spmm_dtype="float32", operator_format=fmt))
+        for fmt in ("ell", "coo")]
+    prep = trainer.prepare_sharded_data(data, cfg, group=dist.group.WORLD)
+    model = trainer.build_model(cfg, prep.x.shape[1], prep.nclass,
+                                seed=cfg.seed, nnodes=data.num_nodes)
+    run_sharded = trainer.make_split_runner(model, cfg,
+                                            group=dist.group.WORLD)
+    smasks = tuple(prep.place(m) for m in masks_np)
+
+    def sharded(init, k):
+        return run_sharded(prep.ops, prep.x, prep.labels, smasks,
+                           seed=cfg.seed, labels_onehot=prep.labels_onehot,
+                           init_state=init, epoch_limit=k,
+                           return_state=True)[1].runner
+
+    def zeroed(state):
+        opt = {**state.opt_state, "state": {
+            i: {**st, "exp_avg": torch.zeros_like(st["exp_avg"])}
+            for i, st in state.opt_state["state"].items()}}
+        return dataclasses.replace(state, opt_state=opt)
+
+    def grads(state):
+        return [st["exp_avg"].double() / 0.1
+                for st in state.opt_state["state"].values()]
+
+    budget = cfg.epochs + int(bool(cfg.joint)
+                              and cfg.model_type in trainer.JOINT_CAPABLE)
+    state, gaps = single(None, 0), []
+    for k in range(1, budget + 1):
+        nxt = single(state, k)
+        got = sharded(state, k)
+        step = max(float((got.variables[n] - nxt.variables[n]).abs().max())
+                   for n in got.variables)
+        g_sh, g_ref, g_ell, g_coo = (grads(run(zeroed(state), k)) for run in
+                                     (sharded, single, *orders))
+        gaps.append((step, [
+            (float((a - b).norm()), float(b.norm()), float((e - c).norm()))
+            for a, b, e, c in zip(g_sh, g_ref, g_ell, g_coo)]))
+        state = nxt
+    return gaps
+
+
+def _spawn_ranks(fn, world, tag):
+    """``fn(rank, world, store, out_dir)`` in ``world`` spawned processes
+    on the one card; returns (``out_dir``, for the caller to read and
+    remove, and the seconds the ranks took with start-up)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(fn, args=(world, f"{tmp}/store", tmp),
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > RANK_DEADLINE_S:
+                fail(f"{tag} the ranks did not finish in {RANK_DEADLINE_S} "
+                     f"s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+    return tmp, time.perf_counter() - t0
+
+
+def phase_zoo_sharded():
+    """[11c] The zoo on the sharded path: 4 ranks (gloo on CUDA tensors,
+    one card) on phase 6c's 20k-node graph, each case of ``ZOO11_CASES``
+    for ``SHARDED_CHECK_EPOCHS`` epochs with all-gather and with halo exchange:
+    against the single-card port (``_check_zoo_case``) and each halo run
+    against its all-gather twin; then the kernels of these runs on rank 0's blocks: K1 on the
+    symmetric operator's valued halves (bf16, f32 values) bit for bit
+    against ``k1_order_replay`` on every rank's block, K1 on the
+    structure operator's block (w64, w2), K5 on the symmetric COO block,
+    K6 packing the structure operand (halo) and the valued transpose's
+    (sign, no pre-scale), K2/K3 at T = 4 and at variant 1's mask.
+    Returns (kernel rows, rank 0's launch counts by case)."""
+    import shutil
+
+    import scipy.sparse as sp
+    import torch
+
+    from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain
+    from acmgnn_tpu_torch.ops.ell import (
+        k1_operand,
+        k1_order_replay,
+        row_gather_spmm,
+    )
+    from acmgnn_tpu_torch.ops.graph import sym_normalized_adjacency
+    from acmgnn_tpu_torch.parallel.sharded import (
+        make_sharded_coo_op,
+        make_sharded_ell_op,
+    )
+
+    data = _small_twitch()
+    tmp, secs = _spawn_ranks(_zoo_rank, SHARDED_P, "[11c]")
+    counts = {}
+    try:
+        print(f"[11c] {SHARDED_P} ranks (gloo, one card), graph "
+              f"N={data.num_nodes}, {len(ZOO11_CASES)} cases x 2 exchanges "
+              f"of {SHARDED_CHECK_EPOCHS} epochs: {secs:.1f} s with start-up")
+        for i, case in enumerate(ZOO11_CASES):
+            runs = {}
+            for exchange in ("allgather", "halo"):
+                tag = f"[11c {case}, {exchange}]"
+                ranks = [torch.load(f"{tmp}/zoo{i}-{exchange}-rank{r}.pt")
+                         for r in range(SHARDED_P)]
+                r0 = ranks[0]
+                for r in ranks[1:]:
+                    if any(not torch.equal(r["params"][k], r0["params"][k])
+                           for k in r0["params"]):
+                        fail(f"{tag} the replicas' parameters differ")
+                if r0["result"]["devices"] != SHARDED_P:
+                    fail(f"{tag} ran on {r0['result']['devices']} ranks")
+                runs[exchange] = r0
+            _check_zoo_case(f"[11c {case}]", data, zoo11_config(case),
+                            runs["allgather"],
+                            torch.load(f"{tmp}/zoo{i}-steps-rank0.pt"))
+            _halo_against_allgather(f"[11c {case}, halo]", runs["halo"],
+                                    runs["allgather"])
+            counts[case] = runs["allgather"]["launches"]
+            print(f"[11c {case}] rank 0 launches "
+                  f"{json.dumps(counts[case], sort_keys=True)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    dev = torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    a_sym = sym_normalized_adjacency(data.adj)
+    for dtype, case in ((torch.bfloat16, "sym ell bf16"),
+                        (torch.float32, "sym ell f32")):
+        ops, b = make_sharded_ell_op(a_sym, SHARDED_P, None,
+                                     exchange="halo", gather_dtype=dtype)
+        for p, op in enumerate(ops):
+            if op.bwd is not op.fwd or op.fwd.vals.dtype != dtype:
+                fail(f"[11c] rank {p}'s symmetric block should be one "
+                     f"valued half in {dtype}")
+            half = op.fwd.to(dev)
+            for d in (7, 4):
+                xg = k1_operand(torch.randn(half.num_cols, d, generator=gen,
+                                            device=dev), dtype)
+                if not torch.equal(row_gather_spmm(half, xg),
+                                   k1_order_replay(half, xg, None,
+                                                   (0.0,) * d, (1.0,) * d)):
+                    fail(f"[11c] K1 on rank {p}'s valued {dtype} block "
+                         f"differs from k1_order_replay at w{d}")
+        print(f"[11c] K1 on every rank's valued symmetric block ({dtype} "
+              f"values, halo layout), w7 and w4: bit for bit against "
+              f"k1_order_replay")
+        op0 = ops[0].to(dev)
+        half = op0.fwd
+        lib = _local_csr(dataclasses.replace(half, vals=half.vals.float()))
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases = [(k1_operand(torch.randn(half.num_cols, d, generator=gen,
+                                         device=dev), dtype), None, None,
+                  None, f"k1_spmm_w{d}_valued") for d in (7, 4)]
+        for r in _k1_rows(half, cases, f"_{dt}@sharded-sym-rank0",
+                          lambda d: f"k1_spmm_w{d}_valued", lib,
+                          K1_LOCAL_REPLACES):
+            r.update(case=case)
+            rows.append(r)
+        if dtype == torch.float32:
+            x4 = torch.randn(data.num_nodes, 4, generator=gen, device=dev)
+            r = _k6_row(op0, x4, b, op0.rows_per_part, True,
+                        [1.0, 1.0, -1.0, -1.0], "_valued_transpose@sharded",
+                        None, 0.0)
+            r.pop("run")
+            r.update(case=case)
+            rows.append(r)
+    # K5 on rank 0's symmetric COO block
+    coos, b = make_sharded_coo_op(a_sym, SHARDED_P, None, exchange="halo")
+    half = coos[0].fwd.to(dev)
+    x = torch.randn(half.num_cols, 7, generator=gen, device=dev)
+    got = coo_spmm(half, x)
+    err = spmm_err(got, coo_spmm_plain(half, x, None, (0.0,) * 7,
+                                       (1.0,) * 7),
+                   coo_spmm_plain(dataclasses.replace(half,
+                                                      val=half.val.abs()),
+                                  x.abs(), None, (0.0,) * 7, (1.0,) * 7),
+                   _coo_row_terms(half), "k5_coo_w7@sharded-sym-rank0")
+    lib = _local_csr(half)
+    ms, dev_ms = time_ms(lambda: coo_spmm(half, x), 50), device_ms(
+        lambda: coo_spmm(half, x))
+    plain_ms = time_ms(lambda: coo_spmm_plain(half, x, None, (0.0,) * 7,
+                                              (1.0,) * 7), 5)
+    lib_ms = time_ms(lambda: torch.sparse.mm(lib, x), 20)
+    lib_dev = device_ms(lambda: torch.sparse.mm(lib, x))
+    rpp = coos[0].rows_per_part
+    b_ms, b_by = bound(12 * half.nnz + 4 * half.num_cols * 7 + 4 * rpp * 7,
+                       2 * half.nnz * 7)
+    print(f"  k5_coo_w7@sharded-sym-rank0: {ms:.4f} ms, device "
+          f"{_ms(dev_ms)} (plain {plain_ms:.3f}, torch.sparse.mm f32 "
+          f"{lib_ms:.4f}, device {_ms(lib_dev)}; bound {b_ms:.4f} {b_by})")
+    rows.append(dict(name="k5_coo_w7@sharded-sym-rank0", counter="k5_coo_w7",
+                     route="cuda", source="acmgnn_tpu_torch/csrc/coo.cu",
+                     replaces=K5_LOCAL_REPLACES, max_abs_err=err, ms=ms,
+                     device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib_ms,
+                     library_device_ms=lib_dev, case="sym coo"))
+    # the structure operator (the raw adjacency) on rank 0's block
+    s_ops, b = make_sharded_ell_op(sp.csr_matrix(data.adj), SHARDED_P, None,
+                                   exchange="halo")
+    s_op = s_ops[0].to(dev)
+    if s_op.bwd is not s_op.fwd or s_op.fwd.vals is not None:
+        fail("[11c] the structure block should be one value-free half")
+    lib = _local_csr(s_op.fwd)
+    cases = [(k1_operand(torch.randn(s_op.fwd.num_cols, d, generator=gen,
+                                     device=dev), torch.float32), None, None,
+              None, f"k1_spmm_w{d}") for d in (64, 2)]
+    for r in _k1_rows(s_op.fwd, cases, "@sharded-structure-rank0",
+                      lambda d: f"k1_spmm_w{d}", lib, K1_LOCAL_REPLACES):
+        r.update(case="acmgcnpp+structure")
+        rows.append(r)
+    emb = torch.randn(data.num_nodes, 64, generator=gen, device=dev)
+    r = _k6_row(s_op, emb, b, s_op.rows_per_part, False, None,
+                "_structure@sharded", None, 0.0)
+    r.pop("run")
+    r.update(case="acmgcnpp+structure")
+    rows.append(r)
+    # K2/K3 at the sharded zoo's instances, rank 0's rows
+    n0 = s_op.rows_per_part
+    for relu, case in (((True,) * 4, "acmgcnpp+structure"),
+                       ((False, False, True), "acmgcnp variant 1")):
+        for r in _attention_instance_rows(n0, gen, relu, True, (64, 2),
+                                          "@sharded-rank0"):
+            r.update(case=case)
+            rows.append(r)
+    for r in rows:
+        case = r.pop("case")
+        r.update(path=f"11c: {case}, {SHARDED_P} gloo ranks on one card, "
+                      f"{SHARDED_CHECK_EPOCHS} epochs, all-gather, rank 0 (timed on "
+                      f"rank 0's block)",
+                 launches=counts[case].get(r["counter"], 0))
+    return rows, counts
+
+
+def _check_zoo_case(tag, data, cfg, run, gaps):
+    """A zoo case of 11c against the single card.  Each step on the
+    sharded path, from the single card's state, computes the single
+    card's gradient: per parameter tensor, its gradients stacked over the
+    run's steps, ``‖Δg‖ ≤ GRAD_REL · ‖g‖ + GRAD_ORDERS · ‖g_ELL −
+    g_COO‖``, the last the single card's own distance between its ELL
+    and COO orders at f32 gathers from the same states (the steps'
+    parameters are printed: Adam moves a parameter ±lr wherever its
+    gradient is at rounding distance from zero).  The whole
+    run within 1e-4 of the single card, with equal epochs and test
+    metric, where the single card's own ELL and COO orders (at f32
+    gathers) part by less than ``WELL_CONDITIONED`` after the run; where
+    they part by more, within ``TRAJECTORY_ORDERS`` times that distance."""
+    ref = single_chip_reference(data, cfg)
+    # the two orders at f32 gathers (COO has no other gather dtype)
+    pair = [single_chip_reference(data, dataclasses.replace(
+        cfg, spmm_dtype="float32", operator_format=fmt))[1]
+        for fmt in ("ell", "coo")]
+    orders = max(float((pair[0][k] - pair[1][k]).abs().max())
+                 for k in ref[1])
+    # each tensor's norms over the run's steps (its gradients stacked)
+    gap, norm, witness = (np.sqrt(np.sum(np.square(
+        [[t[j] for t in tensors] for _, tensors in gaps]), axis=0))
+        for j in range(3))
+    bound = GRAD_REL * norm + GRAD_ORDERS * witness
+    ratio = float(np.max(np.where(gap > 0, gap / np.maximum(bound, 1e-300),
+                                  0.0)))
+    print(f"{tag} step by step from the single card's states, "
+          f"{len(gaps)} steps: per tensor over the steps ‖Δgradient‖ up to "
+          f"{ratio:.3f} of its bound ({GRAD_REL:g}·‖g‖ + {GRAD_ORDERS:g}·"
+          f"‖g_ELL − g_COO‖), ‖Δgradient‖ / ‖g‖ up to "
+          f"{float(np.max(gap / np.maximum(norm, 1e-300))):.3e}; |Δparam| "
+          f"after each step up to {max(p for p, _ in gaps):.1e} (not held); "
+          f"the single card's own ELL and COO orders part by {orders:.3e} "
+          f"after {cfg.epochs} epochs")
+    if ratio > 1.0:
+        fail(f"{tag} a sharded step's gradient disagrees with the single "
+             f"card's")
+    if orders < WELL_CONDITIONED:
+        compare_to_single(tag, run["result"], run["params"], ref)
+        return
+    worst = max(float((run["params"][k] - ref[1][k]).abs().max())
+                for k in ref[1])
+    print(f"{tag} ill-conditioned ({orders:.3e} between the single card's "
+          f"own orders): the whole run {worst:.3e} from the single card, "
+          f"held to {TRAJECTORY_ORDERS:g}x that; epochs "
+          f"{run['result']['epochs_total']}/{ref[0].epochs_run}; test "
+          f"{run['result']['test_mean']:.6f}/{float(ref[0].test_metric):.6f}")
+    if worst > TRAJECTORY_ORDERS * orders:
+        fail(f"{tag} the sharded run parts from the single card by more "
+             f"than {TRAJECTORY_ORDERS:g}x the single card's own orders")
+
+
+def resume11_config(joint):
+    """Phase 11d's runs: the headline model at dropout 0.5 (the
+    generators' states matter), 2 splits x ``RESUME_EPOCHS``; the
+    sequential case with the structure channel."""
+    over = dict(dropout=0.5, lr=1e-3, weight_decay=0.0, num_splits=2,
+                epochs=RESUME_EPOCHS, spmm_dtype="bfloat16", seed=0)
+    if not joint:
+        over.update(joint=False, model_type="acmgcnpp", structure_info=True)
+    return headline_config(**over)
+
+
+def _resume_rank(rank, world, store_path, out_dir):
+    """One rank of phase 11d: for the joint and the sequential loop, the
+    run without checkpoints, the checkpointed run, and the checkpointed
+    run cut right after the last split's snapshot at half its epochs
+    (every rank raises there) and resumed; results, parameters and each
+    snapshot's tensors written for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from acmgnn_tpu_torch.parallel.multihost import init_distributed
+    from acmgnn_tpu_torch.train import trainer
+    from acmgnn_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", device="cuda", rank=rank,
+                     world_size=world,
+                     store=dist.FileStore(store_path, world))
+    data = _small_twitch()
+
+    class Cut(Exception):
+        pass
+
+    save = trainer.save_checkpoint
+    for joint in (True, False):
+        cfg = resume11_config(joint)
+        base = f"{out_dir}/ckpt-{int(joint)}"
+
+        def run(ckpt, resume, cfg=cfg):
+            res, model = trainer.run_experiment_sharded(
+                data, cfg, checkpoint_dir=ckpt,
+                checkpoint_every=RESUME_EVERY if ckpt else 0, resume=resume,
+                return_model=True)
+            return dict(per_split=res["per_split"],
+                        epochs_total=res["epochs_total"],
+                        params={k: v.cpu()
+                                for k, v in model.state_dict().items()})
+
+        def save_then_cut(path, *a, step=0, **k):
+            out = save(path, *a, step=step, **k)
+            if (f"split{cfg.num_splits - 1}_rng" in str(path)
+                    and step >= cfg.epochs // 2):
+                raise Cut(path)
+            return out
+
+        out = {"plain": run(None, False), "whole": run(f"{base}/whole",
+                                                       False)}
+        trainer.save_checkpoint = save_then_cut
+        try:
+            run(f"{base}/cut", False)
+            raise RuntimeError("the run was not cut")
+        except Cut:
+            pass
+        finally:
+            trainer.save_checkpoint = save
+        out["resumed"] = run(f"{base}/cut", True)
+        dist.barrier()
+        for name in ("whole", "cut"):
+            d = f"{base}/{name}"
+            out[f"snap_{name}"] = {
+                f: restore_checkpoint(f"{d}/{f}", map_location="cpu")
+                for f in sorted(os.listdir(d))
+                if f.endswith("_state") or f.endswith(f"rng_rank{rank}")}
+        torch.save(out, f"{out_dir}/resume-{int(joint)}-rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def phase_resume_sharded():
+    """[11d] Cut and resume at world size 2 (gloo on the one card): each
+    rank's resumed run equals the uninterrupted checkpointed run and the
+    run without checkpoints bit for bit (per-split test metrics, epochs,
+    the last split's parameters and buffers), and the resumed run's last
+    snapshots equal the uninterrupted run's (parameters, Adam's moments
+    and step, the loop state with its loss and val histories, the rank's
+    generators); for the joint and the sequential loop."""
+    import shutil
+
+    import torch
+
+    tmp, secs = _spawn_ranks(_resume_rank, 2, "[11d]")
+    try:
+        for joint in (True, False):
+            tag = f"[11d {'joint' if joint else 'sequential'}]"
+            for r in range(2):
+                out = torch.load(f"{tmp}/resume-{int(joint)}-rank{r}.pt")
+                for name in ("whole", "resumed"):
+                    if not _tree_equal(out[name], out["plain"]):
+                        fail(f"{tag} rank {r}: the {name} run differs from "
+                             f"the run without checkpoints")
+                if not _tree_equal(out["snap_cut"], out["snap_whole"]):
+                    fail(f"{tag} rank {r}: the resumed run's snapshots "
+                         f"differ from the uninterrupted run's")
+            print(f"{tag} cut after the last split's snapshot at epoch >= "
+                  f"{RESUME_EPOCHS // 2} and resumed: equal bit for bit to "
+                  f"the uninterrupted run and to the run without "
+                  f"checkpoints on both ranks (per-split {out['plain']['per_split']}, "
+                  f"{out['plain']['epochs_total']} epochs; snapshots "
+                  f"{sorted(out['snap_cut'])})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[11d] 2 ranks: {secs:.1f} s with start-up")
+
+
+def phase_sharded_zoo(g_adj, g_feats, g_labels):
+    """Phase 11; returns (kernel rows, seconds, wiki launch counts)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rows, wiki = phase_wiki_sharded()
+    torch.cuda.empty_cache()
+    rows.append(phase_genius_sharded_rocauc(g_adj, g_feats, g_labels))
+    torch.cuda.empty_cache()
+    z_rows, _ = phase_zoo_sharded()
+    rows += z_rows
+    phase_resume_sharded()
+    for row in rows:
+        if row["launches"] == 0:
+            fail(f"{row['name']} was not launched on its path")
+    secs = time.perf_counter() - t0
+    print(f"[11] phase 11: {secs:.1f} s")
+    return rows, secs
+
+
 def _instance_launches(row, pp, sym, dense, zoo):
     """The launches of a 9a row's instance, and the run they come from:
     the symmetric headline runs (9b sym) for the valued K1 and K5,
@@ -4031,6 +5048,7 @@ def main() -> int:
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on its path")
     cli_out = phase_cli(paths["ell"][4])
+    w_rows, w_secs = phase_sharded_zoo(g_adj, g_feats, g_labels)
     steady = {k: entry[k][0]["epoch_ms_steady"]
               for k in ("experiment", "plain", "remat", "adamw", "bf16",
                         "rcm")}
@@ -4056,13 +5074,13 @@ def main() -> int:
                                    for k, v in dense.items())
           + f"; cli train genius {cli_out['whole'][-1]:.3f} "
           f"({cli_out['replays'][-1]:.3f}), load {cli_out['load_s']:.2f} s, "
-          f"phase 10 {cli_out['seconds']:.1f} s")
+          f"phase 10 {cli_out['seconds']:.1f} s; phase 11 {w_secs:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in rows + g_rows + s_rows + p_rows
-                                  + i_rows]}))
+                                  + i_rows + w_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

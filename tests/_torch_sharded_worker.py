@@ -13,7 +13,13 @@ group over a ``FileStore`` on the CPU, reads its inputs from the task's
   operators, from the given parameters;
 - ``runner``: ``make_split_runner`` with the process group, from the
   given parameters and masks;
-- ``experiment``: ``run_experiment_sharded``.
+- ``experiment``: ``run_experiment_sharded``;
+- ``resume``: ``run_experiment_sharded`` with checkpointed segments,
+  uninterrupted and cut at half the last split's epochs then resumed,
+  and without checkpoints: each run's results, parameters and snapshots;
+- ``retry``: ``run_experiment_sharded`` with a transient failure injected
+  on some ranks after split 0's first attempt: its result, or the error
+  each rank raised.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from acmgnn_tpu_torch.parallel.sharded import (  # noqa: E402
     make_sharded_ell_op,
     shard_node_array,
 )
+from acmgnn_tpu_torch.train import trainer  # noqa: E402
 from acmgnn_tpu_torch.train.config import TrainConfig  # noqa: E402
 from acmgnn_tpu_torch.train.trainer import (  # noqa: E402
     build_model,
@@ -48,6 +55,7 @@ from acmgnn_tpu_torch.train.trainer import (  # noqa: E402
     prepare_sharded_data,
     run_experiment_sharded,
 )
+from acmgnn_tpu_torch.utils.checkpoint import restore_checkpoint  # noqa: E402
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -85,7 +93,8 @@ def _data(inputs, job):
 def _model(inputs, job, prep, cfg):
     """The model with the parameters the test saved under ``job["params"]``
     (a ``state_dict`` from ``params_from_flax``)."""
-    model = build_model(cfg, prep.x.shape[1], prep.nclass, device="cpu")
+    model = build_model(cfg, prep.x.shape[1], prep.nclass, device="cpu",
+                        nnodes=prep.data.num_nodes)
     prefix = job["params"]
     model.load_state_dict({key[len(prefix):]: torch.from_numpy(inputs[key])
                            for key in inputs.files if key.startswith(prefix)})
@@ -124,12 +133,120 @@ def run_experiment(job, inputs, rank, world, out):
                         device="cpu", seed=cfg.seed)
     out[f"{job['key']}/start_equal"] = np.asarray(_replicas_equal(start))
     res, model = run_experiment_sharded(
-        data, cfg, device="cpu", exchange=job["exchange"],
-        return_model=True)
+        data, cfg, device="cpu", exchange=job["exchange"], return_model=True)
     out[f"{job['key']}/test_mean"] = np.asarray(res["test_mean"])
     out[f"{job['key']}/epochs_total"] = np.asarray(res["epochs_total"])
     out[f"{job['key']}/devices"] = np.asarray(res["devices"])
     _save_params(out, job["key"], model)
+
+
+class Cut(Exception):
+    """The interruption of a checkpointed run."""
+
+
+def cut_resumed(run, epochs, last_split, ckpt_dir):
+    """``run(checkpoint_dir, resume)`` cut right after the first snapshot
+    of split ``last_split`` at half the epochs or later (every rank cuts
+    there, after writing its generators), then run again with
+    ``resume``: the resumed run's result and model."""
+    save = trainer.save_checkpoint
+
+    def save_then_cut(path, *args, step=0, **kwargs):
+        out = save(path, *args, step=step, **kwargs)
+        if (f"split{last_split}_rng" in str(path)
+                and step >= epochs // 2):
+            raise Cut(path)
+        return out
+
+    trainer.save_checkpoint = save_then_cut
+    try:
+        run(ckpt_dir, False)
+        raise AssertionError("the run was not cut")
+    except Cut:
+        pass
+    finally:
+        trainer.save_checkpoint = save
+    return run(ckpt_dir, True)
+
+
+def snapshot_arrays(ckpt_dir, rank):
+    """Every tensor of this rank's last snapshots, flattened by name."""
+    out = {}
+
+    def walk(tree, name):
+        if isinstance(tree, torch.Tensor):
+            out[name] = tree.numpy()
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{name}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{name}/{i}")
+        elif tree is not None:
+            out[name] = np.asarray(tree)
+
+    for f in sorted(os.listdir(ckpt_dir)):
+        if f.endswith(f"rng_rank{rank}") or f.endswith("_state"):
+            walk(restore_checkpoint(os.path.join(ckpt_dir, f)), f)
+    return out
+
+
+def run_resume(job, inputs, rank, world, out):
+    cfg = TrainConfig(**job["cfg"])
+    data = _data(inputs, job)
+    key = job["key"]
+    every = job["every"]
+    # the same directory on every rank: rank 0 writes the shared state
+    base = os.path.join(job["dir"], key.replace("/", "_"))
+
+    def run(ckpt_dir, resume):
+        return run_experiment_sharded(
+            data, cfg, device="cpu", checkpoint_dir=ckpt_dir,
+            checkpoint_every=every, resume=resume, return_model=True)
+
+    runs = {"plain": run_experiment_sharded(data, cfg, device="cpu",
+                                            return_model=True),
+            "whole": run(f"{base}/whole", False),
+            "resumed": cut_resumed(run, cfg.epochs, cfg.num_splits - 1,
+                                   f"{base}/cut")}
+    if dist.is_initialized():
+        dist.barrier()
+    for name, (res, model) in runs.items():
+        out[f"{key}/{name}/per_split"] = np.asarray(res["per_split"])
+        out[f"{key}/{name}/epochs_total"] = np.asarray(res["epochs_total"])
+        for pname, p in model.state_dict().items():
+            out[f"{key}/{name}/param/{pname}"] = p.numpy()
+    for name in ("whole", "cut"):
+        for k, v in snapshot_arrays(f"{base}/{name}", rank).items():
+            out[f"{key}/{name}/snap/{k}"] = v
+
+
+def run_retry(job, inputs, rank, world, out):
+    import time
+
+    cfg = TrainConfig(**job["cfg"])
+    data = _data(inputs, job)
+    sync, sleep = trainer._sync, time.sleep
+    injected = []
+
+    def flaky(dev):   # the end of a split's attempt
+        sync(dev)
+        if not injected and rank in job["fail"]:
+            injected.append(True)
+            raise RuntimeError("UNAVAILABLE: an injected failure")
+
+    trainer._sync, time.sleep = flaky, (lambda s: None)   # and no backoff
+    try:
+        res, model = run_experiment_sharded(
+            data, cfg, device="cpu", exchange=job["exchange"],
+            return_model=True)
+    except RuntimeError as exc:
+        out[f"{job['key']}/raised"] = np.asarray(str(exc))
+    else:
+        out[f"{job['key']}/test_mean"] = np.asarray(res["test_mean"])
+        _save_params(out, job["key"], model)
+    finally:
+        trainer._sync, time.sleep = sync, sleep
 
 
 def _save_result(out, key, res, model):
@@ -155,7 +272,8 @@ def _save_params(out, key, model):
 
 
 JOBS = {"spmm": run_spmm, "forward": run_forward, "runner": run_runner,
-        "experiment": run_experiment}
+        "experiment": run_experiment, "resume": run_resume,
+        "retry": run_retry}
 
 
 def main():

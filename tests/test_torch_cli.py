@@ -420,15 +420,81 @@ def test_profile_dir_writes_a_trace(root, tmp_path):
     assert (tmp_path / "r.csv").read_text().startswith("dataset,model,")
 
 
-@pytest.mark.parametrize("flag", (["--checkpoint_dir", "x"],
-                                  ["--checkpoint_every", "2"],
-                                  ["--per_host_loading", "1"]))
+@pytest.mark.parametrize("flag", (["--model", "acmgcnpp",
+                                   "--link_init_layers_X", "2"],
+                                  ["--model", "acmsgc", "--hops", "2"],
+                                  ["--model", "sgc", "--hops", "3"]))
 def test_sharded_train_refuses_by_name(root, tmp_path, flag):
-    name = "per_host_loading" if "per_host" in flag[0] else "checkpointing"
+    """``train --sharded`` refuses by name only acmgcnpp's BatchNorm
+    across ranks and the k-hop operator (ROADMAP.md A8)."""
+    name = "init_layers_X" if "--link_init_layers_X" in flag else "hops"
     with pytest.raises(NotImplementedError, match=name):
         cli.main(["train", "--dataset", "texas", "--sharded", "1",
                   "--device", "cpu", "--log_dir", str(tmp_path / "logs")]
                  + flag)
+
+
+SHARDED_ARGV = ["train", "--dataset", "texas", "--fixed_splits", "1",
+                "--num_splits", "2", "--epochs", "12", "--model", "acmgcnp",
+                "--structure_info", "1", "--joint", "1", "--lr", "0.01",
+                "--hidden", "16", "--dropout", "0", "--device", "cpu"]
+
+
+def test_sharded_train_checkpoints_and_resumes(root, tmp_path):
+    """``train --sharded 1 --checkpoint_dir D --checkpoint_every 5`` writes
+    each split's state and generators; a second call with ``--resume``
+    finds every split done and prints the same JSON (but the timings)."""
+    argv = SHARDED_ARGV + ["--sharded", "1", "--log_dir",
+                           str(tmp_path / "logs"), "--checkpoint_dir",
+                           str(tmp_path / "ckpt"), "--checkpoint_every", "5"]
+    first = _run(cli.main, argv)
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
+        "split0_rng_rank0", "split0_state", "split1_rng_rank0",
+        "split1_state"]
+    again = _run(cli.main, argv + ["--resume"])
+    timing = ("runtime_s", "epoch_ms_avg", "epoch_ms_steady")
+    assert {k: v for k, v in again.items() if k not in timing} == {
+        k: v for k, v in first.items() if k not in timing}
+
+
+def test_torchrun_sharded_train_on_two_ranks(root, tmp_path):
+    """``torchrun --nproc_per_node 2 -m acmgnn_tpu_torch.cli train
+    --sharded 2 --device cpu``: two ranks joined by gloo through
+    torchrun's environment, per-rank slab loading on; each rank's JSON
+    equals ``run_experiment_sharded`` in this process (one rank) but for
+    ``devices`` and the timings (at dropout 0: a rank's dropout draws
+    from a generator seeded by its rank)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(repo)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "acmgnn_tpu_torch.cli"]
+        + SHARDED_ARGV + ["--sharded", "2", "--log_dir",
+                          str(tmp_path / "logs")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    outs = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    assert len(outs) == 2
+    args = _args(cli, SHARDED_ARGV[1:])
+    want = trainer.run_experiment_sharded(
+        "texas", cli.config_from_args(args), device="cpu")
+    timing = ("runtime_s", "epoch_ms_avg", "epoch_ms_steady", "devices")
+    for out in outs:
+        assert out["devices"] == 2
+        assert {k: v for k, v in out.items() if k not in timing} == {
+            k: v for k, v in want.items()
+            if k not in timing and k != "per_split"}
+    logs = sorted(p.name for p in (tmp_path / "logs").iterdir())
+    assert len(logs) == 2 and "_rank0_" in logs[0] and "_rank1_" in logs[1]
 
 
 def test_loaded_dataset_is_the_files(root):

@@ -252,19 +252,26 @@ def test_run_experiment_stepwise_rocauc_matches_jax(graph, monkeypatch):
 
 
 def test_stepwise_refuses_checkpointing(graph, tmp_path):
-    """Checkpointing is ported to the stepwise path (it writes the best
-    and the whole-state snapshots and the history) and refused by name on
-    the sharded path only."""
+    """Checkpointing runs on both paths and refuses nothing: the stepwise
+    path writes the best and the whole-state snapshots and the history;
+    the sharded path, with ``checkpoint_every``, its segments' state and
+    this rank's generators (without it, as in the JAX package, nothing;
+    ``resume`` without snapshots starts afresh)."""
     cfg = TrainConfig(**dict(BASE, epochs=2, num_splits=1))
-    for kw in (dict(checkpoint_dir="x"), dict(checkpoint_every=2),
-               dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="checkpointing"):
-            trainer.run_experiment_sharded(_data(graph), cfg, device="cpu",
-                                           **kw)
+    for kw in (dict(checkpoint_dir=str(tmp_path / "none")),
+               dict(checkpoint_every=2), dict(resume=True)):
+        trainer.run_experiment_sharded(_data(graph), cfg, device="cpu",
+                                       **kw)
+    assert not (tmp_path / "none").exists()
+    trainer.run_experiment_sharded(_data(graph), cfg, device="cpu",
+                                   checkpoint_dir=str(tmp_path / "sharded"),
+                                   checkpoint_every=1)
+    assert {p.name for p in (tmp_path / "sharded").iterdir()} == {
+        "split0_state", "split0_rng_rank0"}
     trainer.run_experiment_stepwise(_data(graph), cfg, device="cpu",
-                                    checkpoint_dir=str(tmp_path),
+                                    checkpoint_dir=str(tmp_path / "step"),
                                     checkpoint_every=1)
-    assert {p.name for p in tmp_path.iterdir()} == {
+    assert {p.name for p in (tmp_path / "step").iterdir()} == {
         "split0_best", "split0_last", "split0_history.npy"}
 
 

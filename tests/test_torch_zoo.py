@@ -395,18 +395,40 @@ def test_remat_updates_batchnorm_statistics_once(small_graph):
     (dict(model_type="acmgcnp", structure_info=True), "structure channel"),
     (dict(normalization="sym"), "normalization 'sym'"),
     (dict(operator_format="dense"), "dense operator format"),
+    (dict(model_type="acmgcnpp", init_layers_X=2), "init_layers_X 2"),
+    (dict(model_type="acmsgc", hops=2), "hops 2"),
 ])
 def test_sharded_path_refuses_what_it_does_not_port(over, name, small_graph):
     """The sharded path (``prepare_sharded_data``, hence
-    ``run_experiment_sharded``) runs acmgcn/acmgcnp variant 0 on the
-    row-normalized ELL or COO operator and refuses the rest by name; its
-    operator constructor refuses symmetric normalization itself."""
-    from acmgnn_tpu_torch.parallel.sharded import make_sharded_operators
+    ``run_experiment_sharded``) refuses by name only acmgcnpp's BatchNorm
+    across ranks (``init_layers_X > 1``) and the k-hop operator (``hops >
+    1``).  The rest runs: every model type, variant 1, the structure
+    channel (the raw adjacency on ``adj_low``'s boundaries, its own
+    transpose), symmetric normalization (valued halves in the gather
+    dtype, one for both directions) and the dense format, which maps to
+    ELL."""
+    from acmgnn_tpu_torch.parallel.sharded import (
+        ShardedEllOp,
+        make_sharded_operators,
+    )
 
     adj, feats, labels = small_graph
     cfg = TrainConfig(**dict(dict(model_type="acmgcn", epochs=2), **over))
-    with pytest.raises(NotImplementedError, match=name):
-        trainer.prepare_sharded_data(GraphData("g", adj, feats, labels), cfg,
-                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="sym"):
-        make_sharded_operators(adj, 1, 0, normalization="sym")
+    data = GraphData("g", adj, feats, labels)
+    if "init_layers_X" in over or "hops" in over:
+        with pytest.raises(NotImplementedError, match=name):
+            trainer.prepare_sharded_data(data, cfg, device="cpu")
+        return
+    prep = trainer.prepare_sharded_data(data, cfg, device="cpu")
+    low = prep.ops.adj_low
+    assert isinstance(low, ShardedEllOp)
+    assert low.rows_per_part == adj.shape[0]
+    if cfg.structure_info:
+        unnorm = prep.ops.adj_unnorm
+        assert unnorm.bwd is unnorm.fwd and unnorm.fwd.vals is None
+        np.testing.assert_array_equal(unnorm.boundaries, low.boundaries)
+    if cfg.normalization == "sym":
+        assert low.bwd is low.fwd and low.fwd.vals is not None
+    ops, _, _ = make_sharded_operators(adj, 1, 0, normalization="sym",
+                                       spmm_dtype=torch.bfloat16)
+    assert ops.adj_low.fwd.vals.dtype == torch.bfloat16
