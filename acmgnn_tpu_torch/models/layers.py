@@ -55,6 +55,7 @@ from acmgnn_tpu_torch.ops.spmm import (
     spmm_high,
     spmm_multi,
 )
+from acmgnn_tpu_torch.parallel.multihost import rank_rows, sum_over_ranks
 
 # Widest layer-1 input the hoist gathers directly (kept from the JAX
 # package, where a wider gather fell off the gather engine's full rate).
@@ -630,7 +631,20 @@ class BatchNorm(nn.Module):
     biased variance (``nn.BatchNorm1d`` keeps the unbiased one); eval
     mode reads them.  ``y = (x − mean)·(rsqrt(var + eps)·scale) + bias``.
     Parameters ``scale``/``bias``, buffers ``mean``/``var`` (flax's
-    ``batch_stats``)."""
+    ``batch_stats``).
+
+    The batch statistics are formed one way everywhere: Σx and Σx² over
+    the real rows, then divided by their count.  On a rank's slab of a
+    sharded operator (``shard``: its ``rank``, ``boundaries`` and
+    ``group``) the real rows are the rank's own (``rank_rows``; its pad
+    rows left out), and the two sums are added over the ranks in one
+    collective (``sum_over_ranks``; its backward, one more), then
+    divided by the graph's N: every rank normalizes with the statistics
+    of the whole graph and updates the same running statistics, so the
+    replicas stay equal.  At one rank that is the single card's
+    arithmetic bit for bit.  (The JAX package's sharded BatchNorm
+    averages over every padded row, whose values after ``lin_0`` and the
+    ReLU are ``relu(bias)``, not zero; ROADMAP.md §C.)"""
 
     def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -640,10 +654,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 
-    def forward(self, x, training: bool):
+    def forward(self, x, training: bool, shard=None):
         if training:
-            mu = x.mean(dim=0)
-            var = torch.clamp_min((x * x).mean(dim=0) - mu * mu, 0.0)
+            rows, n = x, x.shape[0]
+            if shard is not None:
+                r0, r1 = rank_rows(shard.boundaries, shard.rank)
+                n = int(shard.boundaries[-1])
+                if r1 - r0 < x.shape[0]:   # a slice is an autograd node
+                    rows = x[: r1 - r0]
+            sums = torch.stack([rows.sum(dim=0), (rows * rows).sum(dim=0)])
+            if shard is not None and (shard.group is not None
+                                      or shard.world_size > 1):
+                sums = sum_over_ranks(sums, shard.group)
+            mu = sums[0] / n
+            var = torch.clamp_min(sums[1] / n - mu * mu, 0.0)
             if not _stats_frozen[0]:
                 with torch.no_grad():
                     self.mean.copy_(self.momentum * self.mean
@@ -660,7 +684,9 @@ class MLPBlock(nn.Module):
     """acmgcnpp's input-skip MLP: ``lin_0`` alone at ``num_layers == 1``,
     else ``num_layers - 1`` times Linear → ReLU → BatchNorm → dropout,
     then a last Linear.  The Linears take ``gemm_dtype``'s operands and
-    torch ``nn.Linear``'s init law (U(±1/sqrt(F_in)))."""
+    torch ``nn.Linear``'s init law (U(±1/sqrt(F_in))).  ``shard``: the
+    rank's share of a sharded operator, for BatchNorm's statistics over
+    every rank's rows."""
 
     def __init__(self, in_channels: int, hidden_channels: int,
                  out_channels: int, *, num_layers: int = 1,
@@ -678,10 +704,10 @@ class MLPBlock(nn.Module):
                 setattr(self, f"bn_{i}", BatchNorm(f_out))
             f_in = f_out
 
-    def forward(self, x, training: bool = False, generator=None):
+    def forward(self, x, training: bool = False, generator=None, shard=None):
         for i in range(self.num_layers - 1):
             x = torch.relu(getattr(self, f"lin_{i}")(x))
-            x = getattr(self, f"bn_{i}")(x, training)
+            x = getattr(self, f"bn_{i}")(x, training, shard)
             x = dropout(x, self.dropout, training, generator)
         return getattr(self, f"lin_{self.num_layers - 1}")(x)
 

@@ -34,6 +34,7 @@ from acmgnn_tpu_torch.models.layers import (
     dropout,
 )
 from acmgnn_tpu_torch.ops.graph import Operators
+from acmgnn_tpu_torch.ops.spmm import row_shard
 
 PAIRED_EVAL = ("acmgcn", "acmgcnp", "acmgcnpp")
 
@@ -97,7 +98,8 @@ class ACMGNN(nn.Module):
         """Logits; with ``paired_eval`` also the no-dropout eval logits of
         the same parameters, sharing every gather: ``(train, eval)``.  In
         train mode BatchNorm (acmgcnpp's ``mlpX``) updates its running
-        statistics, which the paired eval branch then reads."""
+        statistics, which the paired eval branch then reads; on a sharded
+        operator its statistics cover every rank's rows."""
         mt = self.model_type
         if paired_eval and mt not in PAIRED_EVAL:
             raise ValueError(f"paired_eval unsupported for {mt!r}")
@@ -110,7 +112,8 @@ class ACMGNN(nn.Module):
         if pre_dropped:
             x = drop(x)
         if mt == "acmgcnpp":
-            xx = drop(torch.relu(self.mlpX(x, training, generator)))
+            xx = drop(torch.relu(self.mlpX(x, training, generator,
+                                           row_shard(ops.adj_low))))
             if paired_eval:   # feeds metrics only
                 xx_eval = torch.relu(self.mlpX(x_eval, False)).detach()
         # ACM-family inputs were dropout'd: the precomputed aggregate is

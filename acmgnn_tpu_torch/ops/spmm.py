@@ -171,6 +171,12 @@ def node_rows(op: SparseOp, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def row_shard(op: SparseOp):
+    """``op`` when it is a rank's share of a sharded operator (its node
+    rows are the rank's slab), else None."""
+    return op if isinstance(op, (ShardedEllOp, ShardedCooOp)) else None
+
+
 def spmm(op: SparseOp, x: torch.Tensor) -> torch.Tensor:
     """``Â @ x`` (f32 result; the operand is gathered in the op's dtype)."""
     return spmm_multi(op, [x], [False])[0]

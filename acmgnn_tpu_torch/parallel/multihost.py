@@ -11,8 +11,9 @@ of the path is explicit:
   packed operand rows (all-gather, or the halo slabs); ``gather_rows``:
   every rank's slab of the logits and of the split's packed label/mask
   words, for a ROC-AUC over all nodes;
-- ``all_reduce_sum``: gradients, mask counts and the epoch's metric
-  shares.
+- ``all_reduce_sum``: mask counts, and the gradients with the epoch's
+  metric shares behind them; ``sum_over_ranks``, its autograd form: the
+  BatchNorm statistics of acmgcnpp's skip MLP, forward and backward.
 
 Per-rank loading (``rank_rows``, ``shard_node_array_per_host``): a rank
 reads only its own row range of a node array through a loader, the
@@ -26,7 +27,12 @@ CUDA tensors is staged here through pinned host memory: the card's
 tensors are copied to the host, gloo runs on the host copies, and the
 result is copied back.  The port does not rely on gloo's own handling of
 CUDA tensors (a probe on the H100 read one bf16 ``all_to_all_single``
-wrong that way; PERF.md).  The NCCL branch never stages.
+wrong that way; PERF.md).  The NCCL branch never stages: it issues the
+collective on the card from the current stream, reads nothing back and
+waits on no host event, so it may be recorded inside a CUDA-graph
+capture (``capture_safe``), and the split runner captures a sharded body
+on NCCL as it does one card's.  A gloo collective cannot be captured:
+issued during a capture it raises.
 """
 
 from __future__ import annotations
@@ -144,9 +150,22 @@ def failure_vote(group=None):
     return agree
 
 
+def capture_safe(group=None) -> bool:
+    """Whether the collectives of ``group`` may be recorded in a CUDA
+    graph: NCCL's run on the card from the current stream; gloo's run on
+    the host (on CUDA tensors, over host copies)."""
+    return dist.get_backend(group) == "nccl"
+
+
 def _staged(t: torch.Tensor, group) -> bool:
-    """A gloo collective on a CUDA tensor: run it on a host copy."""
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+    """A gloo collective on a CUDA tensor: run it on a host copy (never
+    inside a capture, which would record the copies and not gloo)."""
+    if not (t.is_cuda and dist.get_backend(group) == "gloo"):
+        return False
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a gloo collective cannot be captured in a CUDA "
+                           "graph (its sum runs on the host)")
+    return True
 
 
 def _pinned(t: torch.Tensor, fill: bool = True) -> torch.Tensor:
@@ -168,6 +187,27 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     else:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
+
+
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_sum(t.clone(memory_format=torch.contiguous_format),
+                              group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(
+            grad.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+def sum_over_ranks(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over the group's ranks, as a new tensor that
+    autograd differentiates: the backward sums the incoming gradients
+    over the ranks, since every rank's loss reads the sum.  One
+    collective in the forward, one in the backward."""
+    return _SumOverRanks.apply(t, group)
 
 
 def all_gather_rows(out: torch.Tensor, own: torch.Tensor, group=None) -> None:

@@ -20,7 +20,8 @@ row-partitioned over the ranks of a process group, the same runner with
 global losses and metrics (ROC-AUC over the gathered logits) and
 all-reduced gradients, every model type, per-rank slab loading, and
 checkpointed segments with bit-exact resume (``refuse_unported_sharded``
-names what it still refuses).
+names what it still refuses); on NCCL the sharded loop is captured as
+one card's.
 
 The JAX package fuses the whole split into one ``lax.while_loop`` whose
 body carries a ``SplitState`` on the device.  Here the loop body keeps the
@@ -69,6 +70,7 @@ from acmgnn_tpu_torch.ops.graph import (
 from acmgnn_tpu_torch.ops.spmm import spmm
 from acmgnn_tpu_torch.parallel.multihost import (
     all_reduce_sum,
+    capture_safe,
     failure_vote,
     gather_rows,
 )
@@ -384,6 +386,33 @@ def _capture(body, generators) -> kernels.CountedGraph:
     return kernels.CountedGraph(graph, record)
 
 
+def capture_device(dev: torch.device, group=None, graph: bool = True):
+    """Where the split loop captures its body: ``dev`` when ``graph`` is
+    on, ``dev`` is a card and the run's collectives can be recorded in a
+    CUDA graph (one card: none; a process group on NCCL:
+    ``multihost.capture_safe``); None, an eager loop, on the CPU and on a
+    gloo group, whose collectives run on the host."""
+    if not graph or dev.type != "cuda":
+        return None
+    if group is not None and not capture_safe(group):
+        return None
+    return dev
+
+
+def _room_for_capture(dev) -> None:
+    """Release the caching allocator's free blocks when the card has less
+    free memory than they hold.  A capture allocates its graph's private
+    pool anew and cannot release cached blocks while it captures, so on a
+    card whose memory sits in the cache (the eager first body's working
+    set, earlier work) an allocation of the capture would fail; on a card
+    with room nothing is released (a release made a capture take 28-214
+    ms on an H100, ``_capture``)."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    if free < torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(
+            dev):
+        torch.cuda.empty_cache()
+
+
 def _run_loop(body, limit: int, stop, generators, capture_on, t0: float):
     """``body`` up to ``limit`` times; after each, the host reads ``stop``
     (None: never) and ends the loop if it is set.  ``capture_on``: a CUDA
@@ -403,6 +432,7 @@ def _run_loop(body, limit: int, stop, generators, capture_on, t0: float):
         while bodies < limit:
             if side is not None and bodies == 1:
                 t1 = time.perf_counter()
+                _room_for_capture(capture_on)
                 step = _capture(body, generators).replay
                 capture_ms = 1e3 * (time.perf_counter() - t1)
                 setup_ms = 1e3 * (time.perf_counter() - t0)
@@ -449,10 +479,13 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     ``make_optimizer``'s: True on the CPU runs the card's optimizer
     arithmetic there.
 
-    Eager by rule: the CPU; the sharded path (``group``: gloo cannot be
-    captured, NCCL capture is ROADMAP A8); ``run_experiment_stepwise``
-    (the host observes every epoch).  A capture or replay that fails
-    raises; nothing falls back to eager.
+    Eager by rule: the CPU; a gloo group, whose collectives run on the
+    host (``capture_device``); ``run_experiment_stepwise`` (the host
+    observes every epoch).  A sharded run on NCCL is captured as one
+    card's: the collectives, the K6 packs and exchanges and ROC-AUC's
+    gathered logits with K4 are recorded in the graph, and the eager
+    first body creates the NCCL communicator.  A capture or replay that
+    fails raises; nothing falls back to eager.
     The first body makes what a capture needs first: K2/K3's occupancy
     answers, K4's workspace, Adam's moments and cuBLAS's workspace on the
     capture stream.  The dropout generator (with ``cfg.remat``, also its
@@ -465,10 +498,15 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     ``group``: the process group of a sharded run, whose ranks each pass
     their slabs of the node arrays and their share of a sharded operator
     (``prepare_sharded_data``).  Losses and accuracies are then global:
-    each rank's loss is its masked sum over the all-reduced mask count,
-    and one all-reduce per epoch sums the loss shares and the correct
-    counts.  The gradients are all-reduced (summed) in one flat buffer
-    before the optimizer step, so the replicas stay equal, and every rank
+    each rank's loss is its masked sum over the all-reduced mask count
+    (one all-reduce a split).  The gradients are summed over the ranks
+    in one flat buffer before the optimizer step, so the replicas stay
+    equal, and the epoch's metric shares (loss shares, correct counts)
+    ride in the same buffer behind them: one all-reduce a joint body,
+    the counterpart of XLA combining the independent psums of JAX's
+    loop body; the sequential body takes two (its eval forward reads the
+    updated parameters: the train-loss share with the gradients, then
+    the eval shares); acmgcnpp's BatchNorm adds its own.  Every rank
     reads the same stop flag.  Dropout draws from a generator seeded by
     ``(seed, rank)``.  ROC-AUC ranks all nodes on every rank: each rank
     gathers every rank's logits slab (``[P·rows_per_part, C]``) and the
@@ -499,28 +537,37 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         return masked_nll(torch.log_softmax(logits, dim=1), labels, mask,
                           count)
 
-    def metrics_from_logits(logits, labels, labels_onehot, masks, packed,
-                            counts, loss):
-        """``((val_loss, val_metric, test_metric), train_loss)``, global
-        over the ranks when sharded (``counts``: the all-reduced mask
-        counts; ``loss``: this rank's train-loss share)."""
+    def shares_of(logits, labels, labels_onehot, masks, counts, loss=None):
+        """This rank's shares of the global metrics (None on one card):
+        ``loss``'s (the train-loss share) if given, the val loss's, and
+        (accuracy) the val and test correct counts."""
+        if group is None:
+            return None
         _, val_mask, test_mask = masks
-        if counts is not None:
-            shares = [loss.detach(),
-                      loss_of(logits, labels, labels_onehot, val_mask,
-                              counts[1])]
-            if not use_rocauc:
-                shares += [masked_correct(logits, labels, val_mask).float(),
-                           masked_correct(logits, labels, test_mask).float()]
-            shares = all_reduce_sum(torch.stack(shares), group)
+        shares = [] if loss is None else [loss.detach()]
+        shares.append(loss_of(logits, labels, labels_onehot, val_mask,
+                              counts[1]))
+        if not use_rocauc:
+            shares += [masked_correct(logits, labels, val_mask).float(),
+                       masked_correct(logits, labels, test_mask).float()]
+        return torch.stack(shares)
+
+    def evaluations(logits, labels, labels_onehot, masks, packed, counts,
+                    shares):
+        """``(val_loss, val_metric, test_metric)``: on one card from the
+        logits; sharded from ``shares``, ``shares_of``'s summed over the
+        ranks without the train loss (``counts``: the all-reduced mask
+        counts); ROC-AUC from every rank's logits, gathered."""
+        _, val_mask, test_mask = masks
+        if group is not None:
             if use_rocauc:
                 # every rank ranks all nodes (``packed`` is gathered too)
                 metrics = masked_rocauc_multi(gather_rows(logits, group),
                                               labels, masks[1:],
                                               packed=packed)
             else:
-                metrics = (shares[2] / counts[1], shares[3] / counts[2])
-            return (shares[1], *metrics), shares[0]
+                metrics = (shares[1] / counts[1], shares[2] / counts[2])
+            return (shares[0], *metrics)
         if use_rocauc:
             # one score sort and one rank pass serve both masks
             val_metric, test_metric = masked_rocauc_multi(
@@ -528,8 +575,8 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         else:
             val_metric = masked_accuracy(logits, labels, val_mask)
             test_metric = masked_accuracy(logits, labels, test_mask)
-        return ((loss_of(logits, labels, labels_onehot, val_mask), val_metric,
-                 test_metric), loss.detach())
+        return (loss_of(logits, labels, labels_onehot, val_mask), val_metric,
+                test_metric)
 
     def global_counts(masks):
         """The masks' node counts over all ranks (None unless sharded)."""
@@ -538,16 +585,22 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         counts = torch.stack([m.sum() for m in masks]).float()
         return all_reduce_sum(counts, group).clamp_min(1)
 
-    def step(opt, loss):
-        """Backward, the sharded gradient all-reduce, the update."""
+    def step(opt, loss, shares=None):
+        """Backward and the update.  Sharded, the gradients are summed
+        over the ranks first in one all-reduce of a flat buffer
+        ``[gradients | shares]``: this rank's metric ``shares`` ride
+        behind the gradients, and come back summed (None on one card)."""
         opt.zero_grad(set_to_none=True)
         loss.backward()
         if group is not None:
-            flat = torch.cat([p.grad.reshape(-1) for p in params])
-            all_reduce_sum(flat, group)
-            for p, g in zip(params, flat.split([p.numel() for p in params])):
+            flat = all_reduce_sum(torch.cat(
+                [p.grad.reshape(-1) for p in params] + [shares]), group)
+            *grads, shares = flat.split([p.numel() for p in params]
+                                        + [shares.numel()])
+            for p, g in zip(params, grads):
                 p.grad = g.view_as(p)
         opt.step()
+        return shares
 
     def generators(dev, seed):
         """The dropout generator and, with remat, its twin for the
@@ -616,8 +669,7 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         ran, capture_ms, setup_ms = _run_loop(
             body, max(limit - done, 0), state.stop if es else None,
             [g for g in gens if g is not None],
-            dev if graph and dev.type == "cuda" and group is None else None,
-            t0)
+            capture_device(dev, group, graph), t0)
         opt.zero_grad(set_to_none=True)   # frees the graph's gradients
         bodies = done + ran
         result = state.result(joint, bodies)
@@ -651,11 +703,19 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
                                        recompute_generator=gens[1])
                 loss = loss_of(logits, labels, labels_onehot, masks[0],
                                None if counts is None else counts[0])
-                step(opt, loss)
+                # sharded: the train-loss share rides the gradients'
+                # all-reduce, the eval shares take a second one
+                summed = step(opt, loss, None if group is None
+                              else loss.detach().reshape(1))
+                loss = loss.detach() if summed is None else summed[0]
                 with torch.no_grad():
-                    evals, loss = metrics_from_logits(
-                        model(x, ops, training=False), labels,
-                        labels_onehot, masks, packed, counts, loss)
+                    logits = model(x, ops, training=False)
+                    shares = shares_of(logits, labels, labels_onehot, masks,
+                                       counts)
+                    if shares is not None:
+                        all_reduce_sum(shares, group)
+                    evals = evaluations(logits, labels, labels_onehot, masks,
+                                        packed, counts, shares)
                     s.select(evals, improved(s, evals))
                     write_at(s.val_hist, s.k, evals[0])
                     if es:
@@ -687,9 +747,17 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
                                      masks[0],
                                      None if counts is None else counts[0])
                 with torch.no_grad():
-                    evals, loss = metrics_from_logits(
-                        logits_eval, labels, labels_onehot, masks, packed,
-                        counts, loss_share)
+                    shares = shares_of(logits_eval, labels, labels_onehot,
+                                       masks, counts, loss_share)
+                # sharded: one all-reduce, the shares behind the gradients
+                shares = step(opt, loss_share, shares)
+                with torch.no_grad():
+                    if shares is None:
+                        loss = loss_share.detach()
+                    else:
+                        loss, shares = shares[0], shares[1:]
+                    evals = evaluations(logits_eval, labels, labels_onehot,
+                                        masks, packed, counts, shares)
                     # selection and history for epoch e = k - 1 (k > 0)
                     valid = s.k > 0
                     e = (s.k - 1).clamp_min(0)
@@ -698,8 +766,6 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
                     if es:
                         s.stop.copy_(valid & (s.k - 1 > es) & (
                             evals[0] > stop_window(s.val_hist, e, es).mean()))
-                step(opt, loss_share)
-                with torch.no_grad():
                     write_at(s.train_losses, s.k, loss)
                     s.k.add_(1)
             return body
@@ -841,27 +907,17 @@ def _rank_and_world(group):
 
 def refuse_unported_sharded(cfg: TrainConfig) -> None:
     """The sharded path runs every model type, variant 1, the structure
-    channel, row or symmetric normalization on the ELL or COO operator
-    (the dense format maps to ELL, as in the JAX package), and refuses by
-    name the two cases it cannot run as one card does (ROADMAP.md A8):
-
-    - acmgcnpp with ``init_layers_X > 1``: its skip-MLP's BatchNorm would
-      need statistics synchronised across the ranks, forward and
-      backward (the JAX package's sharded BatchNorm also counts the zero
-      pad rows);
-    - acmsgc/sgc with ``hops > 1``: there is no sharded k-hop operator
-      (the JAX package's sharded bundle has none either and trains over
-      ``Â`` instead; ROADMAP.md §C)."""
-    unported = []
-    if cfg.model_type == "acmgcnpp" and cfg.init_layers_X > 1:
-        unported.append("acmgcnpp's BatchNorm across ranks "
-                        f"(init_layers_X {cfg.init_layers_X} > 1)")
+    channel, acmgcnpp's skip MLP with BatchNorm (``init_layers_X > 1``:
+    statistics over every rank's real rows, ``layers.BatchNorm``), row or
+    symmetric normalization on the ELL or COO operator (the dense format
+    maps to ELL, as in the JAX package), and refuses by name the one case
+    it does not port (ROADMAP.md A8): acmsgc/sgc with ``hops > 1``, since
+    there is no sharded k-hop operator (the JAX package's sharded bundle
+    has none either and trains over ``Â`` instead; ROADMAP.md §C)."""
     if cfg.model_type in ("acmsgc", "sgc") and cfg.hops > 1:
-        unported.append(f"the k-hop operator (hops {cfg.hops} > 1)")
-    if unported:
         raise NotImplementedError(
-            "the sharded path does not port " + ", ".join(unported)
-            + " yet (ROADMAP.md A8)")
+            "the sharded path does not port the k-hop operator "
+            f"(hops {cfg.hops} > 1) yet (ROADMAP.md A8)")
 
 
 def prepare_sharded_data(dataset: GraphData | str, cfg: TrainConfig, *,

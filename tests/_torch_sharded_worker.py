@@ -19,7 +19,14 @@ group over a ``FileStore`` on the CPU, reads its inputs from the task's
   and without checkpoints: each run's results, parameters and snapshots;
 - ``retry``: ``run_experiment_sharded`` with a transient failure injected
   on some ranks after split 0's first attempt: its result, or the error
-  each rank raised.
+  each rank raised;
+- ``batchnorm``: acmgcnpp's BatchNorm across the ranks, from the given
+  parameters and statistics: the train-mode forward, the gradients of
+  ``Σ logits·weights`` over every rank's rows (summed over the ranks),
+  the running statistics after it, and a split runner's run;
+- ``experiment_from``: ``run_experiment_sharded`` with each split's
+  initial parameters read from the inputs in place of ``build_model``'s
+  draw.
 """
 
 from __future__ import annotations
@@ -41,7 +48,10 @@ from acmgnn_tpu_torch.ops.graph import (  # noqa: E402
     row_normalized_adjacency,
 )
 from acmgnn_tpu_torch.ops.spmm import spmm, spmm_transpose  # noqa: E402
-from acmgnn_tpu_torch.parallel.multihost import init_distributed  # noqa: E402
+from acmgnn_tpu_torch.parallel.multihost import (  # noqa: E402
+    all_reduce_sum,
+    init_distributed,
+)
 from acmgnn_tpu_torch.parallel.sharded import (  # noqa: E402
     make_sharded_coo_op,
     make_sharded_ell_op,
@@ -249,6 +259,55 @@ def run_retry(job, inputs, rank, world, out):
         trainer._sync, time.sleep = sync, sleep
 
 
+def run_batchnorm(job, inputs, rank, world, out):
+    cfg = TrainConfig(**job["cfg"])
+    prep = prepare_sharded_data(_data(inputs, job), cfg,
+                                group=dist.group.WORLD, device="cpu",
+                                exchange=job["exchange"])
+    key = job["key"]
+    model = _model(inputs, job, prep, cfg)
+    logits = model(prep.x, prep.ops, training=True)
+    (logits * prep.place(inputs[job["weights"]])).sum().backward()
+    params = list(model.named_parameters())
+    grads = all_reduce_sum(torch.cat([p.grad.reshape(-1) for _, p in params]))
+    for (name, p), g in zip(params, grads.split([p.numel()
+                                                 for _, p in params])):
+        out[f"{key}/grad/{name}"] = g.view_as(p).numpy()
+    out[f"{key}/logits"] = logits.detach().numpy()
+    for name, b in model.named_buffers():
+        out[f"{key}/buffer/{name}"] = b.numpy()
+    model = _model(inputs, job, prep, cfg)
+    res = make_split_runner(model, cfg, group=dist.group.WORLD)(
+        prep.ops, prep.x, prep.labels,
+        tuple(prep.place(m) for m in inputs[job["masks"]]),
+        labels_onehot=prep.labels_onehot)
+    _save_result(out, f"{key}/runner", res, model)
+
+
+def run_experiment_from(job, inputs, rank, world, out):
+    cfg = TrainConfig(**job["cfg"])
+    build = trainer.build_model
+
+    def from_inputs(c, nfeat, nclass, *, device=None, seed=0, nnodes=None):
+        model = build(c, nfeat, nclass, device=device, seed=seed,
+                      nnodes=nnodes)
+        prefix = f"{job['params']}{seed - c.seed}/"
+        model.load_state_dict({k[len(prefix):]: torch.from_numpy(inputs[k])
+                               for k in inputs.files if k.startswith(prefix)})
+        return model
+
+    trainer.build_model = from_inputs
+    try:
+        res, model = run_experiment_sharded(
+            _data(inputs, job), cfg, device="cpu", exchange=job["exchange"],
+            return_model=True)
+    finally:
+        trainer.build_model = build
+    out[f"{job['key']}/per_split"] = np.asarray(res["per_split"])
+    out[f"{job['key']}/epochs_total"] = np.asarray(res["epochs_total"])
+    _save_params(out, job["key"], model)
+
+
 def _save_result(out, key, res, model):
     for field in ("test_metric", "val_metric", "val_loss", "train_loss"):
         out[f"{key}/{field}"] = np.asarray(float(getattr(res, field)))
@@ -273,7 +332,8 @@ def _save_params(out, key, model):
 
 JOBS = {"spmm": run_spmm, "forward": run_forward, "runner": run_runner,
         "experiment": run_experiment, "resume": run_resume,
-        "retry": run_retry}
+        "retry": run_retry, "batchnorm": run_batchnorm,
+        "experiment_from": run_experiment_from}
 
 
 def main():

@@ -425,13 +425,18 @@ def test_profile_dir_writes_a_trace(root, tmp_path):
                                   ["--model", "acmsgc", "--hops", "2"],
                                   ["--model", "sgc", "--hops", "3"]))
 def test_sharded_train_refuses_by_name(root, tmp_path, flag):
-    """``train --sharded`` refuses by name only acmgcnpp's BatchNorm
-    across ranks and the k-hop operator (ROADMAP.md A8)."""
-    name = "init_layers_X" if "--link_init_layers_X" in flag else "hops"
-    with pytest.raises(NotImplementedError, match=name):
-        cli.main(["train", "--dataset", "texas", "--sharded", "1",
-                  "--device", "cpu", "--log_dir", str(tmp_path / "logs")]
-                 + flag)
+    """``train --sharded`` refuses by name only the k-hop operator
+    (ROADMAP.md A8); acmgcnpp with ``--link_init_layers_X 2`` (BatchNorm
+    across ranks) trains."""
+    argv = ["train", "--dataset", "texas", "--sharded", "1", "--device",
+            "cpu", "--num_splits", "1", "--epochs", "3", "--log_dir",
+            str(tmp_path / "logs")] + flag
+    if "--hops" not in flag:
+        out = _run(cli.main, argv)
+        assert out["model"] == "acmgcnpp" and out["epochs_total"] == 3
+        return
+    with pytest.raises(NotImplementedError, match="hops"):
+        cli.main(argv)
 
 
 SHARDED_ARGV = ["train", "--dataset", "texas", "--fixed_splits", "1",

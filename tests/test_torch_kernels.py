@@ -106,6 +106,7 @@ from acmgnn_tpu_torch.train.trainer import (
     build_model,
     make_split_runner,
     prepare_data,
+    prepare_sharded_data,
 )
 
 REPO = Path(__file__).resolve().parent.parent
@@ -638,6 +639,56 @@ def test_captured_loop_equals_eager_bit_for_bit(cuda, case):
     for k in pe:
         assert torch.equal(pe[k], pc[k]), k
     assert ce == cc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("joint_ell", "joint_pp_batchnorm",
+                                  "joint_coo_rocauc", "sequential_rocauc"))
+def test_sharded_nccl_capture_equals_eager(cuda, case):
+    """World size 1 over NCCL: the sharded runner captures its body (the
+    collectives, K6's packs, BatchNorm's summed statistics and ROC-AUC's
+    gathered logits inside the graph) and the captured run equals the
+    eager one (``graph=False``) bit for bit: parameters and buffers,
+    histories, best metrics, ``epochs_run`` and launch counts."""
+    import socket
+
+    import torch.distributed as dist
+
+    from acmgnn_tpu_torch.parallel.multihost import init_distributed
+
+    data, cfg, masks_np = _capture_case(case)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_distributed(backend="nccl", device="cuda", rank=0, world_size=1,
+                     init_method=f"tcp://localhost:{port}")
+    try:
+        prep = prepare_sharded_data(data, cfg, group=dist.group.WORLD)
+        runs = []
+        for graph in (False, True):
+            kernels.reset_launches()
+            model = build_model(cfg, prep.x.shape[1], prep.nclass, seed=2,
+                                nnodes=data.num_nodes)
+            res, state = make_split_runner(
+                model, cfg, group=dist.group.WORLD, graph=graph)(
+                prep.ops, prep.x, prep.labels,
+                tuple(prep.place(m) for m in masks_np), seed=5,
+                labels_onehot=prep.labels_onehot, return_state=True)
+            torch.cuda.synchronize()
+            runs.append((res, state, {k: v.detach().clone() for k, v in
+                                      model.state_dict().items()},
+                         dict(kernels.launches)))
+    finally:
+        dist.destroy_process_group()
+    (re, se, pe, ce), (rc, sc, pc, cc) = runs
+    assert se.capture_ms is None and sc.capture_ms is not None
+    assert re.epochs_run == rc.epochs_run and ce == cc
+    for f in ("test_metric", "val_metric", "val_loss", "train_loss"):
+        assert torch.equal(getattr(re, f), getattr(rc, f)), f
+    assert torch.equal(se.train_losses, sc.train_losses)
+    assert torch.equal(se.val_hist, sc.val_hist)
+    for k in pe:
+        assert torch.equal(pe[k], pc[k]), k
 
 
 @pytest.mark.gpu

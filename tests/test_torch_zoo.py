@@ -16,6 +16,8 @@ the best validation metric to 1e-5).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -400,13 +402,13 @@ def test_remat_updates_batchnorm_statistics_once(small_graph):
 ])
 def test_sharded_path_refuses_what_it_does_not_port(over, name, small_graph):
     """The sharded path (``prepare_sharded_data``, hence
-    ``run_experiment_sharded``) refuses by name only acmgcnpp's BatchNorm
-    across ranks (``init_layers_X > 1``) and the k-hop operator (``hops >
-    1``).  The rest runs: every model type, variant 1, the structure
-    channel (the raw adjacency on ``adj_low``'s boundaries, its own
-    transpose), symmetric normalization (valued halves in the gather
-    dtype, one for both directions) and the dense format, which maps to
-    ELL."""
+    ``run_experiment_sharded``) refuses by name only the k-hop operator
+    (``hops > 1``).  The rest runs: every model type, variant 1, the
+    structure channel (the raw adjacency on ``adj_low``'s boundaries, its
+    own transpose), symmetric normalization (valued halves in the gather
+    dtype, one for both directions), the dense format, which maps to ELL,
+    and acmgcnpp's BatchNorm (``init_layers_X > 1``: a whole sharded run
+    at one rank equals the single card's ``run_experiment``)."""
     from acmgnn_tpu_torch.parallel.sharded import (
         ShardedEllOp,
         make_sharded_operators,
@@ -415,10 +417,16 @@ def test_sharded_path_refuses_what_it_does_not_port(over, name, small_graph):
     adj, feats, labels = small_graph
     cfg = TrainConfig(**dict(dict(model_type="acmgcn", epochs=2), **over))
     data = GraphData("g", adj, feats, labels)
-    if "init_layers_X" in over or "hops" in over:
+    if "hops" in over:
         with pytest.raises(NotImplementedError, match=name):
             trainer.prepare_sharded_data(data, cfg, device="cpu")
         return
+    if "init_layers_X" in over:
+        run = dataclasses.replace(cfg, operator_format="ell", num_splits=1)
+        got = trainer.run_experiment_sharded(data, run, device="cpu")
+        want = trainer.run_experiment(data, run, device="cpu")
+        assert got["per_split"] == want["per_split"]
+        assert got["epochs_total"] == want["epochs_total"]
     prep = trainer.prepare_sharded_data(data, cfg, device="cpu")
     low = prep.ops.adj_low
     assert isinstance(low, ShardedEllOp)
