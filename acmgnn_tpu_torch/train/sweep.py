@@ -1,10 +1,13 @@
 """Hyperparameter grid search — counterpart of ``acmgnn_tpu/train/sweep.py``.
 
 A grid that varies only (lr, weight_decay, dropout) takes the fast path:
-the data is prepared once for the whole search (``prepare_data``), one
-split runner is made per dropout value, and (lr, weight_decay) reach the
-optimizer as ``run_experiment``'s ``hparams``.  A grid over any other key
-runs ``run_experiment`` once per configuration.
+the data is prepared once for the whole search (``prepare_data``), and
+each grid point is one ``run_experiment`` on it with (lr, weight_decay)
+as ``hparams``, whose splits share one split runner: on the card one
+capture a grid point (JAX compiles once a dropout value, its ``hparams``
+traced; torch's Adam takes lr and weight decay as Python numbers).  A
+grid over any other key runs ``run_experiment`` once per
+configuration.
 
 The default grids are the reference search scripts' (9 weight decays;
 deezer-europe shrinks both the lr and the weight-decay lists; acmsgc
@@ -91,16 +94,11 @@ def grid_search(dataset, base_cfg: TrainConfig, grid: Optional[dict] = None,
         total = len(g["dropout"]) * len(g["lr"]) * len(g["weight_decay"])
         i = 0
         for dropout in g["dropout"]:
-            cfg_d = dataclasses.replace(base_cfg, dropout=dropout)
-
-            def runner(model, *args, cfg_d=cfg_d, **kwargs):
-                return trainer.make_split_runner(model, cfg_d)(*args,
-                                                               **kwargs)
-
             for lr, wd in itertools.product(g["lr"], g["weight_decay"]):
-                cfg = dataclasses.replace(cfg_d, lr=lr, weight_decay=wd)
+                cfg = dataclasses.replace(base_cfg, dropout=dropout, lr=lr,
+                                          weight_decay=wd)
                 out = trainer.run_experiment(dataset, cfg, prepared=prepared,
-                                             runner=runner, hparams=(lr, wd))
+                                             hparams=(lr, wd))
                 out["config"] = dataclasses.asdict(cfg)
                 note(i, total, cfg, out)
                 all_results.append(out)

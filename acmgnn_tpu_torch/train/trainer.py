@@ -24,12 +24,14 @@ names what it still refuses); on NCCL the sharded loop is captured as
 one card's.
 
 The JAX package fuses the whole split into one ``lax.while_loop`` whose
-body carries a ``SplitState`` on the device.  Here the loop body keeps the
-same state on the device (``LoopState``) and updates it in place, so no
-body waits for the host; on the card the runner captures one body as a
-CUDA graph and replays it once an epoch (``make_split_runner``).  With
-early stopping on, the host reads the stop flag once after every body.
-The model's parameters are trained in place.
+body carries a ``SplitState`` on the device, and compiles it once a run.
+Here the loop body keeps the same state on the device (``LoopState``) and
+updates it in place, so no body waits for the host; on the card the
+runner captures one body as a CUDA graph once a run and replays it once
+an epoch, across splits and checkpoint segments (``make_split_runner``,
+``Replay``); the stepwise path captures its epoch likewise.  With early
+stopping on, the host reads the stop flag once after every body.  The
+model's parameters are trained in place.
 """
 
 from __future__ import annotations
@@ -253,15 +255,18 @@ class SplitResult:
 
 @dataclasses.dataclass
 class SplitState:
-    """The loop's end state besides its ``SplitResult``."""
+    """The loop's end state besides its ``SplitResult``: copies, which a
+    later call of the runner does not overwrite."""
 
     epoch: int                     # bodies run (joint: epochs + 1 unstopped)
     train_losses: torch.Tensor     # every body's train loss
     val_hist: torch.Tensor         # every epoch's val loss
-    optimizer: torch.optim.Optimizer
-    capture_ms: Optional[float] = None   # host ms of the capture (eager: None)
-    setup_ms: Optional[float] = None     # host ms from the call to the first
+    opt_state: dict                # the optimizer's ``state_dict``
+    capture_ms: Optional[float] = None   # host ms of this call's capture
+    #                                      (None: it made none)
+    setup_ms: Optional[float] = None     # host ms from the call to its first
     #                                      replay (eager: None)
+    replays: int = 0                     # bodies that were replays
     runner: Optional["RunnerState"] = None   # a segment's (``epoch_limit``)
     #                                          state, for the next one
 
@@ -301,6 +306,19 @@ class LoopState:
                               self.best_test_metric), evals):
             best.copy_(torch.where(improved, new, best))
 
+    def reset(self) -> None:
+        """Back to ``initial``'s values, in place."""
+        for t in (self.k, self.best_test_metric, self.val_hist,
+                  self.train_losses, self.stop):
+            t.zero_()
+        self.best_val_loss.fill_(math.inf)
+        self.best_val_metric.fill_(-math.inf)
+
+    def copy_(self, other: "LoopState") -> None:
+        """``other``'s values, in place."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(getattr(other, f.name))
+
     def clone(self, dev=None) -> "LoopState":
         """A copy (on ``dev``, or where it is)."""
         return LoopState(**{
@@ -310,13 +328,15 @@ class LoopState:
     def result(self, joint: bool, bodies: Optional[int] = None
                ) -> "SplitResult":
         """The split's result after ``bodies`` bodies (default: read
-        ``k`` on the host)."""
+        ``k`` on the host), in copies of the state's tensors."""
         if bodies is None:
             bodies = int(self.k)
+        test, val, val_loss, train_loss = torch.stack([
+            self.best_test_metric, self.best_val_metric, self.best_val_loss,
+            self.train_losses[max(bodies - 1, 0)]]).unbind()   # one copy
         return SplitResult(
-            test_metric=self.best_test_metric, val_metric=self.best_val_metric,
-            val_loss=self.best_val_loss,
-            train_loss=self.train_losses[max(bodies - 1, 0)],
+            test_metric=test, val_metric=val, val_loss=val_loss,
+            train_loss=train_loss,
             epochs_run=max(bodies - 1, 0) if joint else bodies)
 
 
@@ -413,46 +433,152 @@ def _room_for_capture(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def _run_loop(body, limit: int, stop, generators, capture_on, t0: float):
-    """``body`` up to ``limit`` times; after each, the host reads ``stop``
-    (None: never) and ends the loop if it is set.  ``capture_on``: a CUDA
-    device, or None to run every body eagerly.  On the card the loop runs
-    on a side stream, which is also the capture's: the first body eagerly
-    (it makes, on that stream, what a capture needs to exist already),
-    the second captured, the rest replays.  Returns (bodies run, capture
-    ms, setup ms since ``t0``: the host's time to the first replay)."""
-    bodies, capture_ms, setup_ms = 0, None, None
-    step = body
-    side = None
-    if capture_on is not None:
-        side = torch.cuda.Stream(device=capture_on)
-        side.wait_stream(torch.cuda.current_stream(capture_on))
-    with (torch.cuda.stream(side) if side is not None
-          else contextlib.nullcontext()):
-        while bodies < limit:
-            if side is not None and bodies == 1:
-                t1 = time.perf_counter()
-                _room_for_capture(capture_on)
-                step = _capture(body, generators).replay
-                capture_ms = 1e3 * (time.perf_counter() - t1)
-                setup_ms = 1e3 * (time.perf_counter() - t0)
-            step()
-            bodies += 1
-            if stop is not None and bool(stop):   # the host reads the flag
-                break
-    if side is not None:
-        torch.cuda.current_stream(capture_on).wait_stream(side)
-    return bodies, capture_ms, setup_ms
+class Replay:
+    """A loop body compiled once and replayed, as JAX runs a jitted one.
+
+    On ``capture_on`` (a CUDA device; None: every body eagerly) the body
+    runs on a side stream kept for the object's life: the first time
+    eagerly (it makes, on that stream, what a capture needs to exist
+    already: K2/K3's occupancy answers, K4's workspace, Adam's moments,
+    cuBLAS's workspace), the second time captured once as a CUDA graph
+    (``_capture``, ``generators`` registered with it), and every later
+    time, in this ``run`` or a later one, as a replay of that graph.  So
+    the body must read and write the same tensors for as long as the
+    graph lives: its callers write each new input into them in place.
+
+    A ``run`` that raised leaves its graph discarded: the next ``run``
+    runs the body eagerly again and captures anew (a graph whose replay
+    failed is never replayed again).  A failed capture or replay raises;
+    nothing falls back to eager.  ``release`` discards the graph and its
+    private memory pool; so does dropping the object."""
+
+    def __init__(self, capture_on, generators=()):
+        self.capture_on = capture_on
+        self.generators = [g for g in generators if g is not None]
+        self.side = (None if capture_on is None
+                     else torch.cuda.Stream(device=capture_on))
+        self.graph: Optional[kernels.CountedGraph] = None
+        self.warm = False      # the body ran eagerly on ``side``
+        self.busy = False      # a ``run`` is under way, or raised
+
+    def release(self) -> None:
+        if self.graph is not None:
+            self.graph.graph.reset()
+        self.graph, self.warm = None, False
+
+    def run(self, body, limit: int, stop=None, t0: Optional[float] = None):
+        """``body`` up to ``limit`` times; after each, the host reads
+        ``stop`` (None: never) and ends the loop if it is set.  Returns
+        (bodies run, of them replays, the capture's ms or None, set-up ms:
+        the host's time from ``t0`` (default: now) to the first replay, or
+        None)."""
+        if self.busy:
+            self.release()
+        self.busy = True
+        t0 = time.perf_counter() if t0 is None else t0
+        bodies = replays = 0
+        capture_ms = setup_ms = None
+        if self.side is not None:
+            self.side.wait_stream(torch.cuda.current_stream(self.capture_on))
+        try:
+            with (torch.cuda.stream(self.side) if self.side is not None
+                  else contextlib.nullcontext()):
+                while bodies < limit:
+                    if self.side is None or not self.warm:
+                        body()
+                        self.warm = True
+                    else:
+                        if self.graph is None:
+                            t1 = time.perf_counter()
+                            _room_for_capture(self.capture_on)
+                            self.graph = _capture(body, self.generators)
+                            capture_ms = 1e3 * (time.perf_counter() - t1)
+                        if setup_ms is None:
+                            setup_ms = 1e3 * (time.perf_counter() - t0)
+                        self.graph.replay()
+                        replays += 1
+                    bodies += 1
+                    if stop is not None and bool(stop):   # the host reads it
+                        break
+        finally:
+            # raised or not: what the caller writes next (a retry rewrites
+            # the parameters and moments in place) waits for every body
+            # already issued on the side stream
+            if self.side is not None:
+                torch.cuda.current_stream(self.capture_on).wait_stream(
+                    self.side)
+        self.busy = False
+        return bodies, replays, capture_ms, setup_ms
+
+
+def initial_params(cfg: TrainConfig, nfeat: int, nclass: int, *, seed: int,
+                   nnodes: Optional[int] = None) -> dict:
+    """The initial parameters and buffers of the split seeded ``seed``
+    (JAX's ``variables``): ``build_model(..., seed=seed)``'s
+    ``state_dict``, drawn on the host (the draw does not depend on the
+    device)."""
+    return build_model(cfg, nfeat, nclass, device="cpu", seed=seed,
+                       nnodes=nnodes).state_dict()
+
+
+def set_optimizer_state(opt: torch.optim.Optimizer,
+                        state: Optional[dict] = None) -> None:
+    """``opt``'s state set in place: zeroed (Adam's moments and step, as a
+    fresh optimizer's first step makes them) or copied from ``state``, an
+    optimizer ``state_dict``.  The tensors keep their storage, so a
+    captured step replays on them; an optimizer that has taken no step
+    yet loads ``state`` instead."""
+    src = {} if state is None else state["state"]
+    if not opt.state:
+        if src:
+            opt.load_state_dict(copy.deepcopy(state))
+        return
+    params = [p for g in opt.param_groups for p in g["params"]]
+    for i, p in enumerate(params):
+        mine = opt.state.get(p, {})
+        if i in src and mine.keys() != src[i].keys():
+            raise ValueError(f"optimizer state of parameter {i} has "
+                             f"{sorted(src[i])}, in place {sorted(mine)}")
+        for key, t in mine.items():
+            if i in src:
+                t.copy_(src[i][key])
+            else:
+                t.zero_()
+
+
+@dataclasses.dataclass
+class _Kept:
+    """What a split runner keeps across its calls (``make_split_runner``):
+    the tensors its body reads and writes, the body and its ``Replay``."""
+
+    key: tuple        # (ops, x, labels, labels_onehot, hparams)
+    gens: tuple       # the dropout generator and remat's twin (or None)
+    opt: torch.optim.Optimizer
+    state: LoopState
+    masks: tuple
+    packed: Optional[torch.Tensor]
+    counts: Optional[torch.Tensor]
+    loop: Replay
+    body: object
+    cause: str        # why its capture is (to be) made
+
+    def same(self, key) -> bool:
+        """Whether a call with ``key`` runs the same program: the same
+        objects, the same hparams."""
+        return (all(a is b for a, b in zip(self.key[:4], key[:4]))
+                and self.key[4] == key[4])
 
 
 def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
                       group=None, graph: bool = True,
                       capturable: Optional[bool] = None):
     """``run(ops, x, labels, masks, seed=0, return_state=False,
-    labels_onehot=None, hparams=None, init_state=None, epoch_limit=None)``
-    — one split's training from the model's current parameters (the joint
-    loop for joint-capable models when ``cfg.joint``, else the sequential
-    one).  ``labels_onehot`` is the BCE target, ``prepare_data``'s
+    labels_onehot=None, hparams=None, init_params=None, init_state=None,
+    epoch_limit=None)`` — one split's training from the model's current
+    parameters, or from ``init_params``, a ``state_dict`` that the model
+    loads first (JAX's ``variables``); the joint loop for joint-capable
+    models when ``cfg.joint``, else the sequential one.
+    ``labels_onehot`` is the BCE target, ``prepare_data``'s
     ``labels_onehot``; ``hparams``, an ``(lr, weight_decay)`` pair, builds
     the optimizer from those values in place of the config's.  With
     ``cfg.remat`` the train forward runs under activation checkpointing
@@ -471,25 +597,41 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     The loop body is JAX's (``acmgnn_tpu/train/trainer.py:234-305``,
     ``:338-426``): it keeps the split's state on the device
     (``LoopState``) and calls nothing that waits for the card.  With
-    ``graph`` (the default), on a CUDA device the first body runs
+    ``graph`` (the default), on a CUDA device the runner is compiled once,
+    as ``jax.jit(make_split_runner(...))`` is: its first body runs
     eagerly, the second is captured once as a ``torch.cuda.CUDAGraph``
-    and every later body replays it; ``graph=False`` runs every body
-    eagerly (the same body: the card tests and ``chip_smoke.py`` hold the
-    two forms equal bit for bit).  ``capturable`` is
-    ``make_optimizer``'s: True on the CPU runs the card's optimizer
-    arithmetic there.
+    and every later body, of this call and of every later one, replays
+    it (``Replay``).  ``graph=False`` runs every body eagerly (the same
+    body: the card tests and ``chip_smoke.py`` hold the two forms equal
+    bit for bit).  ``capturable`` is ``make_optimizer``'s: True on the
+    CPU runs the card's optimizer arithmetic there.
 
-    Eager by rule: the CPU; a gloo group, whose collectives run on the
-    host (``capture_device``); ``run_experiment_stepwise`` (the host
-    observes every epoch).  A sharded run on NCCL is captured as one
-    card's: the collectives, the K6 packs and exchanges and ROC-AUC's
+    Kept across calls: the optimizer, the dropout generator (with
+    ``cfg.remat`` also its twin for the recompute, drawn only by
+    recomputes; both registered with the graph), the ``LoopState`` and
+    buffers of the split's masks, packed label/mask words and mask
+    counts, all made by the first call.  A later call (a new split, a new
+    segment) writes its inputs into those tensors in place: the
+    parameters (``init_params``, ``init_state``), the optimizer's moments
+    and step (zeroed, or ``init_state``'s: ``set_optimizer_state``), the
+    loop state, the masks, the words, the counts, and the generators
+    (reseeded from ``seed``, or ``init_state``'s), then replays from its
+    first body.  The runner is made anew, with a new capture, only when
+    the captured program would differ: other ``hparams`` (they reach Adam
+    as Python numbers) or another ``ops``, ``x``, ``labels`` or
+    ``labels_onehot`` object; ``run.captures`` records why each capture
+    was made, and ``run.kept()`` returns what it keeps (None before the
+    first call).  A call that raised (a retry under ``retry_transient``)
+    leaves the capture discarded: the next call runs its first body
+    eagerly and captures anew.  ``run.release()`` discards the capture
+    and its memory pool; dropping the runner does too.  The results a
+    call returns are copies, which a later call does not overwrite.
+
+    Eager by rule: the CPU, and a gloo group, whose collectives run on
+    the host (``capture_device``).  A sharded run on NCCL is captured as
+    one card's: the collectives, the K6 packs and exchanges and ROC-AUC's
     gathered logits with K4 are recorded in the graph, and the eager
-    first body creates the NCCL communicator.  A capture or replay that
-    fails raises; nothing falls back to eager.
-    The first body makes what a capture needs first: K2/K3's occupancy
-    answers, K4's workspace, Adam's moments and cuBLAS's workspace on the
-    capture stream.  The dropout generator (with ``cfg.remat``, also its
-    twin for the recompute) is registered with the graph.  With
+    first body creates the NCCL communicator.  With
     ``cfg.early_stopping`` the host reads the stop flag once after every
     body (its one wait for the card in a body); without it, not until
     the run ends.  ``kernels.launches`` counts the launches that ran
@@ -602,13 +744,14 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         opt.step()
         return shares
 
-    def generators(dev, seed):
-        """The dropout generator and, with remat, its twin for the
-        recompute (None)."""
+    def seed_generators(gens, seed):
+        """Seed the dropout generator and, with remat, its twin for the
+        recompute (None) from ``seed`` (sharded: and the rank)."""
         if group is not None:
             seed = seed * dist.get_world_size(group) + dist.get_rank(group)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return gen, (gen.clone_state() if cfg.remat else None)
+        for gen in gens:
+            if gen is not None:
+                gen.manual_seed(seed)
 
     def packed_words(labels, masks, labels_onehot):
         """The rank pass's packed label/mask words (val and test masks),
@@ -636,67 +779,118 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         return make_optimizer(cfg, params, lr=hparams[0],
                               weight_decay=hparams[1], capturable=capturable)
 
-    def restore(init, dev, gens, opt):
-        """The loop state of ``init`` (a ``RunnerState``), with the model,
-        the optimizer and the generators set from it."""
-        if init is None:
-            return LoopState.initial(epochs, dev)
-        model.load_state_dict(init.variables)
-        opt.load_state_dict(copy.deepcopy(init.opt_state))
-        for gen, st in zip(gens, init.generators):
-            if gen is not None:
-                gen.set_state(st)
-        return init.loop.clone(dev)
+    live: Optional[_Kept] = None   # what the runner keeps across calls
+    captures = []                  # why each capture was made
 
-    def drive(body_of, budget, ops, x, labels, masks, seed, return_state,
-              labels_onehot, hparams, init_state, epoch_limit):
-        """Set-up, the loop up to ``budget`` bodies in all (or to
-        ``epoch_limit``) from ``init_state``, and the results;
-        ``body_of(state, gens, opt, packed, counts)`` makes the body."""
-        t0 = time.perf_counter()
+    def start(body_of, key, masks, seed, cause):
+        """The runner's tensors and body for ``key``'s inputs, the split's
+        masks (copied: later splits are written into them) and ``seed``."""
+        ops, x, labels, labels_onehot, hparams = key
         dev = x.device
-        gens = generators(dev, seed)
+        gens = (torch.Generator(device=dev),
+                torch.Generator(device=dev) if cfg.remat else None)
+        seed_generators(gens, seed)
         opt = optimizer(hparams)
+        masks = tuple(m.clone() for m in masks)
         packed = packed_words(labels, masks, labels_onehot)
         counts = global_counts(masks)
-        state = restore(init_state, dev, gens, opt)
+        state = LoopState.initial(epochs, dev)
+        return _Kept(key=key, gens=gens, opt=opt, state=state, masks=masks,
+                     packed=packed, counts=counts,
+                     loop=Replay(capture_device(dev, group, graph), gens),
+                     body=body_of(state, gens, opt, masks, packed, counts),
+                     cause=cause)
+
+    def rewrite(lv, masks, seed):
+        """A new split's inputs written into ``lv``'s tensors, its state
+        back to a fresh runner's."""
+        for buf, m in zip(lv.masks, masks):
+            buf.copy_(m)
+        packed = packed_words(lv.key[2], masks, lv.key[3])
+        if packed is not None:
+            lv.packed.copy_(packed)
+        counts = global_counts(masks)
+        if counts is not None:
+            lv.counts.copy_(counts)
+        seed_generators(lv.gens, seed)
+        set_optimizer_state(lv.opt)
+        lv.state.reset()
+
+    def release():
+        """Discard the capture and what the runner keeps."""
+        nonlocal live
+        if live is not None:
+            live.loop.release()
+        live = None
+
+    def drive(body_of, budget, ops, x, labels, masks, seed, return_state,
+              labels_onehot, hparams, init_params, init_state, epoch_limit):
+        """The runner's tensors set up or rewritten for this call, the
+        model and state set from ``init_params`` / ``init_state``, the loop
+        up to ``budget`` bodies in all (or to ``epoch_limit``), and the
+        results; ``body_of(state, gens, opt, masks, packed, counts)``
+        makes the body."""
+        nonlocal live
+        t0 = time.perf_counter()
+        key = (ops, x, labels, labels_onehot,
+               None if hparams is None else tuple(map(float, hparams)))
+        if live is not None and live.same(key):
+            if live.loop.busy:
+                live.cause = "a retry: the last call raised"
+            rewrite(live, masks, seed)
+        else:
+            cause = ("the first call" if live is None else
+                     "other hparams" if live.key[4] != key[4] else
+                     "other ops, x or labels")
+            release()
+            live = start(body_of, key, masks, seed, cause)
+        lv = live
+        if init_params is not None:
+            model.load_state_dict(init_params)
+        if init_state is not None:
+            model.load_state_dict(init_state.variables)
+            set_optimizer_state(lv.opt, init_state.opt_state)
+            for gen, st in zip(lv.gens, init_state.generators):
+                if gen is not None:
+                    gen.set_state(st)
+            lv.state.copy_(init_state.loop)
         limit = budget if epoch_limit is None else min(int(epoch_limit),
                                                         budget)
         done = 0 if init_state is None else init_state.bodies
         if init_state is not None and bool(init_state.loop.stop):
             limit = done
-        body = body_of(state, gens, opt, packed, counts)
-        ran, capture_ms, setup_ms = _run_loop(
-            body, max(limit - done, 0), state.stop if es else None,
-            [g for g in gens if g is not None],
-            capture_device(dev, group, graph), t0)
-        opt.zero_grad(set_to_none=True)   # frees the graph's gradients
+        ran, replays, capture_ms, setup_ms = lv.loop.run(
+            lv.body, max(limit - done, 0), lv.state.stop if es else None, t0)
+        if capture_ms is not None:
+            captures.append(lv.cause)
+        lv.opt.zero_grad(set_to_none=True)   # frees the graph's gradients
         bodies = done + ran
-        result = state.result(joint, bodies)
+        result = lv.state.result(joint, bodies)
         if not return_state:
             return result
+        opt_state = copy.deepcopy(lv.opt.state_dict())
         runner = None
         if epoch_limit is not None:   # a segment: what the next starts from
             runner = RunnerState(
                 variables={k: v.detach().clone()
                            for k, v in model.state_dict().items()},
-                opt_state=copy.deepcopy(opt.state_dict()),
-                loop=state.clone(),
+                opt_state=opt_state, loop=lv.state.clone(),
                 generators=[None if g is None else g.get_state()
-                            for g in gens])
+                            for g in lv.gens])
         return result, SplitState(
-            epoch=bodies, train_losses=state.train_losses[:bodies],
-            val_hist=state.val_hist[:result.epochs_run], optimizer=opt,
-            capture_ms=capture_ms, setup_ms=setup_ms, runner=runner)
+            epoch=bodies, train_losses=lv.state.train_losses[:bodies].clone(),
+            val_hist=lv.state.val_hist[:result.epochs_run].clone(),
+            opt_state=opt_state, capture_ms=capture_ms, setup_ms=setup_ms,
+            replays=replays, runner=runner)
 
     def run(ops, x, labels, masks, seed: int = 0,
             return_state: bool = False, labels_onehot=None, hparams=None,
-            init_state=None, epoch_limit=None):
+            init_params=None, init_state=None, epoch_limit=None):
         """Sequential loop: each epoch trains, then evaluates the updated
         parameters in a separate forward; stops after ``epochs`` or when
         the early-stopping rule fires (that epoch counts)."""
 
-        def body_of(s, gens, opt, packed, counts):
+        def body_of(s, gens, opt, masks, packed, counts):
             def body():
                 logits = train_forward(model, x, ops, gens[0],
                                        remat=cfg.remat,
@@ -726,19 +920,20 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
             return body
 
         return drive(body_of, epochs, ops, x, labels, masks, seed,
-                     return_state, labels_onehot, hparams, init_state,
-                     epoch_limit)
+                     return_state, labels_onehot, hparams, init_params,
+                     init_state, epoch_limit)
 
     def run_joint(ops, x, labels, masks, seed: int = 0,
                   return_state: bool = False, labels_onehot=None,
-                  hparams=None, init_state=None, epoch_limit=None):
+                  hparams=None, init_params=None, init_state=None,
+                  epoch_limit=None):
         """Iteration k evaluates epoch k-1 (parameters after k updates)
         and trains epoch k in one paired forward; ``epochs + 1``
         iterations, the first one's evaluation is skipped.  An iteration
         whose evaluation fires the early-stopping rule still applies its
         update, then the loop ends."""
 
-        def body_of(s, gens, opt, packed, counts):
+        def body_of(s, gens, opt, masks, packed, counts):
             def body():
                 logits_train, logits_eval = train_forward(
                     model, x, ops, gens[0], paired_eval=True,
@@ -771,10 +966,13 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
             return body
 
         return drive(body_of, epochs + 1, ops, x, labels, masks, seed,
-                     return_state, labels_onehot, hparams, init_state,
-                     epoch_limit)
+                     return_state, labels_onehot, hparams, init_params,
+                     init_state, epoch_limit)
 
-    return run_joint if joint else run
+    runner = run_joint if joint else run
+    runner.release, runner.captures = release, captures
+    runner.kept = lambda: live
+    return runner
 
 
 def train_single_split(model: ACMGNN, cfg: TrainConfig, ops: Operators,
@@ -1019,12 +1217,16 @@ def run_experiment_sharded(dataset: GraphData | str, cfg: TrainConfig, *,
     without one, a single rank): the counterpart of the JAX package's
     ``run_experiment_sharded``.
 
-    Every rank calls it with the same arguments.  Split ``idx`` takes its
-    masks from ``resolve_split`` (random ones from
-    ``numpy.random.default_rng(cfg.seed)``) and starts from ``build_model(...,
-    seed=cfg.seed + idx)`` on every rank (the structure channel's
-    embedding has the graph's N rows, each rank gathering from its own),
-    so the replicas start equal; ``make_split_runner`` keeps them equal.
+    Every rank calls it with the same arguments.  The run builds its model
+    and its split runner once (JAX jits its runner once): split ``idx``
+    takes its masks from ``resolve_split`` (random ones from
+    ``numpy.random.default_rng(cfg.seed)``) and starts from
+    ``build_model(..., seed=cfg.seed + idx)``'s parameters on every rank
+    (``initial_params``, the runner's ``init_params``; the structure
+    channel's embedding has the graph's N rows, each rank gathering from
+    its own), so the replicas start equal; ``make_split_runner`` keeps
+    them equal.  On NCCL every split and every checkpoint segment after
+    the first replays the run's one capture.
     Every rank places only its own rows of the features, labels, one-hot
     labels and masks, through a loader of its row range
     (``shard_node_array_per_host``): ``per_host_loading``, the JAX
@@ -1063,38 +1265,34 @@ def run_experiment_sharded(dataset: GraphData | str, cfg: TrainConfig, *,
     budget = cfg.epochs + (1 if joint else 0)
     masks_rng = np.random.default_rng(cfg.seed)
     labels_np = _host_labels(prep.data.labels)
+    nfeat, nnodes = prep.x.shape[1], prep.data.num_nodes
+    model = build_model(cfg, nfeat, prep.nclass, device=dev, seed=cfg.seed,
+                        nnodes=nnodes)
+    runner = make_split_runner(model, cfg, group=group)
     results = []
     t_total = time.time()
     steady_time = 0.0
     steady_epochs = 0
-    model = None
     for idx in range(cfg.num_splits):
         masks = tuple(prep.place(m) for m in resolve_split(
             prep.data, cfg, idx, masks_rng, labels_np, prep.nclass))
-
-        def new_runner(idx=idx):
-            mdl = build_model(cfg, prep.x.shape[1], prep.nclass, device=dev,
-                              seed=cfg.seed + idx,
-                              nnodes=prep.data.num_nodes)
-            return mdl, make_split_runner(mdl, cfg, group=group)
-
+        init = initial_params(cfg, nfeat, prep.nclass, seed=cfg.seed + idx,
+                              nnodes=nnodes)
         args = (prep.ops, prep.x, prep.labels, masks)
         kwargs = dict(seed=cfg.seed + idx, labels_onehot=prep.labels_onehot)
         t_split = time.time()
         if checkpointing:
-            model, res = _segmented_split(
-                new_runner, args, kwargs, budget, joint, checkpoint_every,
-                f"{checkpoint_dir}/split{idx}", resume, prep.rank, dev,
-                logger, agree)
+            res = _segmented_split(
+                runner, model, init, args, kwargs, budget, joint,
+                checkpoint_every, f"{checkpoint_dir}/split{idx}", resume,
+                prep.rank, dev, logger, agree)
         else:
             def run_once():
-                mdl, runner = new_runner()
-                out = runner(*args, **kwargs)
+                out = runner(*args, **kwargs, init_params=init)
                 _sync(dev)
-                return mdl, out
+                return out
 
-            model, res = retry_transient(run_once, logger=logger,
-                                         agree=agree)()
+            res = retry_transient(run_once, logger=logger, agree=agree)()
         results.append(res)
         if idx > 0:   # split 0 pays the warm-up; excluded from the rate
             steady_time += time.time() - t_split
@@ -1109,20 +1307,22 @@ def run_experiment_sharded(dataset: GraphData | str, cfg: TrainConfig, *,
     return (out, model) if return_model else out
 
 
-def _segmented_split(new_runner, args, kwargs, budget: int, joint: bool,
-                     every: int, prefix: str, resume: bool, rank: int, dev,
-                     logger, agree):
+def _segmented_split(runner, model, init, args, kwargs, budget: int,
+                     joint: bool, every: int, prefix: str, resume: bool,
+                     rank: int, dev, logger, agree):
     """One split of ``run_experiment_sharded`` in ``every``-body segments
-    (the JAX package's ``run_segment`` loop): the zero-body state first
-    (the split's initial parameters, moments, loop state and generators),
-    or the snapshot at ``prefix`` when resuming; then segment after
-    segment until the budget or the stop flag, each snapshotted.
-    Returns (the model with the split's final parameters, its result)."""
-    model, runner = new_runner()
+    (the JAX package's ``run_segment`` loop), each a call of the run's
+    ``runner`` (which replays the run's capture): the zero-body state
+    first (the split's initial parameters ``init``, moments, loop state
+    and generators), or the snapshot at ``prefix`` when resuming; then
+    segment after segment until the budget or the stop flag, each
+    snapshotted.  Leaves the split's final parameters in ``model`` and
+    returns its result."""
 
-    def run_segment(init, limit):
-        _, st = runner(*args, **kwargs, init_state=init, epoch_limit=limit,
-                       return_state=True)
+    def run_segment(init_state, limit):
+        _, st = runner(*args, **kwargs, epoch_limit=limit, return_state=True,
+                       init_params=init if init_state is None else None,
+                       init_state=init_state)
         _sync(dev)
         return st.runner
 
@@ -1142,7 +1342,7 @@ def _segmented_split(new_runner, args, kwargs, budget: int, joint: bool,
         save_checkpoint(rng_path, {"generators": state.generators},
                         step=state.bodies)
     model.load_state_dict(state.variables)
-    return model, state.loop.result(joint)
+    return state.loop.result(joint)
 
 
 def _restore_segment(state_path: str, rng_path: str, dev) -> RunnerState:
@@ -1203,25 +1403,33 @@ def run_experiment(dataset: GraphData | str, cfg: TrainConfig, *, splits=None,
     test metrics, epochs, run time, ``epoch_ms_avg`` and
     ``epoch_ms_steady`` over the splits after the first).
 
-    Split ``idx`` takes its masks from ``splits[idx]`` or ``resolve_split``
-    (random ones from ``numpy.random.default_rng(cfg.seed)``) and starts
-    from ``build_model(..., seed=cfg.seed + idx)``; each split runs under
-    ``retry_transient`` from its initial parameters.  The reuse hooks keep
-    the JAX package's meaning: ``prepared`` is ``prepare_data``'s output
-    (skips preprocessing); ``runner(model, ops, x, labels, masks, *, seed,
-    labels_onehot, hparams)`` runs one split from the model's current
-    parameters in place of ``make_split_runner(model, cfg)`` (JAX's
-    runner takes the split's initial variables; here the model holds
-    them); ``hparams = (lr, weight_decay)`` builds the optimizer from
-    those values.  ``logger``: an ``ExperimentLogger`` or any object with
-    its ``info`` / ``log_split`` / ``log_result``."""
+    The run builds its model and its split runner once, as JAX jits its
+    runner once outside the split loop: split ``idx`` takes its masks
+    from ``splits[idx]`` or ``resolve_split`` (random ones from
+    ``numpy.random.default_rng(cfg.seed)``), loads
+    ``build_model(..., seed=cfg.seed + idx)``'s parameters into the model
+    (``initial_params``: JAX's per-split ``variables``) and runs, under
+    ``retry_transient``, from them; on the card every split after the
+    first replays the first split's capture.  The reuse hooks keep the
+    JAX package's meaning: ``prepared`` is ``prepare_data``'s output
+    (skips preprocessing); ``runner(model, ops, x, labels, masks, *,
+    seed, labels_onehot, hparams)`` runs one split from the model's
+    current parameters (the split's initial ones) in place of the run's
+    split runner; ``hparams = (lr, weight_decay)`` builds the optimizer
+    from those values.  ``logger``: an ``ExperimentLogger`` or any object
+    with its ``info`` / ``log_split`` / ``log_result``."""
     data, ops, x, labels, labels_onehot, nclass = (
         prepared if prepared is not None
         else prepare_data(dataset, cfg, device=device))
-    if runner is None:
-        def runner(model, *args, **kwargs):
-            return make_split_runner(model, cfg)(*args, **kwargs)
     dev = x.device
+    nfeat, nnodes = x.shape[1], x.shape[0]
+    model = build_model(cfg, nfeat, nclass, device=dev, seed=cfg.seed,
+                        nnodes=nnodes)
+    if runner is None:
+        split_runner = make_split_runner(model, cfg)
+
+        def runner(model, *args, **kwargs):
+            return split_runner(*args, **kwargs)
     rng = np.random.default_rng(cfg.seed)
     labels_np = _host_labels(data.labels)
     results = []
@@ -1234,11 +1442,12 @@ def run_experiment(dataset: GraphData | str, cfg: TrainConfig, *, splits=None,
         else:
             split = resolve_split(data, cfg, idx, rng, labels_np, nclass)
         masks = tuple(torch.as_tensor(np.asarray(m)).to(dev) for m in split)
+        init = initial_params(cfg, nfeat, nclass, seed=cfg.seed + idx,
+                              nnodes=nnodes)
         t_split = time.time()
 
         def run_once():
-            model = build_model(cfg, x.shape[1], nclass, device=dev,
-                                seed=cfg.seed + idx, nnodes=x.shape[0])
+            model.load_state_dict(init)
             res = runner(model, ops, x, labels, masks, seed=cfg.seed + idx,
                          labels_onehot=labels_onehot, hparams=hparams)
             _sync(dev)
@@ -1263,14 +1472,19 @@ def make_epoch_fns(model: ACMGNN, cfg: TrainConfig):
     path (JAX ``make_epoch_fns``):
 
     - ``train_epoch(opt, generator, ops, x, labels, labels_onehot,
-      train_mask)``: one dropout forward (checkpointed with
-      ``cfg.remat``), backward and optimizer step, in place; returns the
-      train loss;
+      train_mask, recompute_generator=None)``: one dropout forward
+      (checkpointed with ``cfg.remat``, the recompute drawing from
+      ``recompute_generator``, by default a copy of ``generator``'s
+      state), backward and optimizer step, in place; returns the train
+      loss;
     - ``eval_epoch(ops, x, labels, labels_onehot, masks, packed)``: one
       eval forward; ``{"train_metric", "val_metric", "test_metric",
       "val_loss"}`` (ROC-AUC: one score sort serves the three masks;
       ``packed``: the split's ``pack_labels_and_masks(labels, masks)``,
-      None for accuracies)."""
+      None for accuracies).
+
+    Neither waits for the card, so ``run_experiment_stepwise`` captures
+    the pair as one CUDA graph."""
     use_bce = cfg.loss == "bce"
     use_rocauc = cfg.metric == "rocauc"
 
@@ -1280,11 +1494,11 @@ def make_epoch_fns(model: ACMGNN, cfg: TrainConfig):
         return masked_nll(torch.log_softmax(logits, dim=1), labels, mask)
 
     def train_epoch(opt, generator, ops, x, labels, labels_onehot,
-                    train_mask):
-        logits = train_forward(
-            model, x, ops, generator, remat=cfg.remat,
-            recompute_generator=(generator.clone_state() if cfg.remat
-                                 and generator is not None else None))
+                    train_mask, recompute_generator=None):
+        if cfg.remat and generator is not None and recompute_generator is None:
+            recompute_generator = generator.clone_state()
+        logits = train_forward(model, x, ops, generator, remat=cfg.remat,
+                               recompute_generator=recompute_generator)
         loss = loss_of(logits, labels, labels_onehot, train_mask)
         opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -1306,28 +1520,58 @@ def make_epoch_fns(model: ACMGNN, cfg: TrainConfig):
     return train_epoch, eval_epoch
 
 
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The dropout seed of the stepwise path's epoch ``epoch`` in the split
+    seeded ``seed``, derived from ``(seed, epoch)`` (JAX ``fold_in(run_key,
+    epoch)``): an epoch draws the same masks however it is reached."""
+    return int(np.random.SeedSequence((seed, epoch)).generate_state(1)[0])
+
+
 def epoch_generator(device, seed: int, epoch: int) -> torch.Generator:
-    """Epoch ``epoch``'s dropout generator of the stepwise path, derived
-    from ``(seed, epoch)`` (JAX ``fold_in(run_key, epoch)``): an epoch
-    draws the same masks however it is reached."""
-    state = np.random.SeedSequence((seed, epoch)).generate_state(1)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
+    """A new generator seeded with ``epoch_seed(seed, epoch)``: the state
+    the stepwise path's generator starts that epoch from."""
+    return torch.Generator(device=device).manual_seed(epoch_seed(seed, epoch))
+
+
+# the stepwise epoch's readings, in the order of its device buffer
+EPOCH_READS = ("loss", "train_metric", "val_metric", "test_metric",
+               "val_loss")
 
 
 def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
                             splits=None, logger=None, display_step: int = 25,
                             checkpoint_dir: Optional[str] = None,
                             checkpoint_every: int = 0, resume: bool = False,
-                            device=None) -> dict:
+                            device=None, graph: bool = True) -> dict:
     """Observable multi-split run (JAX ``run_experiment_stepwise``): every
-    epoch trains, then evaluates on the host's request, and ``RunStats``
-    collects (train, val, test) per epoch; a split's test metric is the one
-    at its best-val epoch.  Split ``idx`` starts from ``build_model(...,
-    seed=cfg.seed + idx)``; its masks come as in ``run_experiment``.  Each
-    epoch runs under ``retry_transient``; it trains in place, so a retry
-    continues from the parameters the failed attempt left (JAX's epoch is
-    a pure function of its inputs).  ``epoch_ms_steady`` excludes the
-    first executed epoch.
+    epoch trains, then evaluates, and the host reads the epoch's loss and
+    metrics; ``RunStats`` collects (train, val, test) per epoch, and a
+    split's test metric is the one at its best-val epoch.
+
+    Set up once per run, as JAX jits ``train_epoch`` and ``eval_epoch``
+    once: the model, the optimizer, one dropout generator (with
+    ``cfg.remat`` its twin for the recompute) and the epoch functions.
+    Split ``idx`` loads ``build_model(..., seed=cfg.seed + idx)``'s
+    parameters into the model (``initial_params``), zeroes the optimizer's
+    state in place and writes its masks (as in ``run_experiment``) and
+    packed label/mask words into the run's buffers.  One epoch, the train
+    step then the eval forward, writes its loss and four metrics into one
+    device buffer, which the host reads once after the epoch.  With
+    ``graph`` (the default) on the card the epoch is one CUDA graph
+    (``Replay``): the run's first executed epoch runs eagerly, the second
+    is captured, and every later epoch, of every split, replays it;
+    ``graph=False`` (and the CPU) runs the same epoch eagerly.  Before
+    each epoch the generator (and its twin) is reseeded from
+    ``epoch_seed(cfg.seed + idx, epoch)``, so an epoch draws the masks of
+    a fresh ``epoch_generator`` however it is reached.
+    ``epoch_ms_steady`` leaves out the epochs that pay set-up: the eager
+    first epoch and the capturing one (without a capture, the first
+    executed epoch).
+
+    Each epoch runs under ``retry_transient``; it trains in place, so a
+    retry continues from the parameters the failed attempt left (JAX's
+    epoch is a pure function of its inputs), and the retried epoch runs
+    eagerly and the next one captures anew.
 
     Checkpointing (``utils/checkpoint.py``): ``checkpoint_dir`` saves the
     best-val weights of split ``idx`` (``split<idx>_best``: the model's
@@ -1335,13 +1579,32 @@ def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
     also snapshots the whole training state (``split<idx>_last``: weights,
     the optimizer's state with its step count, the epochs done and the
     best val metric; ``split<idx>_history.npy``: the per-epoch metrics)
-    every k epochs and at the split's end, and ``resume`` restores it and
-    continues.  An epoch's dropout depends on (seed, epoch) alone
-    (``epoch_generator``), so a resumed run equals the uninterrupted one
-    bit for bit."""
+    every k epochs and at the split's end, and ``resume`` copies it into
+    the run's tensors and continues: a resumed run equals the
+    uninterrupted one bit for bit."""
     data, ops, x, labels, labels_onehot, nclass = prepare_data(
         dataset, cfg, device=device)
     dev = x.device
+    nfeat, nnodes = x.shape[1], x.shape[0]
+    model = build_model(cfg, nfeat, nclass, device=dev, seed=cfg.seed,
+                        nnodes=nnodes)
+    opt = make_optimizer(cfg, list(model.parameters()))
+    train_epoch, eval_epoch = make_epoch_fns(model, cfg)
+    gens = (torch.Generator(device=dev),
+            torch.Generator(device=dev) if cfg.remat else None)
+    loop = Replay(capture_device(dev, graph=graph), gens)
+    reads = torch.zeros(len(EPOCH_READS), dtype=torch.float64, device=dev)
+    bufs = []        # the split's masks and packed words, written in place
+
+    def one_epoch():
+        masks, packed = bufs
+        loss = train_epoch(opt, gens[0], ops, x, labels, labels_onehot,
+                           masks[0], recompute_generator=gens[1])
+        ev = eval_epoch(ops, x, labels, labels_onehot, masks, packed)
+        reads.copy_(torch.stack([
+            v.reshape(()).to(torch.float64)
+            for v in (loss, *(ev[k] for k in EPOCH_READS[1:]))]))
+
     rng = np.random.default_rng(cfg.seed)
     labels_np = _host_labels(data.labels)
     stats = RunStats(cfg.num_splits)
@@ -1358,10 +1621,16 @@ def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
         # the rank pass's label/mask words, fixed for the split
         packed = (pack_labels_and_masks(labels, masks)
                   if cfg.metric == "rocauc" else None)
-        model = build_model(cfg, x.shape[1], nclass, device=dev,
-                            seed=cfg.seed + idx, nnodes=x.shape[0])
-        opt = make_optimizer(cfg, list(model.parameters()))
-        train_epoch, eval_epoch = make_epoch_fns(model, cfg)
+        if not bufs:
+            bufs += [tuple(m.clone() for m in masks), packed]
+        else:
+            for buf, m in zip(bufs[0], masks):
+                buf.copy_(m)
+            if packed is not None:
+                bufs[1].copy_(packed)
+        model.load_state_dict(initial_params(
+            cfg, nfeat, nclass, seed=cfg.seed + idx, nnodes=nnodes))
+        set_optimizer_state(opt)
         best_val = -math.inf
         start_epoch = 0
         last_path = hist_path = None
@@ -1371,7 +1640,7 @@ def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
         if resume and last_path is not None and Path(last_path).exists():
             snap = restore_checkpoint(last_path, map_location=dev)
             model.load_state_dict(snap["variables"])
-            opt.load_state_dict(snap["opt_state"])
+            set_optimizer_state(opt, snap["opt_state"])
             start_epoch = int(snap["step"])
             best_val = float(snap["extra"]["best_val"])
             for row in np.load(hist_path)[:start_epoch]:
@@ -1386,38 +1655,46 @@ def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
                             extra={"best_val": float(best_val)})
             np.save(hist_path, np.asarray(stats.results[idx], np.float64))
 
-        for epoch in range(start_epoch, cfg.epochs):
+        for e in range(start_epoch, cfg.epochs):
 
             def do_epoch():
-                gen = epoch_generator(dev, cfg.seed + idx, epoch)
-                loss_ = train_epoch(opt, gen, ops, x, labels, labels_onehot,
-                                    masks[0])
-                ev_ = eval_epoch(ops, x, labels, labels_onehot, masks,
-                                 packed)
-                return float(loss_), {k: float(v) for k, v in ev_.items()}
+                seed = epoch_seed(cfg.seed + idx, e)
+                for gen in gens:
+                    if gen is not None:
+                        gen.manual_seed(seed)
+                _, replays, capture_ms, _ = loop.run(one_epoch, 1)
+                return replays, capture_ms, reads.tolist()
 
             t_epoch = time.time()
-            loss, ev = retry_transient(do_epoch, logger=logger)()
-            if first_epoch_done:   # the first executed epoch is warm-up
+            replays, capture_ms, vals = retry_transient(do_epoch,
+                                                        logger=logger)()
+            # the epochs that pay set-up: the eager first and the capture
+            if loop.side is not None:
+                set_up = capture_ms is not None or not replays
+            else:
+                set_up = not first_epoch_done
+            if not set_up:
                 steady_time += time.time() - t_epoch
                 steady_epochs += 1
             first_epoch_done = True
+            loss, *metrics = vals
+            ev = dict(zip(EPOCH_READS[1:], metrics))
             stats.add_result(idx, (ev["train_metric"], ev["val_metric"],
                                    ev["test_metric"]))
             if ev["val_metric"] > best_val:
                 best_val = ev["val_metric"]
                 if checkpoint_dir is not None:
                     save_checkpoint(f"{checkpoint_dir}/split{idx}_best",
-                                    model.state_dict(), step=epoch,
+                                    model.state_dict(), step=e,
                                     extra={"val_metric": best_val})
-            if logger is not None and epoch % display_step == 0:
+            if logger is not None and e % display_step == 0:
                 logger.info(
                     "split %d epoch %d: loss %.4f train %.4f val %.4f "
-                    "test %.4f", idx, epoch, loss, ev["train_metric"],
+                    "test %.4f", idx, e, loss, ev["train_metric"],
                     ev["val_metric"], ev["test_metric"])
             if (checkpoint_every and last_path is not None
-                    and (epoch + 1) % checkpoint_every == 0):
-                save_state(epoch + 1)
+                    and (e + 1) % checkpoint_every == 0):
+                save_state(e + 1)
         if (checkpoint_every and last_path is not None
                 and start_epoch < cfg.epochs):
             save_state(cfg.epochs)

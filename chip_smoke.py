@@ -109,13 +109,22 @@ Phases (any failure exits non-zero and prints no result):
       forms timed in turns), K7, plain and library ms, the bytes bound
       and M rows/s, and the HBM ``index_select`` yardstick;
    b. ``run_experiment`` on the headline configuration at full size (2
-      splits, joint loop) and ``run_experiment_stepwise`` (1 split,
-      sequential epochs), with launch counts;
+      splits, joint loop) with launch counts, one capture for the run
+      (split 1 replays split 0's graph) and bit for bit against the same
+      run with a new runner and capture a split (``epoch_ms_steady``
+      beside that run's replays); ``run_experiment_stepwise`` (2 splits x
+      20 sequential epochs) captured, one graph a run (the first epoch
+      eager, the second captured, the rest replays), launch counts as
+      ``sequential_counts``, bit for bit against its ``graph=False`` form
+      (every epoch's loss and metrics, final weights, Adam's moments and
+      step, best weights), and ``epoch_ms_steady`` of the two forms in 3
+      alternating pairs;
    c. each knob in a short ``run_experiment`` at full size, with launch
-      counts: remat (captured; peak memory beside the plain run; the
-      recomputed forward's launches counted), bf16 features with bf16
-      GEMMs, AdamW, the RCM reorder (and the host seconds of the order);
-      then each knob card against CPU on phase 4's small graph.
+      counts, one capture a run and equal to a runner a split: remat
+      (captured; peak memory beside the plain run; the recomputed
+      forward's launches counted), bf16 features with bf16 GEMMs, AdamW,
+      the RCM reorder (and the host seconds of the order); then each knob
+      card against CPU on phase 4's small graph.
 8. The captured split loop against the eager one (``make_split_runner(...,
    graph=False)``):
    a. 20 epochs of each form from the same parameters and seed on the
@@ -179,25 +188,30 @@ Phases (any failure exits non-zero and prints no result):
       epochs, under ``--profile_dir``: launch counts as ``joint_counts``
       implies, the trace naming K1-K4, the per-split test and val
       ROC-AUC and the JSON equal bit for bit to ``run_experiment`` on the
-      loaded graph, ms/epoch over the whole runs and the replays;
+      loaded graph; split 0 captures and split 1 replays its graph;
+      ms/epoch over each split's whole run and its replays;
    b. a chameleon-shaped graph in Geom-GCN files: stepwise training with
-      checkpoints, the same cut at half the epochs and resumed (the
-      snapshots, histories, best weights and results equal bit for bit),
+      checkpoints, captured (one graph a run), the same cut at half the
+      epochs and resumed (the snapshots, histories, best weights and
+      results equal bit for bit),
       ``predict`` (logits equal to an eval forward of the checkpoint),
-      COO training (K5), ``homophily``, a 2 x 2 ``sweep`` (each point
-      equal to its own ``run_experiment``), ``gen-graphs``, ``gen-feats``
+      COO training (K5), ``homophily``, a 2 x 2 ``sweep`` (one capture a
+      grid point; each point equal to its own ``run_experiment``),
+      ``gen-graphs``, ``gen-feats``
       from cora-shaped Planetoid files and ``synthetic-train``.
 
 11. The sharded path as the JAX package runs it (``run_experiment_sharded``;
-   at world size 1 over NCCL every split is captured, and fails if one
-   ran eagerly):
+   at world size 1 over NCCL a run makes one capture, which its later
+   splits and segments replay, and fails if a split ran eagerly):
    a. wiki at full width (bench.py:942-1045's ``bench_wiki_sharded``:
       N=1,925,342 Chung-Lu, F=600, C=5; acmgcnp hidden 64, dropout 0.5,
       ELL, bf16 gathers, with the hoist) at world size 1 over NCCL
       through per-rank slab loading, 2 splits: the features' loader
       called once with (0, N), its slab the loaded rows, zero padded;
-      host seconds of the graph, operator build and loads; ms/epoch, peak
-      memory, finite losses, launch counts as ``wiki_counts`` implies, a
+      host seconds of the graph, operator build and loads; split 1
+      replays split 0's graph; ``epoch_ms_steady`` beside the replays,
+      peak memory, finite losses, launch counts as ``wiki_counts``
+      implies, a
       profile of ``WIKI_EPOCHS`` epochs (device time by kernel group);
       K6 and K1 at w600 (the hoist aggregate; K1's plain version in row
       chunks) and at the epoch's widths (w128 and its transpose, w10)
@@ -234,7 +248,11 @@ Phases (any failure exits non-zero and prints no result):
    e. acmgcnpp with ``init_layers_X = 2`` (hidden 64, f32 gathers) on the
       headline graph at world size 1 over NCCL, captured: equal bit for
       bit to the captured single card, BatchNorm's statistics included
-      (its 4-rank form is an 11c case).
+      (its 4-rank form is an 11c case);
+   f. the headline at world size 1 over NCCL with ``checkpoint_every``
+      (2 splits x 10 epochs, segments of 4 bodies): one capture for the
+      run, every segment of both splits a replay of it, equal bit for bit
+      to the run without checkpoints.
 
 The line before the last is the kernel table as JSON (every row with
 ``ms`` and ``device_ms``, ``library_ms`` and ``library_device_ms``); the
@@ -372,16 +390,21 @@ def _ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f}"
 
 
+CARD_LINE = "card not read"   # nvidia-smi's name and power limit
+
+
 def phase_environment():
     import torch
 
     from acmgnn_tpu_torch.ops import kernels
 
+    global CARD_LINE
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    CARD_LINE = smi.splitlines()[0]
+    print(CARD_LINE)
     nvcc = subprocess.run([kernels.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1145,6 +1168,7 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
     warm = make_split_runner(model, cfg, group=group)
     _, warm_state = warm(ops, x, y, masks, seed=1, return_state=True,
                          labels_onehot=y1h)
+    warm.release()    # its graph: the timed run captures its own
     torch.cuda.synchronize()
     timed = make_split_runner(model, dataclasses.replace(
         cfg, epochs=timed_epochs), group=group)
@@ -1157,11 +1181,11 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
     counts = dict(kernels.launches)
     bodies = warm_state.epoch + state.epoch
     ms_run = 1e3 * dt / state.epoch
-    if state.capture_ms is None:
+    if not state.replays:
         ms_epoch, form = None, "eager"
     else:
-        ms_epoch = (1e3 * dt - state.setup_ms) / (state.epoch - 1)
-        form = (f"captured: capture {state.capture_ms:.1f} ms, set-up "
+        ms_epoch = (1e3 * dt - state.setup_ms) / state.replays
+        form = (f"captured: capture {_ms(state.capture_ms)} ms, set-up "
                 f"{state.setup_ms:.1f} ms, replays {ms_epoch:.3f} ms/epoch")
     losses = torch.cat([warm_state.train_losses, state.train_losses]).cpu()
     loop = "joint iterations" if cfg.joint else "sequential epochs"
@@ -1183,10 +1207,9 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
     groups = {}
     if profile:
         def run_of(epochs):
-            return make_split_runner(
-                model, dataclasses.replace(cfg, epochs=epochs), group=group)(
-                ops, x, y, masks, seed=3, labels_onehot=y1h,
-                return_state=True)[1].epoch
+            c = dataclasses.replace(cfg, epochs=epochs)
+            return _bodies(c, make_split_runner(model, c, group=group)(
+                ops, x, y, masks, seed=3, labels_onehot=y1h))
 
         groups = phase_profile(tag, run_of, ops_out=profile_ops)
     return counts, ms_run, res, groups, ms_epoch
@@ -1279,10 +1302,9 @@ def phase_stop_flag_cost(data, masks_np, pairs: int = 10):
           f"ms/epoch")
     for es in (0, GENIUS_ES):
         def run_of(epochs, es=es):
-            return make_split_runner(model, dataclasses.replace(
-                cfg, epochs=epochs, early_stopping=es))(
-                ops, x, y, masks, labels_onehot=y1h,
-                return_state=True)[1].epoch
+            c = dataclasses.replace(cfg, epochs=epochs, early_stopping=es)
+            return _bodies(c, make_split_runner(model, c)(
+                ops, x, y, masks, labels_onehot=y1h))
 
         phase_profile(f"[5d early_stopping={es}]", run_of,
                       epochs=PROFILE_EPOCHS + GENIUS_ES)
@@ -1361,23 +1383,47 @@ def _is_annotation(e) -> bool:
                 or ANNOTATION.fullmatch(e.key))
 
 
+def _bodies(cfg, res) -> int:
+    """The loop bodies of a run that did not stop early, from its
+    result: the joint loop runs one more than its epochs.  (A profiled
+    run asks for no ``return_state``: its copies would fall inside the
+    window.)"""
+    from acmgnn_tpu_torch.train.trainer import JOINT_CAPABLE
+
+    return res.epochs_run + int(bool(cfg.joint)
+                                and cfg.model_type in JOINT_CAPABLE)
+
+
 def phase_profile(tag, run_of, epochs=PROFILE_EPOCHS, ops_out=None):
     """Device time by kernel group, device operations, the device's busy
     share and the host's waits for the device, per steady loop body:
     ``run_of(epochs)`` runs one split (and returns its bodies) under
     torch.profiler.  Captured, the window runs from the end of the
-    capture (``cudaGraphInstantiate``) to the last device operation's
-    end, and holds the replays (one ``cudaGraphLaunch`` each) with what
-    the host does between them; eager, it is the whole run.  Returns the
+    capture (``cudaGraphInstantiate``; the card waits for the eager first
+    body before it) to the last device operation's end, and holds the
+    replays (one ``cudaGraphLaunch`` each) with what the host does
+    between them; eager, it is the whole run.  Returns the
     groups' ms per loop body ({} where nothing was recorded); ``ops_out``,
     a dict, receives each group's device operations per body and, under
     "wall"/"busy", the window's ms per body."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from acmgnn_tpu_torch.train import trainer
+
+    def settled(capture):
+        # the eager first body's device work ends before the capture, so
+        # none of it falls in the window (wiki's body outlasts the
+        # capture's host time)
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            return capture(*a, **k)
+        return wrapper
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _wrapped(trainer, "_capture", settled), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         bodies = run_of(epochs)
         torch.cuda.synchronize()
@@ -1989,24 +2035,36 @@ def phase_sharded_main_path(adj, feats, labels, ms_single):
 
 
 @contextlib.contextmanager
-def _captured_runs(tag):
-    """The block's split runs (``trainer._run_loop``) must each capture
-    their body: fails at the end of the block if one ran eagerly."""
+def _captured_runs(tag, captures=1):
+    """The block's runner calls (``trainer.Replay.run``) must replay a
+    CUDA graph, and the block must record ``captures`` graphs
+    (``trainer._capture``: one a run, whatever its splits and segments):
+    fails at the end of the block otherwise.  Yields the calls' (bodies,
+    replays, capture ms or None)."""
     from acmgnn_tpu_torch.train import trainer
 
-    forms = []
+    calls, made = [], [0]
 
-    def make(run_loop):
-        def wrapper(*a, **k):
-            out = run_loop(*a, **k)
-            forms.append(out[1])        # capture ms, None when eager
+    def run_of(run):
+        def wrapper(self, *a, **k):
+            out = run(self, *a, **k)
+            calls.append(out[:3])
             return out
         return wrapper
 
-    with _wrapped(trainer, "_run_loop", make):
-        yield forms
-    if not forms or any(ms is None for ms in forms):
-        fail(f"{tag} a sharded split ran eagerly: capture ms {forms}")
+    def capture_of(capture):
+        def wrapper(*a, **k):
+            made[0] += 1
+            return capture(*a, **k)
+        return wrapper
+
+    with _wrapped(trainer.Replay, "run", run_of), \
+            _wrapped(trainer, "_capture", capture_of):
+        yield calls
+    eager = [c for c in calls if c[0] > 1 and not c[1]]
+    if not calls or eager or made[0] != captures:
+        fail(f"{tag} {made[0]} captures (want {captures}); the runner's "
+             f"calls (bodies, replays, capture ms): {calls}")
 
 
 @contextlib.contextmanager
@@ -2122,7 +2180,9 @@ def phase_sharded_overhead(data, prep, pairs: int = 5):
     captured, ``TIMED_EPOCHS`` epochs a run, in alternating pairs:
     ``{arm: (median ms/epoch over the whole run, over its replays)}``.
     Both share the host, so pairs cancel its drift; the replays read what
-    the sharded body adds on the card (K6 packs, one all-reduce)."""
+    the sharded body adds on the card (K6 packs, one all-reduce).  Each
+    arm keeps one runner, which captures in the warm-up pair and replays
+    from its first body in every later call."""
     import torch
     import torch.distributed as dist
 
@@ -2156,11 +2216,11 @@ def phase_sharded_overhead(data, prep, pairs: int = 5):
             _, st = run(*args, seed=i, return_state=True)
             torch.cuda.synchronize()
             dt = 1e3 * (time.perf_counter() - t0)
-            if st.capture_ms is None:
+            if not st.replays:
                 fail(f"[6b] the {arm} arm ran eagerly")
             if i > 0:            # the first pair warms both arms up
                 ms[arm][0].append(dt / st.epoch)
-                ms[arm][1].append((dt - st.setup_ms) / (st.epoch - 1))
+                ms[arm][1].append((dt - st.setup_ms) / st.replays)
     print("[6b] alternating pairs, captured forms, ms/epoch over the run "
           "(over the replays): " + "; ".join(
               f"{arm} " + ", ".join(f"{a:.3f} ({b:.3f})"
@@ -2519,73 +2579,200 @@ def phase_probe():
     return rows
 
 
+class _SplitLog:
+    """A logger that keeps each split's result and the per-epoch rows
+    logged at ``display_step=1``."""
+
+    def __init__(self):
+        self.splits, self.rows = [], []
+
+    def info(self, msg, *args):
+        if "epoch" in msg:
+            self.rows.append(args)
+
+    def log_split(self, idx, res):
+        self.splits.append(res)
+
+    def log_result(self, out):
+        pass
+
+
+def _same_results(tag, a, b):
+    """Fail unless two runs' split results agree bit for bit."""
+    import torch
+
+    fields = ("test_metric", "val_metric", "val_loss", "train_loss")
+    if len(a) != len(b) or any(
+            x.epochs_run != y.epochs_run
+            or not all(torch.equal(getattr(x, f), getattr(y, f))
+                       for f in fields) for x, y in zip(a, b)):
+        fail(f"{tag} the split results differ: {a} != {b}")
+
+
 def _experiment(tag, data, cfg, expected, prepared=None):
     """``run_experiment`` on the card with the launch counts reset before
     and read after (``expected(bodies)``, ``bodies`` the loop bodies of
-    all splits), peak memory from a reset; returns (result, counts)."""
+    all splits), peak memory from a reset, one capture for the run (its
+    later splits replay the first's graph); then the same run through a
+    ``runner=`` hook that makes a new split runner a split (a capture a
+    split, the port's form before PR 14): every split's result equal bit
+    for bit, and that run's ms/epoch over split 1's replays printed beside
+    the reused run's ``epoch_ms_steady``.  Returns (result, counts, peak
+    MiB, split 1's replays ms/epoch)."""
     import torch
 
     from acmgnn_tpu_torch.ops import kernels
     from acmgnn_tpu_torch.train import run_experiment
+    from acmgnn_tpu_torch.train.trainer import make_split_runner
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    log = _SplitLog()
     t0 = time.perf_counter()
-    out = run_experiment(data, cfg, prepared=prepared)
+    with _captured_runs(tag):
+        out = run_experiment(data, cfg, prepared=prepared, logger=log)
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated() / 2**20
     bodies = out["epochs_total"] + (cfg.num_splits if cfg.joint else 0)
     print(f"{tag} run_experiment {cfg.num_splits} splits x {cfg.epochs} "
-          f"epochs: {time.perf_counter() - t0:.1f} s; peak {peak:.0f} MiB; "
-          f"{json.dumps(out)}")
+          f"epochs, one capture: {time.perf_counter() - t0:.1f} s; peak "
+          f"{peak:.0f} MiB; {json.dumps(out)}")
     want = expected(bodies)
     print(f"{tag} launches {json.dumps(counts, sort_keys=True)}")
     if counts != want:
         fail(f"{tag} launch counts {counts} != expected {want}")
     if not np.isfinite(out["test_mean"]) or out["epoch_ms_steady"] is None:
         fail(f"{tag} no finite result")
-    return out, counts, peak
+
+    timings, fresh = [], _SplitLog()
+
+    def per_split(model, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res, st = make_split_runner(model, cfg)(*args, return_state=True,
+                                                **kwargs)
+        torch.cuda.synchronize()
+        timings.append((1e3 * (time.perf_counter() - t) - st.setup_ms)
+                       / st.replays)
+        return res
+
+    with _captured_runs(f"{tag} a runner a split", cfg.num_splits):
+        ref = run_experiment(data, cfg, prepared=prepared, runner=per_split,
+                             logger=fresh)
+    _same_results(tag, log.splits, fresh.splits)
+    if ref["per_split"] != out["per_split"]:
+        fail(f"{tag} per_split {out['per_split']} != {ref['per_split']}")
+    print(f"{tag} = the same run with a new runner (and capture) a split, "
+          f"bit for bit ({cfg.num_splits} split results); epoch_ms_steady "
+          f"{out['epoch_ms_steady']:.3f} (one capture) beside that run's "
+          f"{ref['epoch_ms_steady']:.3f} (a capture a split) and its split "
+          f"1 replays {timings[-1]:.3f} ms/epoch ({CARD_LINE})")
+    return out, counts, peak, timings[-1]
+
+
+STEPWISE_PAIRS = 3
+
+
+def _stepwise_run(data, cfg, graph, ckpt=None):
+    """``run_experiment_stepwise`` on the card, its launches counted from
+    a reset and its per-epoch rows logged: (result, rows, counts)."""
+    import torch
+
+    from acmgnn_tpu_torch.ops import kernels
+    from acmgnn_tpu_torch.train.trainer import run_experiment_stepwise
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    log = _SplitLog()
+    out = run_experiment_stepwise(
+        data, cfg, logger=log, display_step=1, graph=graph,
+        checkpoint_dir=None if ckpt is None else str(ckpt),
+        checkpoint_every=cfg.epochs if ckpt is not None else 0)
+    torch.cuda.synchronize()
+    return out, log.rows, dict(kernels.launches)
+
+
+def phase_stepwise(data, cfg):
+    """[7b] ``run_experiment_stepwise`` on the headline at full width,
+    sequential, ``cfg.num_splits`` splits: one capture for the run (the
+    first epoch eager, the second captured, every later epoch of every
+    split a replay), launch counts as ``sequential_counts`` implies; bit
+    for bit against its ``graph=False`` form (every epoch's loss and
+    metrics, each split's final weights, Adam's moments and step, best
+    weights); then ``epoch_ms_steady`` of the two forms in
+    ``STEPWISE_PAIRS`` alternating pairs.  Returns the captured run's
+    result."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with _captured_runs("[7b stepwise]") as calls:
+            out, rows, counts = _stepwise_run(data, cfg, True, tmp / "c")
+        eager, eager_rows, eager_counts = _stepwise_run(data, cfg, False,
+                                                        tmp / "e")
+        epochs = cfg.num_splits * cfg.epochs
+        want = sequential_counts(epochs, "k1_spmm", 7, k4=False)
+        print(f"[7b] run_experiment_stepwise {cfg.num_splits} splits x "
+              f"{cfg.epochs} epochs, captured: {json.dumps(out)}; "
+              f"{sum(c[1] for c in calls)} replays, captures "
+              f"{[round(c[2], 1) for c in calls if c[2] is not None]} ms; "
+              f"launches {json.dumps(counts, sort_keys=True)}")
+        if counts != want or eager_counts != want:
+            fail(f"[7b] stepwise launch counts {counts} (eager "
+                 f"{eager_counts}) != expected {want}")
+        if rows != eager_rows or len(rows) != epochs:
+            fail(f"[7b] stepwise captured rows {rows} != eager {eager_rows}")
+        for idx in range(cfg.num_splits):
+            for f in ("last", "best"):
+                if not _tree_equal(*(_restore(tmp / d / f"split{idx}_{f}")
+                                     for d in ("c", "e"))):
+                    fail(f"[7b] stepwise split{idx}_{f}: the captured run's "
+                         f"snapshot differs from the eager one's")
+    print(f"[7b] stepwise captured = graph=False, bit for bit: {epochs} "
+          f"epochs' loss and metrics, each split's final weights, Adam's "
+          f"moments and step, best weights")
+    steady = {False: [], True: []}
+    for i in range(STEPWISE_PAIRS):
+        for graph in ((False, True) if i % 2 == 0 else (True, False)):
+            steady[graph].append(
+                _stepwise_run(data, cfg, graph)[0]["epoch_ms_steady"])
+    e, c = (float(np.median(steady[g])) for g in (False, True))
+    print(f"[7b] stepwise epoch_ms_steady in {STEPWISE_PAIRS} alternating "
+          f"pairs: eager {[round(v, 3) for v in steady[False]]}, captured "
+          f"{[round(v, 3) for v in steady[True]]}; medians {e:.3f} / "
+          f"{c:.3f} ({CARD_LINE}); prediction (PERF.md, PR 14) captured "
+          f"2.8-4.0: {'held' if 2.8 <= c <= 4.0 else 'missed'}")
+    out["pairs"] = {"eager": steady[False], "captured": steady[True]}
+    return out
+
+
+def _restore(path):
+    from acmgnn_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    return restore_checkpoint(path, map_location="cpu")
 
 
 def phase_entry_points(adj, feats, labels):
     """[7b] ``run_experiment`` on the headline configuration at full size
-    (2 splits, joint loop) and ``run_experiment_stepwise`` (1 split,
-    sequential epochs) with launch counts; [7c] each knob of this slice in
-    one short ``run_experiment`` at full size: remat (peak memory beside
-    the plain run), bf16 features + bf16 GEMMs, AdamW, RCM reorder (with
-    the host seconds of the order itself)."""
-    import torch
-
-    from acmgnn_tpu_torch.ops import kernels
+    (2 splits, joint loop; ``_experiment``) and ``run_experiment_stepwise``
+    (2 splits, sequential epochs; ``phase_stepwise``) with launch counts;
+    [7c] each knob of this slice in one short ``run_experiment`` at full
+    size, each one capture a run and equal to a runner a split: remat
+    (peak memory beside the plain run), bf16 features + bf16 GEMMs, AdamW,
+    RCM reorder (with the host seconds of the order itself)."""
     from acmgnn_tpu_torch.ops.graph import GraphData, locality_order
-    from acmgnn_tpu_torch.train.trainer import (
-        prepare_data,
-        run_experiment_stepwise,
-    )
+    from acmgnn_tpu_torch.train.trainer import prepare_data
 
     data = GraphData("twitch-gamers-scale-uniform", adj, feats, labels)
     cfg = headline_config(epochs=EXPERIMENT_EPOCHS, num_splits=2)
     out = {}
     out["experiment"] = _experiment(
         "[7b]", data, cfg, lambda b: joint_counts(b, "k1_spmm", 7))
-
-    step_cfg = dataclasses.replace(cfg, epochs=STEPWISE_EPOCHS, num_splits=1,
-                                   joint=False)
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    res = run_experiment_stepwise(data, step_cfg)
-    torch.cuda.synchronize()
-    counts = dict(kernels.launches)
-    per_epoch = {k: round(v / STEPWISE_EPOCHS, 3) for k, v in counts.items()}
-    print(f"[7b] run_experiment_stepwise 1 split x {STEPWISE_EPOCHS} "
-          f"epochs: {json.dumps(res)}; launches per epoch "
-          f"{json.dumps(per_epoch, sort_keys=True)}")
-    want = sequential_counts(STEPWISE_EPOCHS, "k1_spmm", 7, k4=False)
-    if counts != want:
-        fail(f"[7b] stepwise launch counts {counts} != expected {want}")
-    out["stepwise"] = res
+    out["stepwise"] = phase_stepwise(data, dataclasses.replace(
+        cfg, epochs=STEPWISE_EPOCHS, joint=False))
 
     knob = dataclasses.replace(cfg, epochs=KNOB_EPOCHS)
     prepared = prepare_data(data, knob)
@@ -2619,6 +2806,13 @@ def phase_entry_points(adj, feats, labels):
         "[7c reorder rcm]", data, dataclasses.replace(knob, reorder="rcm"),
         plain)
     out["rcm_s"] = rcm_s
+    for tag, key, lo, hi in (("7b", "experiment", 2.4, 3.2),
+                             ("7c plain", "plain", 2.4, 3.5)):
+        v = out[key][0]["epoch_ms_steady"]
+        print(f"[{tag}] prediction (PERF.md, PR 14): epoch_ms_steady "
+              f"{lo}-{hi}: {v:.3f}, {'held' if lo <= v <= hi else 'missed'} "
+              f"(split 1's replays with a capture a split: "
+              f"{out[key][3]:.3f})")
     return out
 
 
@@ -2712,9 +2906,9 @@ def optimizer_reference(cfg, params, grads, weight_decay=None):
 
 def optimizer_steps(cfg, params, grads, device, capturable=None):
     """``make_optimizer(cfg)`` over the given gradients, driven by the
-    split runner's loop (``trainer._run_loop``): on the card the first
-    step eagerly, the second captured as a CUDA graph, the rest replays
-    of it.  The final parameters as NumPy arrays."""
+    split runner's loop (``trainer.Replay``): on the card the first step
+    eagerly, the second captured as a CUDA graph, the rest replays of it.
+    The final parameters as NumPy arrays."""
     import torch
 
     from acmgnn_tpu_torch.train import trainer
@@ -2733,9 +2927,8 @@ def optimizer_steps(cfg, params, grads, device, capturable=None):
         opt.step()
         k.add_(1)
 
-    trainer._run_loop(body, OPT_STEPS, None, [],
-                      device if device.type == "cuda" else None,
-                      time.perf_counter())
+    trainer.Replay(device if device.type == "cuda" else None).run(
+        body, OPT_STEPS)
     return [p.detach().cpu().numpy() for p in ps]
 
 
@@ -2940,7 +3133,7 @@ def phase_capture_pairs(tag, prepared, cfg, masks, pairs=CAPTURE_PAIRS):
             ms[graph].append(1e3 * r["wall"] / bodies)
             if graph:
                 replay.append((1e3 * r["wall"] - r["state"].setup_ms)
-                              / (bodies - 1))
+                              / r["state"].replays)
                 capture.append(r["state"].capture_ms)
     wins = sum(c < e for e, c in zip(ms[False], ms[True]))
     print(f"[8b {tag}] {pairs} alternating pairs, {cfg.epochs} epochs a "
@@ -2959,10 +3152,9 @@ def phase_capture_pairs(tag, prepared, cfg, masks, pairs=CAPTURE_PAIRS):
     model = build_model(cfg, x.shape[1], nclass, seed=7)
     for graph, form in ((False, "eager"), (True, "captured")):
         def run_of(epochs, graph=graph):
-            return make_split_runner(
-                model, dataclasses.replace(cfg, epochs=epochs),
-                graph=graph)(ops, x, y, masks, labels_onehot=y1h,
-                             return_state=True)[1].epoch
+            c = dataclasses.replace(cfg, epochs=epochs)
+            return _bodies(c, make_split_runner(model, c, graph=graph)(
+                ops, x, y, masks, labels_onehot=y1h))
 
         phase_profile(f"[8b {tag} {form}]", run_of)
     return e[1], c[1], r[1]
@@ -3840,22 +4032,26 @@ def phase_cli_genius(root, ms_5b):
 
     timings = []
 
-    def runner(model, *args, **kwargs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res, state = trainer.make_split_runner(model, cfg)(
-            *args, return_state=True, **kwargs)
-        torch.cuda.synchronize()
-        timings.append((1e3 * (time.perf_counter() - t), state.setup_ms,
-                        state.epoch))
-        return res
+    def timed(make):   # the run's runner, each call timed
+        def made(*a, **k):
+            runner = make(*a, **k)
+
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res, state = runner(*args, return_state=True, **kwargs)
+                torch.cuda.synchronize()
+                timings.append((1e3 * (time.perf_counter() - t), state))
+                return res
+            return run
+        return made
 
     with _Recording(ExperimentLogger, "log_split",
-                    record=lambda self, i, r: _split_log(i, r)) as ref_logs:
+                    record=lambda self, i, r: _split_log(i, r)) as ref_logs, \
+            _wrapped(trainer, "make_split_runner", timed):
         ref = trainer.run_experiment(
-            data, cfg, runner=runner,
-            logger=ExperimentLogger("ref", log_dir=str(root / "logs"),
-                                    to_file=False))
+            data, cfg, logger=ExperimentLogger("ref", log_dir=str(root / "logs"),
+                                               to_file=False))
     cli_out = outs[0]
     if (cli_out["per_split"] != ref["per_split"] or logs != ref_logs
             or line["test_mean"] != ref["test_mean"]
@@ -3868,14 +4064,24 @@ def phase_cli_genius(root, ms_5b):
           f"bit: per-split test ROC-AUC {cli_out['per_split']}, val "
           f"{[v for _, _, v in logs]} (valid_mean {valid_mean!r}), "
           f"test_mean {line['test_mean']!r}, {line['epochs_total']} epochs")
-    whole = [ms / e for ms, _, e in timings]
-    replays = [(ms - setup) / (e - 1) for ms, setup, e in timings]
+    captured = [st.capture_ms for _, st in timings]
+    if captured[0] is None or any(c is not None for c in captured[1:]):
+        fail(f"[10a] capture ms by split {captured}: split 0 must capture "
+             f"and every later split replay its graph")
+    whole = [ms / st.epoch for ms, st in timings]
+    replays = [(ms - st.setup_ms) / st.replays for ms, st in timings]
     print(f"[10a] run_experiment ms/epoch by split, whole run "
           f"{', '.join(f'{v:.3f}' for v in whole)}; over the replays "
           f"{', '.join(f'{v:.3f}' for v in replays)} (set-up "
-          f"{', '.join(f'{t[1]:.1f}' for t in timings)} ms); the CLI's "
-          f"own (profiled) epoch_ms_avg {line['epoch_ms_avg']:.3f}, "
-          f"epoch_ms_steady {line['epoch_ms_steady']:.3f}")
+          f"{', '.join(f'{st.setup_ms:.1f}' for _, st in timings)} ms; "
+          f"capture ms {[_ms(c) for c in captured]}: split 1 replays split "
+          f"0's graph); the CLI's own (profiled) epoch_ms_avg "
+          f"{line['epoch_ms_avg']:.3f}, epoch_ms_steady "
+          f"{line['epoch_ms_steady']:.3f} ({CARD_LINE})")
+    ratio1 = whole[-1] / replays[-1]
+    print(f"[10a] prediction (PERF.md, PR 14): split 1's whole run within "
+          f"10% of its replays: {ratio1:.3f}x, "
+          f"{'held' if ratio1 <= 1.1 else 'missed'}")
     ratio = replays[-1] / ms_5b
     print(f"[10a] prediction: replays within +-10% of 5b's genius joint "
           f"ELL replays ({ms_5b:.3f}): {replays[-1]:.3f} = {ratio:.3f}x, "
@@ -3989,16 +4195,18 @@ def phase_cli_small(root):
     ckpt = ["--operator_format", "ell", "--stepwise", "--checkpoint_every",
             "5"]
     whole, cut = root / "whole", root / "cut"
-    t0 = time.perf_counter()
-    out, _ = _cli(["train"] + base + ckpt + logs + [
-        "--checkpoint_dir", str(whole), "--epochs", str(CLI_SMALL_EPOCHS)])
-    t_whole = time.perf_counter() - t0
-    _cli(["train"] + base + ckpt + logs + [
-        "--checkpoint_dir", str(cut), "--epochs",
-        str(CLI_SMALL_EPOCHS // 2)])
-    resumed, _ = _cli(["train"] + base + ckpt + logs + [
-        "--checkpoint_dir", str(cut), "--epochs", str(CLI_SMALL_EPOCHS),
-        "--resume"])
+    with _captured_runs("[10b] stepwise", captures=3) as calls:
+        t0 = time.perf_counter()
+        out, _ = _cli(["train"] + base + ckpt + logs + [
+            "--checkpoint_dir", str(whole), "--epochs",
+            str(CLI_SMALL_EPOCHS)])
+        t_whole = time.perf_counter() - t0
+        _cli(["train"] + base + ckpt + logs + [
+            "--checkpoint_dir", str(cut), "--epochs",
+            str(CLI_SMALL_EPOCHS // 2)])
+        resumed, _ = _cli(["train"] + base + ckpt + logs + [
+            "--checkpoint_dir", str(cut), "--epochs", str(CLI_SMALL_EPOCHS),
+            "--resume"])
     for idx in range(2):
         snap = _snapshots_equal(whole / f"split{idx}_last",
                                 cut / f"split{idx}_last",
@@ -4014,8 +4222,9 @@ def phase_cli_small(root):
             "epochs_total")
     if any(out[k] != resumed[k] for k in keys):
         fail(f"[10b] resumed result {resumed} != uninterrupted {out}")
-    print(f"[10b] stepwise ELL, {CLI_SMALL_EPOCHS} epochs x 2 splits "
-          f"({t_whole:.1f} s, epoch_ms_steady "
+    print(f"[10b] stepwise ELL, {CLI_SMALL_EPOCHS} epochs x 2 splits, "
+          f"captured (one graph a run; {sum(c[1] for c in calls)} replays "
+          f"in the three runs) ({t_whole:.1f} s, epoch_ms_steady "
           f"{out['epoch_ms_steady']:.3f}): cut at "
           f"{CLI_SMALL_EPOCHS // 2} and resumed = uninterrupted, bit for "
           f"bit (weights, Adam's moments and step, history, best weights; "
@@ -4061,7 +4270,8 @@ def phase_cli_small(root):
 
     grid = {"lr": [0.01, 0.05], "weight_decay": [0.0, 5e-4],
             "dropout": [0.5]}
-    with _Recording(trainer, "run_experiment") as points:
+    with _Recording(trainer, "run_experiment") as points, \
+            _captured_runs("[10b] sweep", captures=4):
         best, _ = _cli(["sweep"] + base + logs + [
             "--epochs", "10", "--grid", json.dumps(grid)])
     if len(points) != 4:
@@ -4074,8 +4284,9 @@ def phase_cli_small(root):
                  f"own run_experiment {ref['per_split']}")
     if best["test_mean"] != max(p["test_mean"] for p in points):
         fail(f"[10b] sweep best {best['test_mean']} is not the highest")
-    print(f"[10b] sweep 2 x 2 (lr x wd), dropout 0.5: each point = its own "
-          f"run_experiment bit for bit; best test_mean "
+    print(f"[10b] sweep 2 x 2 (lr x wd), dropout 0.5, one capture a grid "
+          f"point: each point = its own run_experiment bit for bit; best "
+          f"test_mean "
           f"{best['test_mean']:.4f} at lr {best['config']['lr']}, wd "
           f"{best['config']['weight_decay']}")
 
@@ -4409,7 +4620,7 @@ def phase_wiki_sharded():
                 _wrapped(sharded, "shard_node_array_per_host",
                          recorded_load), \
                 _wrapped(trainer, "prepare_sharded_data", kept_prep), \
-                _captured_runs("[11a]") as captures:
+                _captured_runs("[11a]") as calls:
             out = trainer.run_experiment_sharded(
                 data, cfg, per_host_loading=True, logger=SplitLog())
         torch.cuda.synchronize()
@@ -4422,11 +4633,11 @@ def phase_wiki_sharded():
         masks = tuple(prep.place(m) for m in _masks(data.num_nodes))
 
         def run_of(epochs):
-            return trainer.make_split_runner(
-                model, dataclasses.replace(cfg, epochs=epochs),
-                group=dist.group.WORLD)(
+            c = dataclasses.replace(cfg, epochs=epochs)
+            return _bodies(c, trainer.make_split_runner(
+                model, c, group=dist.group.WORLD)(
                 prep.ops, prep.x, prep.labels, masks, seed=3,
-                labels_onehot=prep.labels_onehot, return_state=True)[1].epoch
+                labels_onehot=prep.labels_onehot))
 
         ops: dict = {}
         phase_profile("[11a]", run_of, epochs=WIKI_EPOCHS, ops_out=ops)
@@ -4449,15 +4660,23 @@ def phase_wiki_sharded():
     losses = [(float(r.train_loss), float(r.val_loss)) for r in
               seen["splits"]]
     print(f"[11a] epoch_ms_steady {out['epoch_ms_steady']:.3f} ms/epoch "
-          f"(split 1, captured: capture ms by split "
-          f"{[round(c, 1) for c in captures]}), epoch_ms_avg "
+          f"(split 1, replaying split 0's capture: (bodies, replays, "
+          f"capture ms) by split {[(b, r, _ms(c)) for b, r, c in calls]}), "
+          f"epoch_ms_avg "
           f"{out['epoch_ms_avg']:.3f}; the profiled replays "
           f"{_ms(ops.get('wall'))} ms/epoch, device busy "
           f"{_ms(ops.get('busy'))}; peak memory {peak:.2f} GiB; (train, "
           f"val) loss by split {losses}; test accuracy "
-          f"{out['test_mean']:.4f}")
+          f"{out['test_mean']:.4f} ({CARD_LINE})")
     if not np.all(np.isfinite(losses)) or not np.isfinite(out["test_mean"]):
         fail("[11a] non-finite loss")
+    if ops.get("wall"):
+        ratio = out["epoch_ms_steady"] / ops["wall"]
+        print(f"[11a] prediction (PERF.md, PR 14): epoch_ms_steady within 3% "
+              f"of the replays: {ratio:.4f}x, "
+              f"{'held' if abs(ratio - 1) <= 0.03 else 'missed'}; peak "
+              f"within 1% of 22.65 GiB: {peak:.3f}, "
+              f"{'held' if abs(peak / 22.65 - 1) <= 0.01 else 'missed'}")
     want = wiki_counts(out["epochs_total"])
     print(f"[11a] launches {json.dumps(counts, sort_keys=True)}")
     if counts != want:
@@ -5185,6 +5404,60 @@ def phase_batchnorm_sharded(adj, feats, labels):
         dist.destroy_process_group()
 
 
+SEGMENT_EVERY = 4                # 11f: bodies a checkpoint segment
+
+
+def phase_segments_nccl(adj, feats, labels):
+    """[11f] ``run_experiment_sharded`` with ``checkpoint_every`` at world
+    size 1 over NCCL on the headline graph (2 splits x 10 epochs, dropout
+    0.5): every split's segments replay the run's one capture, and the
+    run equals, bit for bit, the same run without checkpoints (one capture
+    too): per-split test metrics, epochs, the last split's parameters and
+    buffers."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from acmgnn_tpu_torch.ops.graph import GraphData
+    from acmgnn_tpu_torch.train import trainer
+
+    data = GraphData("twitch-gamers-scale-uniform", adj, feats, labels)
+    cfg = headline_config(epochs=10, num_splits=2, seed=0)
+    runs = {}
+    init_distributed_nccl()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, kw in (("plain", {}), ("segments", dict(
+                    checkpoint_dir=tmp, checkpoint_every=SEGMENT_EVERY))):
+                t0 = time.perf_counter()
+                with _captured_runs(f"[11f {name}]") as calls:
+                    out, model = trainer.run_experiment_sharded(
+                        data, cfg, return_model=True, **kw)
+                torch.cuda.synchronize()
+                runs[name] = (out, {k: v.detach().clone() for k, v in
+                                    model.state_dict().items()},
+                              calls, time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    (p_out, p_params, _, p_s), (s_out, s_params, calls, s_s) = (
+        runs["plain"], runs["segments"])
+    if (p_out["per_split"] != s_out["per_split"]
+            or p_out["epochs_total"] != s_out["epochs_total"]
+            or not _tree_equal(p_params, s_params)):
+        fail(f"[11f] the checkpointed run {s_out} differs from the run "
+             f"without checkpoints {p_out}")
+    print(f"[11f] run_experiment_sharded, world size 1 (nccl), "
+          f"{cfg.num_splits} splits x {cfg.epochs} epochs in segments of "
+          f"{SEGMENT_EVERY} bodies: one capture, {len(calls)} runner calls "
+          f"(bodies, replays, capture ms) {[(b, r, _ms(c)) for b, r, c in calls]}"
+          f"; equal bit for bit to the run without checkpoints (one capture "
+          f"too): per_split {s_out['per_split']}, {len(s_params)} tensors; "
+          f"{s_s:.1f} s against {p_s:.1f} s, epoch_ms_steady "
+          f"{s_out['epoch_ms_steady']:.3f} against "
+          f"{p_out['epoch_ms_steady']:.3f} ({CARD_LINE})")
+
+
 def phase_sharded_zoo(g_adj, g_feats, g_labels, adj, feats, labels):
     """Phase 11; returns (kernel rows, seconds, wiki launch counts)."""
     import torch
@@ -5195,6 +5468,8 @@ def phase_sharded_zoo(g_adj, g_feats, g_labels, adj, feats, labels):
     rows.append(phase_genius_sharded_rocauc(g_adj, g_feats, g_labels))
     torch.cuda.empty_cache()
     phase_batchnorm_sharded(adj, feats, labels)
+    torch.cuda.empty_cache()
+    phase_segments_nccl(adj, feats, labels)
     torch.cuda.empty_cache()
     z_rows, _ = phase_zoo_sharded()
     rows += z_rows
@@ -5327,7 +5602,8 @@ def main() -> int:
     steady = {k: entry[k][0]["epoch_ms_steady"]
               for k in ("experiment", "plain", "remat", "adamw", "bf16",
                         "rcm")}
-    print(f"[done] {time.perf_counter() - t_start:.1f} s; ms/epoch over a "
+    print(f"[done] {CARD_LINE}: {time.perf_counter() - t_start:.1f} s; "
+          f"ms/epoch over a "
           f"whole timed run, set-up included (over its replays): main path "
           f"{ms_epoch:.3f} ({ms_replay:.3f}) of {TIMED_EPOCHS} epochs; "
           f"genius joint ell {paths['ell'][1]:.3f} ({paths['ell'][4]:.3f}), "
@@ -5337,7 +5613,11 @@ def main() -> int:
           f"{paths['stop_flag_ms']:+.3f} ms/epoch; sharded headline, world "
           f"size 1 {s_ms:.3f} ms/epoch; run_experiment steady ms/epoch "
           + ", ".join(f"{k} {v:.3f}" for k, v in steady.items())
-          + f"; stepwise {entry['stepwise']['epoch_ms_steady']:.3f}; eager "
+          + f"; stepwise captured {entry['stepwise']['epoch_ms_steady']:.3f}"
+          f" (pairs, eager / captured medians "
+          f"{float(np.median(entry['stepwise']['pairs']['eager'])):.3f} / "
+          f"{float(np.median(entry['stepwise']['pairs']['captured'])):.3f})"
+          f"; eager "
           f"/ captured run / captured replays ms/epoch (8b medians): "
           + ", ".join(f"{k} {e:.3f} / {c:.3f} / {r:.3f}"
                       for k, (e, c, r) in capture["pairs"].items())

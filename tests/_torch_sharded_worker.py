@@ -16,7 +16,8 @@ group over a ``FileStore`` on the CPU, reads its inputs from the task's
 - ``experiment``: ``run_experiment_sharded``;
 - ``resume``: ``run_experiment_sharded`` with checkpointed segments,
   uninterrupted and cut at half the last split's epochs then resumed,
-  and without checkpoints: each run's results, parameters and snapshots;
+  uninterrupted with a fresh split runner for every segment, and without
+  checkpoints: each run's results, parameters and snapshots;
 - ``retry``: ``run_experiment_sharded`` with a transient failure injected
   on some ranks after split 0's first attempt: its result, or the error
   each rank raised;
@@ -179,6 +180,24 @@ def cut_resumed(run, epochs, last_split, ckpt_dir):
     return run(ckpt_dir, True)
 
 
+def fresh_runners(run, ckpt_dir):
+    """``run(checkpoint_dir, False)`` with a new split runner made for
+    every call of the run's runner (every split and segment), in place of
+    the one runner a run keeps."""
+    make = trainer.make_split_runner
+
+    def per_call(model, cfg, **kwargs):
+        def runner(*args, **kw):
+            return make(model, cfg, **kwargs)(*args, **kw)
+        return runner
+
+    trainer.make_split_runner = per_call
+    try:
+        return run(ckpt_dir, False)
+    finally:
+        trainer.make_split_runner = make
+
+
 def snapshot_arrays(ckpt_dir, rank):
     """Every tensor of this rank's last snapshots, flattened by name."""
     out = {}
@@ -218,7 +237,8 @@ def run_resume(job, inputs, rank, world, out):
                                             return_model=True),
             "whole": run(f"{base}/whole", False),
             "resumed": cut_resumed(run, cfg.epochs, cfg.num_splits - 1,
-                                   f"{base}/cut")}
+                                   f"{base}/cut"),
+            "fresh": fresh_runners(run, f"{base}/fresh")}
     if dist.is_initialized():
         dist.barrier()
     for name, (res, model) in runs.items():
@@ -226,7 +246,7 @@ def run_resume(job, inputs, rank, world, out):
         out[f"{key}/{name}/epochs_total"] = np.asarray(res["epochs_total"])
         for pname, p in model.state_dict().items():
             out[f"{key}/{name}/param/{pname}"] = p.numpy()
-    for name in ("whole", "cut"):
+    for name in ("whole", "cut", "fresh"):
         for k, v in snapshot_arrays(f"{base}/{name}", rank).items():
             out[f"{key}/{name}/snap/{k}"] = v
 

@@ -152,8 +152,8 @@ def test_run_experiment_hooks(graph):
     def hook(model, *args, hparams, **kwargs):
         run = trainer.make_split_runner(model, cfg)
         res, state = run(*args, hparams=hparams, return_state=True, **kwargs)
-        lrs.append(state.optimizer.param_groups[0]["lr"])
-        assert state.optimizer.param_groups[0]["weight_decay"] == 0.0
+        lrs.append(state.opt_state["param_groups"][0]["lr"])
+        assert state.opt_state["param_groups"][0]["weight_decay"] == 0.0
         return res
 
     class Log:
@@ -630,7 +630,7 @@ def test_card_check_of_adamw_is_well_conditioned():
                                     seed=3)
         _, state = trainer.make_split_runner(model, cfg, capturable=True)(
             ops, x, y, masks, return_state=True)
-        assert state.optimizer.param_groups[0]["capturable"]
+        assert state.opt_state["param_groups"][0]["capturable"]
         params.append({k: p.detach() for k, p in model.named_parameters()})
     worst = max(float((params[0][k] - params[1][k]).abs().max())
                 for k in params[0])

@@ -707,6 +707,156 @@ def test_captured_loop_counts_launches_per_replay(cuda):
             "k3_attn_bwd_d16": it, "k3_attn_bwd_d2": it}
 
 
+def _same_tree(a, b) -> bool:
+    """Nested dicts, lists and tensors equal, tensors bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+class _Splits:
+    """A logger that keeps each split's result and the per-epoch rows."""
+
+    def __init__(self):
+        self.results, self.rows = [], []
+
+    def info(self, msg, *args):
+        if "epoch" in msg:
+            self.rows.append(args)
+
+    def log_split(self, idx, res):
+        self.results.append(res)
+
+    def log_result(self, out):
+        pass
+
+
+@pytest.fixture
+def captures(monkeypatch):
+    """How many CUDA graphs ``trainer._capture`` records while the test
+    runs."""
+    from acmgnn_tpu_torch.train import trainer
+
+    made = [0]
+    capture = trainer._capture
+
+    def counted(*args, **kwargs):
+        made[0] += 1
+        return capture(*args, **kwargs)
+
+    monkeypatch.setattr(trainer, "_capture", counted)
+    return made
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("joint_ell_remat", "joint_pp_batchnorm",
+                                  "sequential_rocauc"))
+def test_one_capture_a_run_equals_a_capture_a_split(cuda, case, captures):
+    """``run_experiment`` (3 splits) captures once and replays that graph
+    in splits 1 and 2, each written in place (parameters, moments, loop
+    state, masks, generators); every split's result equals, bit for bit,
+    the same run with a fresh model and runner (and capture) a split."""
+    from acmgnn_tpu_torch.train import trainer
+
+    data, cfg, _ = _capture_case(case)
+    cfg = dataclasses.replace(cfg, num_splits=3, seed=4)
+    runs = []
+    for fresh in (False, True):
+        def hook(model, ops, x, labels, masks, *, seed, labels_onehot,
+                 hparams):
+            mdl = build_model(cfg, x.shape[1], int(labels_onehot.shape[1]),
+                              seed=seed, nnodes=x.shape[0])
+            return make_split_runner(mdl, cfg)(
+                ops, x, labels, masks, seed=seed,
+                labels_onehot=labels_onehot, hparams=hparams)
+
+        captures[0] = 0
+        log = _Splits()
+        trainer.run_experiment(data, cfg, logger=log,
+                               runner=hook if fresh else None)
+        runs.append(log.results)
+        assert captures[0] == (3 if fresh else 1)
+    for a, b in zip(*runs):
+        assert a.epochs_run == b.epochs_run
+        for f in ("test_metric", "val_metric", "val_loss", "train_loss"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.gpu
+def test_a_failed_replay_is_retried_on_a_new_capture(cuda, captures,
+                                                     monkeypatch):
+    """A transient failure raised by a replay in split 1: the split is
+    retried, the runner discards the graph it was replaying, runs its
+    first body eagerly and captures anew (2 captures in the run), and
+    every split's result equals the undisturbed run's bit for bit."""
+    import time
+
+    from acmgnn_tpu_torch.train import trainer
+
+    data, cfg, _ = _capture_case("joint_ell")
+    cfg = dataclasses.replace(cfg, num_splits=2)
+    clean = _Splits()
+    trainer.run_experiment(data, cfg, logger=clean)
+    replay = kernels.CountedGraph.replay
+    calls = [0]
+
+    def flaky(self):
+        calls[0] += 1
+        if calls[0] == cfg.epochs + 5:       # split 1's fifth replay
+            raise RuntimeError("UNAVAILABLE: an injected failure")
+        replay(self)
+
+    monkeypatch.setattr(kernels.CountedGraph, "replay", flaky)
+    monkeypatch.setattr(time, "sleep", lambda s: None)
+    captures[0] = 0
+    retried = _Splits()
+    trainer.run_experiment(data, cfg, logger=retried)
+    assert captures[0] == 2
+    for a, b in zip(clean.results, retried.results):
+        assert a.epochs_run == b.epochs_run
+        for f in ("test_metric", "val_metric", "val_loss", "train_loss"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("joint_ell_remat", "sequential_rocauc"))
+def test_captured_stepwise_equals_its_eager_form(cuda, case, captures,
+                                                 tmp_path):
+    """``run_experiment_stepwise`` (2 splits, dropout 0.5) captured (one
+    graph: the first epoch eager, the second captured, every later one of
+    both splits a replay) against ``graph=False``: every epoch's loss and
+    metrics, and each split's final weights, Adam's moments and step and
+    best weights, bit for bit."""
+    from acmgnn_tpu_torch.train import trainer
+    from acmgnn_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    data, cfg, _ = _capture_case(case)
+    cfg = dataclasses.replace(cfg, num_splits=2, epochs=8)
+    logs = []
+    for graph in (False, True):
+        captures[0] = 0
+        log = _Splits()
+        trainer.run_experiment_stepwise(
+            data, cfg, logger=log, display_step=1, graph=graph,
+            checkpoint_dir=str(tmp_path / str(graph)),
+            checkpoint_every=cfg.epochs)
+        logs.append(log.rows)
+        assert captures[0] == (1 if graph else 0)
+    assert logs[0] == logs[1] and len(logs[0]) == 2 * cfg.epochs
+    for idx in range(cfg.num_splits):
+        for f in ("last", "best"):
+            a, b = (restore_checkpoint(tmp_path / str(g) / f"split{idx}_{f}",
+                                       map_location="cpu")
+                    for g in (False, True))
+            assert _same_tree(a, b), (idx, f)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("optimizer", ("adam", "adamw"))
 def test_card_optimizer_matches_optax_in_f64(cuda, optimizer):

@@ -1438,15 +1438,17 @@ def test_sharded_rocauc_at_one_rank_is_the_single_card(group_of_one,
 
 
 def _assert_resumed(ranks, loop):
-    """Each rank's three runs (no checkpoints; checkpointed whole; cut at
-    half the last split's epochs and resumed) equal bit for bit: per-split
-    test metrics, epochs, the last split's parameters; and the whole and
-    the resumed run's last snapshots (parameters, Adam's moments and step,
-    the loop state with the loss and val histories and best metrics, this
+    """Each rank's four runs (no checkpoints; checkpointed whole; cut at
+    half the last split's epochs and resumed; checkpointed whole with a
+    fresh split runner for every segment, where the others keep one
+    runner a run) equal bit for bit: per-split test metrics, epochs, the
+    last split's parameters; and the whole, the resumed and the fresh
+    runners' last snapshots (parameters, Adam's moments and step, the
+    loop state with the loss and val histories and best metrics, this
     rank's generators) equal, key for key."""
     for r, out in enumerate(ranks):
         key = f"resume/{loop}"
-        for name in ("whole", "resumed"):
+        for name in ("whole", "resumed", "fresh"):
             for field in ("per_split", "epochs_total"):
                 np.testing.assert_array_equal(
                     out[f"{key}/{name}/{field}"],
@@ -1459,14 +1461,15 @@ def _assert_resumed(ranks, loop):
                     err_msg=f"rank {r} {name} {k}")
         snaps = {k[len(f"{key}/whole/snap/"):] for k in out
                  if k.startswith(f"{key}/whole/snap/")}
-        assert snaps == {k[len(f"{key}/cut/snap/"):] for k in out
-                         if k.startswith(f"{key}/cut/snap/")}
         assert any("val_hist" in k for k in snaps)
         assert any("generators" in k for k in snaps)
-        for k in snaps:
-            np.testing.assert_array_equal(out[f"{key}/cut/snap/{k}"],
-                                          out[f"{key}/whole/snap/{k}"],
-                                          err_msg=f"rank {r} {k}")
+        for other in ("cut", "fresh"):
+            assert snaps == {k[len(f"{key}/{other}/snap/"):] for k in out
+                             if k.startswith(f"{key}/{other}/snap/")}
+            for k in snaps:
+                np.testing.assert_array_equal(
+                    out[f"{key}/{other}/snap/{k}"],
+                    out[f"{key}/whole/snap/{k}"], err_msg=f"rank {r} {k}")
 
 
 @pytest.mark.parametrize("loop", list(RESUME_CFG))
@@ -1477,9 +1480,11 @@ def test_sharded_resume_is_bit_exact(world, loop, world2, model_graph,
     12 epochs, dropout 0.5: the generators' states matter), cut right
     after the last split's snapshot at half its epochs and resumed,
     equals the uninterrupted run and the run without checkpoints bit for
-    bit; the joint loop (budget 13 bodies) and the sequential one
-    (acmgcnpp with the structure channel).  World size 1 in this process,
-    2 in the module's world of 2 ranks."""
+    bit, and so does the checkpointed run with a fresh split runner for
+    every segment (the run's one runner rewrites its tensors in place
+    between segments); the joint loop (budget 13 bodies) and the
+    sequential one (acmgcnpp with the structure channel).  World size 1
+    in this process, 2 in the module's world of 2 ranks."""
     if world == 2:
         _assert_resumed(world2, loop)
         return

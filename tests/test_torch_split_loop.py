@@ -158,7 +158,7 @@ def _matches_jax(graphs, name, cfg_kw, capturable=None):
     res, state = make_split_runner(model, cfg, capturable=capturable)(
         ops, x, y, tuple(torch.from_numpy(m) for m in masks),
         labels_onehot=y1h, return_state=True)
-    assert state.optimizer.param_groups[0]["capturable"] == bool(capturable)
+    assert state.opt_state["param_groups"][0]["capturable"] == bool(capturable)
 
     tol = 1e-5 * n ** 0.5
     run = int(jres.epochs_run)
