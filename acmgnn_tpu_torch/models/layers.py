@@ -529,17 +529,6 @@ class _LNParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
 
-def dropout(h: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with an explicit generator (flax ``nn.Dropout``
-    semantics: keep with probability ``1 - rate``, scale kept values)."""
-    if not training or rate == 0.0:
-        return h
-    keep = torch.rand(h.shape, generator=generator, device=h.device) \
-        < 1.0 - rate
-    return torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
-
-
 class SAGEConv(nn.Module):
     """GraphSAGE-style convolution ``x W_self + (Â x) W_agg`` (with
     ``high_pass``, ``(I - Â) x`` over the high-pass base instead)."""
@@ -704,11 +693,15 @@ class MLPBlock(nn.Module):
                 setattr(self, f"bn_{i}", BatchNorm(f_out))
             f_in = f_out
 
-    def forward(self, x, training: bool = False, generator=None, shard=None):
+    def forward(self, x, training: bool = False, drop=None, shard=None):
+        """``drop``: the forward's ``ops.dropout.Dropout``, whose next
+        sites the hidden layers take at this block's rate; None: no
+        dropout."""
         for i in range(self.num_layers - 1):
             x = torch.relu(getattr(self, f"lin_{i}")(x))
             x = getattr(self, f"bn_{i}")(x, training, shard)
-            x = dropout(x, self.dropout, training, generator)
+            if drop is not None:
+                x = drop(x, self.dropout)
         return getattr(self, f"lin_{self.num_layers - 1}")(x)
 
 

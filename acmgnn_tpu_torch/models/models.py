@@ -31,8 +31,8 @@ from acmgnn_tpu_torch.models.layers import (
     GCNIIConv,
     MLPBlock,
     SAGEConv,
-    dropout,
 )
+from acmgnn_tpu_torch.ops.dropout import Dropout, DropoutKey
 from acmgnn_tpu_torch.ops.graph import Operators
 from acmgnn_tpu_torch.ops.spmm import row_shard
 
@@ -94,25 +94,26 @@ class ACMGNN(nn.Module):
 
     def forward(self, x: torch.Tensor, ops: Operators, *,
                 training: bool = False, paired_eval: bool = False,
-                generator: Optional[torch.Generator] = None):
+                key: Optional[DropoutKey] = None):
         """Logits; with ``paired_eval`` also the no-dropout eval logits of
         the same parameters, sharing every gather: ``(train, eval)``.  In
         train mode BatchNorm (acmgcnpp's ``mlpX``) updates its running
         statistics, which the paired eval branch then reads; on a sharded
-        operator its statistics cover every rank's rows."""
+        operator its statistics cover every rank's rows.  Dropout draws
+        under ``key`` (``ops/dropout.py``; needed in train mode at a rate
+        above 0), its sites numbered in call order from 0 each forward."""
         mt = self.model_type
         if paired_eval and mt not in PAIRED_EVAL:
             raise ValueError(f"paired_eval unsupported for {mt!r}")
 
-        def drop(h):
-            return dropout(h, self.dropout, training, generator)
+        drop = Dropout(self.dropout, training, key)
 
         x_eval = x if paired_eval else None
         pre_dropped = mt in ACM_FAMILY
         if pre_dropped:
             x = drop(x)
         if mt == "acmgcnpp":
-            xx = drop(torch.relu(self.mlpX(x, training, generator,
+            xx = drop(torch.relu(self.mlpX(x, training, drop,
                                            row_shard(ops.adj_low))))
             if paired_eval:   # feeds metrics only
                 xx_eval = torch.relu(self.mlpX(x_eval, False)).detach()

@@ -29,7 +29,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("spmm", "attention", "coo", "rocauc", "halo", "panel_gather")
+SOURCES = ("spmm", "attention", "coo", "rocauc", "halo", "panel_gather",
+           "dropout", "loop")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,7 +45,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 _IP = ctypes.POINTER(ctypes.c_int)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # argtypes of every C entry point, by library
 _SIGNATURES = {
     "spmm": {
@@ -92,6 +95,19 @@ _SIGNATURES = {
         "acm_k7_panel_gather": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _IP,
                                 _P],
     },
+    "dropout": {
+        # h, out, n, dtype, vec, seed (device), rank, epoch (device), site,
+        # keep_prob, stream
+        "acm_k8_dropout": [_P, _P, _L, _I, _I, _P, _U, _P, _U, _F, _P],
+    },
+    "loop": {
+        # inner graph, k, limit, stop, exec (out), outer graph (out)
+        "acm_k9_loop_build": [_P, _P, _P, _P, _PP, _PP],
+        "acm_k9_loop_launch": [_P, _P],          # exec, stream
+        "acm_k9_loop_destroy": [_P, _P],         # exec, outer graph
+        # graph, types (out), capacity, count (in/out)
+        "acm_k9_node_types": [_P, _IP, _I, _IP],
+    },
 }
 
 
@@ -121,7 +137,12 @@ class CountedGraph:
 
     def replay(self) -> None:
         self.graph.replay()
-        launches.update(self.per_replay)
+        self.ran(1)
+
+    def ran(self, bodies: int) -> None:
+        """Count ``bodies`` runs of the graph (a device loop's bodies)."""
+        for name, n in self.per_replay.items():
+            launches[name] += n * bodies
 
 
 def nvcc_path() -> str:

@@ -1,13 +1,15 @@
 """Hyperparameter grid search — counterpart of ``acmgnn_tpu/train/sweep.py``.
 
-A grid that varies only (lr, weight_decay, dropout) takes the fast path:
-the data is prepared once for the whole search (``prepare_data``), and
-each grid point is one ``run_experiment`` on it with (lr, weight_decay)
-as ``hparams``, whose splits share one split runner: on the card one
-capture a grid point (JAX compiles once a dropout value, its ``hparams``
-traced; torch's Adam takes lr and weight decay as Python numbers).  A
-grid over any other key runs ``run_experiment`` once per
-configuration.
+A grid that varies only (lr, weight_decay, dropout) takes the fast path,
+as the JAX package's (``acmgnn_tpu/train/sweep.py:124-145``): the data is
+prepared once for the whole search (``prepare_data``), one model and one
+split runner are built per dropout value, and each (lr, weight_decay)
+point is one ``run_experiment`` on them with the pair as ``hparams``,
+which the runner writes into its optimizer's tensors: on the card one
+capture per dropout value, every split of every (lr, wd) point running
+in the device loop around it (JAX compiles once a dropout value, its
+``hparams`` traced).  A grid over any other key runs ``run_experiment``
+once per configuration.
 
 The default grids are the reference search scripts' (9 weight decays;
 deezer-europe shrinks both the lr and the weight-decay lists; acmsgc
@@ -91,18 +93,25 @@ def grid_search(dataset, base_cfg: TrainConfig, grid: Optional[dict] = None,
             all_results.append(out)
     else:
         prepared = trainer.prepare_data(dataset, base_cfg, device=device)
+        x, nclass = prepared[2], prepared[5]
         total = len(g["dropout"]) * len(g["lr"]) * len(g["weight_decay"])
         i = 0
         for dropout in g["dropout"]:
+            cfg_d = dataclasses.replace(base_cfg, dropout=dropout)
+            model = trainer.build_model(cfg_d, x.shape[1], nclass,
+                                        device=x.device, seed=cfg_d.seed,
+                                        nnodes=x.shape[0])
+            split_runner = trainer.make_split_runner(model, cfg_d)
             for lr, wd in itertools.product(g["lr"], g["weight_decay"]):
-                cfg = dataclasses.replace(base_cfg, dropout=dropout, lr=lr,
-                                          weight_decay=wd)
-                out = trainer.run_experiment(dataset, cfg, prepared=prepared,
-                                             hparams=(lr, wd))
+                cfg = dataclasses.replace(cfg_d, lr=lr, weight_decay=wd)
+                out = trainer.run_experiment(
+                    dataset, cfg, prepared=prepared,
+                    split_runner=split_runner, hparams=(lr, wd))
                 out["config"] = dataclasses.asdict(cfg)
                 note(i, total, cfg, out)
                 all_results.append(out)
                 i += 1
+            split_runner.release()
 
     best = max(all_results, key=lambda r: r[select])
     if logger is not None:

@@ -24,14 +24,18 @@ names what it still refuses); on NCCL the sharded loop is captured as
 one card's.
 
 The JAX package fuses the whole split into one ``lax.while_loop`` whose
-body carries a ``SplitState`` on the device, and compiles it once a run.
-Here the loop body keeps the same state on the device (``LoopState``) and
-updates it in place, so no body waits for the host; on the card the
-runner captures one body as a CUDA graph once a run and replays it once
-an epoch, across splits and checkpoint segments (``make_split_runner``,
-``Replay``); the stepwise path captures its epoch likewise.  With early
-stopping on, the host reads the stop flag once after every body.  The
-model's parameters are trained in place.
+body carries a ``SplitState`` on the device, and compiles it once a
+(dataset, config, dropout).  Here the loop body keeps the same state on
+the device (``LoopState``) and updates it in place, so no body waits for
+the host; on the card the runner captures one body as a CUDA graph once
+a run and runs a split (or a checkpoint segment) to its stop rule in one
+launch of a device loop around it (``make_split_runner``, ``Replay``,
+``ops/loop.py``); the stepwise path captures its epoch likewise and
+replays it once an epoch.  Dropout draws from counter-based keys
+(``ops/dropout.py``: seed, rank, epoch, site), as JAX's ``fold_in(key,
+epoch)``, and the learning rate and weight decay are device tensors, so
+one capture serves every split, segment and (lr, wd) of a dropout value.
+The model's parameters are trained in place.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from acmgnn_tpu_torch import resolve_device
@@ -62,6 +67,7 @@ from acmgnn_tpu_torch.data.splits import (
 from acmgnn_tpu_torch.models.layers import batch_stats_frozen
 from acmgnn_tpu_torch.models.models import ACMGNN
 from acmgnn_tpu_torch.ops import kernels
+from acmgnn_tpu_torch.ops.dropout import DropoutKey
 from acmgnn_tpu_torch.ops.graph import (
     GraphData,
     Operators,
@@ -69,6 +75,7 @@ from acmgnn_tpu_torch.ops.graph import (
     permute_graph,
     precompute_operators,
 )
+from acmgnn_tpu_torch.ops.loop import DeviceLoop, count_bodies
 from acmgnn_tpu_torch.ops.spmm import spmm
 from acmgnn_tpu_torch.parallel.multihost import (
     all_reduce_sum,
@@ -116,106 +123,195 @@ def make_optimizer(cfg: TrainConfig, params, lr=None, weight_decay=None,
     - "adamw": torch AdamW, which is ``optax.adamw``'s decoupled decay
       (``p -= lr·(adam step + wd·p)``).
 
-    ``capturable`` (None: whether a parameter lies on the card) is torch's
-    form with the step count and bias corrections on the device, in f32
-    (optax's form as well), through its multi-tensor path, so that a CUDA
-    graph can capture the step; on the card every step runs it, eager or
-    replayed.  Without it torch forms the bias corrections on the host in
-    f64.  ``capturable=True`` on CPU parameters runs the card's form on
-    the CPU (``_CPU_CARD_FORM``): the CPU references of the card checks."""
+    The learning rate and the weight decay are device data, written in
+    place by ``set_hparams`` (``_HparamForm``), so one captured step serves
+    every (lr, wd), as JAX's traced ``hparams`` do.
+
+    ``capturable`` (None: whether a parameter lies on the card) is the
+    card's form: torch's capturable multi-tensor Adam arithmetic, with
+    the step count and bias corrections on the device in f32 (optax's
+    form as well), which a CUDA graph captures; on the card every step
+    runs it, eager or replayed, and ``capturable=True`` runs the same
+    arithmetic on CPU parameters (the CPU references of the card checks).
+    Without it torch's own step forms the bias corrections on the host in
+    f64."""
     params = list(params)
     lr = cfg.lr if lr is None else float(lr)
     wd = cfg.weight_decay if weight_decay is None else float(weight_decay)
-    on_card = any(p.is_cuda for p in params)
     if capturable is None:
-        capturable = on_card
-    if cfg.optimizer not in ("adam", "adamw"):
+        capturable = any(p.is_cuda for p in params)
+    if cfg.optimizer not in _HPARAM_FORMS:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    cls = torch.optim.Adam if cfg.optimizer == "adam" else torch.optim.AdamW
-    if capturable and not on_card:
-        cls = _CPU_CARD_FORM[cls]
-    return cls(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd,
-               capturable=capturable, foreach=True if capturable else None)
+    return _HPARAM_FORMS[cfg.optimizer](params, lr, wd, capturable=capturable)
 
 
-@contextlib.contextmanager
-def _capturable_admits_cpu():
-    """torch asserts in a capturable Adam step that every tensor lies on a
-    device its ``_get_capturable_supported_devices`` lists, which names
-    no CPU; the step's arithmetic itself runs on any device.  For the
-    length of the block the list also names the CPU, in each optimizer
-    module of torch that looks it up."""
-    import importlib
+class _HparamForm:
+    """Adam (coupled L2) or, ``decoupled``, AdamW (mixed into torch's
+    class), whose learning rate and weight decay live in a device tensor
+    the step reads, ``hp = [1/lr, decay]`` in f32, each rounded once from
+    its f64 value on the host:
 
-    mods = [m for m in map(importlib.import_module,
-                           ("torch.optim.adam", "torch.optim.adamw"))
-            if hasattr(m, "_get_capturable_supported_devices")]
-    if not mods:
-        raise RuntimeError(
-            "torch.optim.adam has no _get_capturable_supported_devices: "
-            "this torch cannot run the card's optimizer form on the CPU")
-    checks = [m._get_capturable_supported_devices for m in mods]
-    for m, check in zip(mods, checks):
-        m._get_capturable_supported_devices = (
-            lambda *a, _check=check, **k: [*_check(*a, **k), "cpu"])
-    try:
-        yield
-    finally:
-        for m, check in zip(mods, checks):
-            m._get_capturable_supported_devices = check
+    - ``1/lr``: torch's capturable step divides the bias correction by a
+      Python ``lr``, and a CUDA foreach division by a number is a
+      multiply by ``f32(1/lr)`` (H100, torch 2.11: bit for bit); the card
+      form multiplies by ``hp[0]`` on either device, so it runs the
+      card's arithmetic on the CPU too, whose own foreach divides;
+    - ``decay``: the decoupled factor ``1 - lr·wd``, multiplied into the
+      parameters before the step (torch AdamW's order and rounding), or
+      the coupled L2 ``wd``, added to the gradient before the step as
+      ``addcmul(g, p, wd)`` with ``wd`` also filled into one tensor per
+      parameter (``wd_full``, so the add is one multi-tensor launch),
+      which rounds as torch's ``add(g, p, alpha=wd)`` (bit for bit on
+      the H100 and on the CPU).
+
+    So the card form is torch's capturable step with Python
+    hyperparameters bit for bit on the card, and its host form torch's
+    own step (tests/test_torch_hparams.py, the card's
+    tests/test_torch_kernels.py).
+
+    The card form (``capturable``) is torch's capturable multi-tensor
+    step written out (``_card_step``); otherwise torch's own step runs
+    with ``weight_decay=0`` after the decay.  ``group["lr"]`` holds the
+    Python value."""
+
+    decoupled = False
+
+    def __init__(self, params, lr: float, weight_decay: float, *,
+                 capturable: bool):
+        params = list(params)
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                         weight_decay=0.0, capturable=capturable,
+                         foreach=True if capturable else None)
+        self.hp = torch.zeros(2, dtype=torch.float32, device=params[0].device)
+        # the coupled decay as a tensor a parameter: ``hp[1].expand_as(p)``
+        # rounds alike but is a stride-0 view, which foreach ops refuse
+        # for their multi-tensor kernel (ATen ForeachUtils.h: every tensor
+        # non-overlapping and dense), so the add would be one launch a
+        # parameter
+        self.wd_full = ({} if self.decoupled else
+                        {p: torch.empty_like(p) for g in self.param_groups
+                         for p in g["params"]})
+        self.set_hparams(lr, weight_decay)
+
+    def set_hparams(self, lr: float, weight_decay: float) -> None:
+        """New values written into ``hp`` (and ``group["lr"]``) in place."""
+        lr, weight_decay = float(lr), float(weight_decay)
+        if not lr > 0.0:
+            raise ValueError(f"learning rate {lr} is not positive")
+        for group in self.param_groups:
+            group["lr"] = lr
+        self.hp[0].fill_(1.0 / lr)
+        self.hp[1].fill_(1.0 - lr * weight_decay if self.decoupled
+                         else weight_decay)
+        for t in self.wd_full.values():
+            t.fill_(weight_decay)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            if self.decoupled:
+                torch._foreach_mul_(params, self.hp[1])
+            else:
+                torch._foreach_addcmul_([p.grad for p in params], params,
+                                        [self.wd_full[p] for p in params])
+            if group["capturable"]:
+                self._card_step(group, params)
+        if not self.param_groups[0]["capturable"]:
+            super().step()
+        return loss
+
+    def _card_step(self, group, params) -> None:
+        """torch's capturable multi-tensor Adam step (torch 2.11,
+        ``torch/optim/adam.py`` ``_multi_tensor_adam``, its ``capturable``
+        branch without ``amsgrad``, ``maximize`` or decay; the decay is
+        applied before it), its division of the bias correction by ``lr``
+        as the card carries it out.  A copy that must follow torch's:
+        ``tests/test_torch_kernels.py``
+        ``test_card_step_is_torchs_capturable_step`` holds it to torch's
+        own capturable step bit for bit on the card, and fails when the
+        two part."""
+        beta1, beta2 = group["betas"]
+        grads, exp_avgs, exp_avg_sqs, steps = [], [], [], []
+        for p in params:
+            st = self.state[p]
+            if not st:
+                st["step"] = torch.zeros((), dtype=torch.float32,
+                                         device=p.device)
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            grads.append(p.grad)
+            exp_avgs.append(st["exp_avg"])
+            exp_avg_sqs.append(st["exp_avg_sq"])
+            steps.append(st["step"])
+        torch._foreach_add_(steps, 1)
+        torch._foreach_lerp_(exp_avgs, grads, 1 - beta1)
+        torch._foreach_mul_(exp_avg_sqs, beta2)
+        torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - beta2)
+        bc1 = torch._foreach_pow(beta1, steps)
+        bc2 = torch._foreach_pow(beta2, steps)
+        torch._foreach_sub_(bc1, 1)
+        torch._foreach_sub_(bc2, 1)
+        torch._foreach_neg_(bc2)
+        torch._foreach_mul_(bc1, self.hp[0])   # -(1 - beta1^t) / lr
+        torch._foreach_reciprocal_(bc1)
+        torch._foreach_sqrt_(bc2)
+        denom = torch._foreach_sqrt(exp_avg_sqs)
+        torch._foreach_div_(denom, bc2)
+        torch._foreach_add_(denom, group["eps"])
+        torch._foreach_div_(denom, bc1)
+        torch._foreach_addcdiv_(params, exp_avgs, denom)
 
 
-def _card_form_cpu(cls):
-    class CardForm(cls):
-        """``cls`` in the card's capturable form on CPU parameters."""
-
-        def step(self, closure=None):
-            with _capturable_admits_cpu():
-                return super().step(closure)
-
-    CardForm.__name__ = CardForm.__qualname__ = f"{cls.__name__}CardForm"
-    return CardForm
+class HparamAdam(_HparamForm, torch.optim.Adam):
+    """torch Adam, coupled L2, with device hyperparameters
+    (``_HparamForm``)."""
 
 
-_CPU_CARD_FORM = {cls: _card_form_cpu(cls)
-                for cls in (torch.optim.Adam, torch.optim.AdamW)}
+class HparamAdamW(_HparamForm, torch.optim.AdamW):
+    """torch AdamW with device hyperparameters (``_HparamForm``)."""
+
+    decoupled = True
 
 
-def train_forward(model: ACMGNN, x, ops, generator, *,
-                  paired_eval: bool = False, remat: bool = False,
-                  recompute_generator=None):
+_HPARAM_FORMS = {"adam": HparamAdam, "adamw": HparamAdamW}
+
+
+def train_forward(model: ACMGNN, x, ops, key: Optional[DropoutKey], *,
+                  paired_eval: bool = False, remat: bool = False):
     """The dropout train forward (with ``paired_eval``, also the eval
-    logits of the same parameters).
+    logits of the same parameters), its dropout drawn under ``key``.
 
     ``remat`` (JAX ``jax.checkpoint`` around the train forward) runs it
     under non-reentrant activation checkpointing: the backward recomputes
-    the forward instead of holding its activations.  The recompute must
-    draw the same dropout masks, and checkpointing's own RNG stash covers
-    only the default generators, not the explicit ``generator``: the
-    recompute draws from ``recompute_generator``, a twin of ``generator``
-    (the same state when the loop started) that only recomputes draw
-    from, so each recompute starts where its forward started.  Neither
-    generator's state is read or set on the host, so a CUDA graph that
-    registers both replays the pair."""
+    the forward instead of holding its activations.  The recompute draws
+    the same masks with nothing restored: a mask is a function of the key
+    and the site, and the recompute numbers its sites from 0 as the
+    forward did."""
 
-    def run(x_, gen):
+    def run(x_):
         return model(x_, ops, training=True, paired_eval=paired_eval,
-                     generator=gen)
+                     key=key)
 
     if not remat:
-        return run(x, generator)
-    if (generator is None) != (recompute_generator is None):
-        raise ValueError("remat with a dropout generator needs its twin "
-                         "(recompute_generator)")
+        return run(x)
     calls = [0]
 
     def region(x_):
         calls[0] += 1
         if calls[0] == 1:
-            return run(x_, generator)
+            return run(x_)
         # the recompute: BatchNorm's running statistics were updated once
         with batch_stats_frozen():
-            return run(x_, recompute_generator)
+            return run(x_)
 
     return checkpoint(region, x, use_reentrant=False,
                       preserve_rng_state=False)
@@ -344,18 +440,15 @@ class LoopState:
 class RunnerState:
     """A split runner's whole state between two segments of one split
     (``make_split_runner``'s ``init_state``): the model's ``state_dict``
-    (parameters and buffers), the optimizer's (Adam's moments and step),
-    the loop's device state, and the state of this rank's dropout
-    generator and of its remat twin (None without remat).  JAX's keys are
-    stateless (``fold_in(key, epoch)``); the port's generators are
-    stateful and seeded by ``(seed, rank)``, so their states are part of
-    it, one per rank.  Held as copies: running a segment from it leaves
-    it as it was, so a failed segment can be run again."""
+    (parameters and buffers), the optimizer's (Adam's moments and step)
+    and the loop's device state.  Dropout carries no state: its keys are
+    (seed, rank, epoch, site), the epoch the loop's ``k``, as JAX's
+    ``fold_in(key, epoch)``.  Held as copies: running a segment from it
+    leaves it as it was, so a failed segment can be run again."""
 
     variables: dict
     opt_state: dict
     loop: LoopState
-    generators: list
 
     @property
     def bodies(self) -> int:
@@ -385,21 +478,43 @@ def stop_window(hist: torch.Tensor, e: torch.Tensor, es: int) -> torch.Tensor:
     return hist.index_select(0, start + torch.arange(es, device=hist.device))
 
 
-def _capture(body, generators) -> kernels.CountedGraph:
-    """``body`` captured once as a CUDA graph on the current stream, the
-    dropout ``generators`` registered with it, so that each replay
-    advances their Philox offsets as an eager body does.  Unlike
-    ``torch.cuda.graph``, no device-wide synchronize and no
-    ``empty_cache`` come first: in a process holding a large cache they
+class _NoRandomDraws(TorchDispatchMode):
+    """Raises on any operation that draws from a torch generator
+    (``torch.Tag.nondeterministic_seeded``: ``rand``, ``bernoulli``,
+    ``native_dropout``, ...).  A graph replays such a draw with the
+    generator's offset advanced only by ``replay()``'s host prologue, so
+    inside a device loop every epoch would repeat one draw; the port's
+    dropout draws through ``ops/dropout.py``'s keys instead."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if torch.Tag.nondeterministic_seeded in func.tags:
+            raise RuntimeError(
+                f"{func} draws from a torch generator inside a captured "
+                f"loop body: its replays would repeat one draw (dropout "
+                f"draws through ops/dropout.py's counter-based keys)")
+        return func(*args, **(kwargs or {}))
+
+
+def no_random_draws():
+    """The guard every capture runs its body under (``_NoRandomDraws``)."""
+    return _NoRandomDraws()
+
+
+def _capture(body, keep_graph: bool = False) -> kernels.CountedGraph:
+    """``body`` captured once as a CUDA graph on the current stream, under
+    ``no_random_draws`` (no generator state is registered with the graph,
+    and nothing in the body may draw from one); ``keep_graph`` keeps the
+    ``cudaGraph_t`` for a device loop (``ops/loop.py``) and instantiates
+    nothing.  Unlike ``torch.cuda.graph``, no device-wide synchronize and
+    no ``empty_cache`` come first: in a process holding a large cache they
     made a capture take 28-214 ms on an H100 (``chip_smoke.py`` 8b)."""
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
 
     def record():
         graph.capture_begin()
         try:
-            body()
+            with no_random_draws():
+                body()
         finally:
             graph.capture_end()
 
@@ -441,43 +556,56 @@ class Replay:
     eagerly (it makes, on that stream, what a capture needs to exist
     already: K2/K3's occupancy answers, K4's workspace, Adam's moments,
     cuBLAS's workspace), the second time captured once as a CUDA graph
-    (``_capture``, ``generators`` registered with it), and every later
-    time, in this ``run`` or a later one, as a replay of that graph.  So
+    (``_capture``), and every later time, in this ``run`` or a later one,
+    from that graph: with ``device_loop``, every body of a ``run`` after
+    the eager first in ONE launch of a device loop around the graph
+    (``ops/loop.DeviceLoop``: the condition ``k < limit and not stop``
+    evaluated by K9 on the device after each body, JAX's
+    ``lax.while_loop``), else one replay a body (the stepwise path).  So
     the body must read and write the same tensors for as long as the
     graph lives: its callers write each new input into them in place.
 
     A ``run`` that raised leaves its graph discarded: the next ``run``
     runs the body eagerly again and captures anew (a graph whose replay
     failed is never replayed again).  A failed capture or replay raises;
-    nothing falls back to eager.  ``release`` discards the graph and its
-    private memory pool; so does dropping the object."""
+    nothing falls back to eager.  ``release`` discards the device loop,
+    the graph and its private memory pool; so does dropping the object."""
 
-    def __init__(self, capture_on, generators=()):
+    def __init__(self, capture_on):
         self.capture_on = capture_on
-        self.generators = [g for g in generators if g is not None]
         self.side = (None if capture_on is None
                      else torch.cuda.Stream(device=capture_on))
         self.graph: Optional[kernels.CountedGraph] = None
+        self.loop: Optional[DeviceLoop] = None
         self.warm = False      # the body ran eagerly on ``side``
         self.busy = False      # a ``run`` is under way, or raised
 
     def release(self) -> None:
+        if self.loop is not None:
+            self.loop.destroy()
         if self.graph is not None:
             self.graph.graph.reset()
-        self.graph, self.warm = None, False
+        self.graph, self.loop, self.warm = None, None, False
 
-    def run(self, body, limit: int, stop=None, t0: Optional[float] = None):
-        """``body`` up to ``limit`` times; after each, the host reads
-        ``stop`` (None: never) and ends the loop if it is set.  Returns
-        (bodies run, of them replays, the capture's ms or None, set-up ms:
-        the host's time from ``t0`` (default: now) to the first replay, or
-        None)."""
+    def run(self, body, limit: int, stop=None, t0: Optional[float] = None,
+            device_loop=None):
+        """``body`` up to ``limit`` times.  Eager (and for the eager first
+        body): after each, the host reads ``stop`` (None: never) and ends
+        the loop if it is set.  ``device_loop`` = (``k``, ``bound``,
+        ``start``): the body's counter, the device int64 that ``k`` must
+        stay under, and ``k``'s value when the call starts; on the card
+        the bodies after the eager first then run in one device-loop
+        launch, which stops at ``bound`` or ``stop``, and the host reads
+        ``k`` once after it.  Returns (bodies run, of them replays, the
+        capture's ms or None, set-up ms: the host's time from ``t0``
+        (default: now) to the first replay or loop launch, or None)."""
         if self.busy:
             self.release()
         self.busy = True
         t0 = time.perf_counter() if t0 is None else t0
         bodies = replays = 0
         capture_ms = setup_ms = None
+        looped = self.side is not None and device_loop is not None
         if self.side is not None:
             self.side.wait_stream(torch.cuda.current_stream(self.capture_on))
         try:
@@ -491,14 +619,27 @@ class Replay:
                         if self.graph is None:
                             t1 = time.perf_counter()
                             _room_for_capture(self.capture_on)
-                            self.graph = _capture(body, self.generators)
+                            self.graph = _capture(body, keep_graph=looped)
+                            if looped:
+                                k, bound, _ = device_loop
+                                self.loop = DeviceLoop(self.graph.graph, k,
+                                                       bound, stop)
                             capture_ms = 1e3 * (time.perf_counter() - t1)
                         if setup_ms is None:
                             setup_ms = 1e3 * (time.perf_counter() - t0)
+                        if looped:
+                            k, _, start = device_loop
+                            self.loop.launch()
+                            replays = int(k) - start - bodies   # one read
+                            self.graph.ran(replays)
+                            count_bodies(replays)
+                            bodies += replays
+                            break
                         self.graph.replay()
                         replays += 1
                     bodies += 1
-                    if stop is not None and bool(stop):   # the host reads it
+                    # the host reads the flag (a device loop's K9 does)
+                    if stop is not None and not looped and bool(stop):
                         break
         finally:
             # raised or not: what the caller writes next (a retry rewrites
@@ -551,10 +692,11 @@ class _Kept:
     """What a split runner keeps across its calls (``make_split_runner``):
     the tensors its body reads and writes, the body and its ``Replay``."""
 
-    key: tuple        # (ops, x, labels, labels_onehot, hparams)
-    gens: tuple       # the dropout generator and remat's twin (or None)
-    opt: torch.optim.Optimizer
+    key: tuple        # (ops, x, labels, labels_onehot)
+    drop: DropoutKey  # the seed tensor (per split); its epoch is state.k
+    opt: torch.optim.Optimizer   # its lr and weight decay in tensors
     state: LoopState
+    limit: torch.Tensor          # int64: the bound k stays under this call
     masks: tuple
     packed: Optional[torch.Tensor]
     counts: Optional[torch.Tensor]
@@ -564,9 +706,8 @@ class _Kept:
 
     def same(self, key) -> bool:
         """Whether a call with ``key`` runs the same program: the same
-        objects, the same hparams."""
-        return (all(a is b for a, b in zip(self.key[:4], key[:4]))
-                and self.key[4] == key[4])
+        objects (the hparams are data: ``set_hparams``)."""
+        return all(a is b for a, b in zip(self.key, key))
 
 
 def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
@@ -579,46 +720,50 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     loads first (JAX's ``variables``); the joint loop for joint-capable
     models when ``cfg.joint``, else the sequential one.
     ``labels_onehot`` is the BCE target, ``prepare_data``'s
-    ``labels_onehot``; ``hparams``, an ``(lr, weight_decay)`` pair, builds
-    the optimizer from those values in place of the config's.  With
-    ``cfg.remat`` the train forward runs under activation checkpointing
-    (``train_forward``).
+    ``labels_onehot``; ``hparams``, an ``(lr, weight_decay)`` pair, runs
+    the optimizer with those values in place of the config's (written
+    into its tensors: ``make_optimizer``).  With ``cfg.remat`` the train
+    forward runs under activation checkpointing (``train_forward``).
+    Dropout draws under the key (``seed``, rank, epoch ``k``, site)
+    (``ops/dropout.py``), as JAX's ``fold_in(key, k)``: the sequential
+    body ``k`` and the joint body ``k`` each train epoch ``k``.
 
     Segments (JAX's ``init_state`` / ``epoch_limit``): the loop runs while
     its body counter is under ``epoch_limit`` (and its budget: ``epochs``,
     the joint loop's ``epochs + 1``), and with ``return_state`` returns
     the ``RunnerState`` the next segment starts from (``SplitState.runner``);
     ``init_state``, such a state, restores the model's
-    parameters and buffers, the optimizer, the loop state and the dropout
-    generators first, so a split run in segments equals the uninterrupted
-    run bit for bit, and a segment run twice from one state gives the same
-    result.
+    parameters and buffers, the optimizer and the loop state first (the
+    dropout keys follow from ``k``), so a split run in segments equals
+    the uninterrupted run bit for bit, and a segment run twice from one
+    state gives the same result.
 
     The loop body is JAX's (``acmgnn_tpu/train/trainer.py:234-305``,
     ``:338-426``): it keeps the split's state on the device
     (``LoopState``) and calls nothing that waits for the card.  With
     ``graph`` (the default), on a CUDA device the runner is compiled once,
     as ``jax.jit(make_split_runner(...))`` is: its first body runs
-    eagerly, the second is captured once as a ``torch.cuda.CUDAGraph``
-    and every later body, of this call and of every later one, replays
-    it (``Replay``).  ``graph=False`` runs every body eagerly (the same
-    body: the card tests and ``chip_smoke.py`` hold the two forms equal
-    bit for bit).  ``capturable`` is ``make_optimizer``'s: True on the
+    eagerly, the second is captured once as a ``torch.cuda.CUDAGraph``,
+    and every call then runs its bodies in ONE launch of a device loop
+    around that graph, whose condition ``k < limit and not stop`` K9
+    evaluates on the device after each body (``Replay``,
+    ``ops/loop.py``; JAX's ``lax.while_loop``); the host reads ``k`` once
+    after it.  ``graph=False`` runs every body eagerly from a host loop
+    that reads the stop flag after each body (the same body: the card
+    tests and ``chip_smoke.py`` hold the two forms equal bit for bit).  ``capturable`` is ``make_optimizer``'s: True on the
     CPU runs the card's optimizer arithmetic there.
 
-    Kept across calls: the optimizer, the dropout generator (with
-    ``cfg.remat`` also its twin for the recompute, drawn only by
-    recomputes; both registered with the graph), the ``LoopState`` and
-    buffers of the split's masks, packed label/mask words and mask
-    counts, all made by the first call.  A later call (a new split, a new
-    segment) writes its inputs into those tensors in place: the
-    parameters (``init_params``, ``init_state``), the optimizer's moments
-    and step (zeroed, or ``init_state``'s: ``set_optimizer_state``), the
-    loop state, the masks, the words, the counts, and the generators
-    (reseeded from ``seed``, or ``init_state``'s), then replays from its
-    first body.  The runner is made anew, with a new capture, only when
-    the captured program would differ: other ``hparams`` (they reach Adam
-    as Python numbers) or another ``ops``, ``x``, ``labels`` or
+    Kept across calls: the optimizer (its lr and weight decay in
+    tensors), the dropout key's seed tensor, the ``LoopState``, the loop's
+    bound and buffers of the split's masks, packed label/mask words and
+    mask counts, all made by the first call.  A later call (a new split,
+    a new segment, other ``hparams``) writes its inputs into those
+    tensors in place: the parameters (``init_params``, ``init_state``),
+    the optimizer's moments and step (zeroed, or ``init_state``'s:
+    ``set_optimizer_state``), its lr and weight decay, the loop state, the
+    masks, the words, the counts and the seed, then runs from its first
+    body.  The runner is made anew, with a new capture, only when the
+    captured program would differ: another ``ops``, ``x``, ``labels`` or
     ``labels_onehot`` object; ``run.captures`` records why each capture
     was made, and ``run.kept()`` returns what it keeps (None before the
     first call).  A call that raised (a retry under ``retry_transient``)
@@ -631,11 +776,11 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     the host (``capture_device``).  A sharded run on NCCL is captured as
     one card's: the collectives, the K6 packs and exchanges and ROC-AUC's
     gathered logits with K4 are recorded in the graph, and the eager
-    first body creates the NCCL communicator.  With
+    first body creates the NCCL communicator.  In the eager form, with
     ``cfg.early_stopping`` the host reads the stop flag once after every
-    body (its one wait for the card in a body); without it, not until
-    the run ends.  ``kernels.launches`` counts the launches that ran
-    (``kernels.CountedGraph``).
+    body; in the captured form the device loop reads it.
+    ``kernels.launches`` counts the launches that ran
+    (``kernels.CountedGraph``, K9's ``count_bodies``).
 
     ``group``: the process group of a sharded run, whose ranks each pass
     their slabs of the node arrays and their share of a sharded operator
@@ -649,8 +794,8 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     loop body; the sequential body takes two (its eval forward reads the
     updated parameters: the train-loss share with the gradients, then
     the eval shares); acmgcnpp's BatchNorm adds its own.  Every rank
-    reads the same stop flag.  Dropout draws from a generator seeded by
-    ``(seed, rank)``.  ROC-AUC ranks all nodes on every rank: each rank
+    reads the same stop flag.  Dropout's key holds the rank, so each
+    rank's slab draws its own masks.  ROC-AUC ranks all nodes on every rank: each rank
     gathers every rank's logits slab (``[P·rows_per_part, C]``) and the
     split's packed label/mask words in that layout (gathered once a
     split), then sorts and runs one K4 launch, so every rank reads the
@@ -744,15 +889,6 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         opt.step()
         return shares
 
-    def seed_generators(gens, seed):
-        """Seed the dropout generator and, with remat, its twin for the
-        recompute (None) from ``seed`` (sharded: and the rank)."""
-        if group is not None:
-            seed = seed * dist.get_world_size(group) + dist.get_rank(group)
-        for gen in gens:
-            if gen is not None:
-                gen.manual_seed(seed)
-
     def packed_words(labels, masks, labels_onehot):
         """The rank pass's packed label/mask words (val and test masks),
         fixed for the split; sharded, every rank's in the gathered
@@ -773,32 +909,25 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         return (evals[1] > state.best_val_metric if sel_metric
                 else evals[0] < state.best_val_loss)
 
-    def optimizer(hparams):
-        if hparams is None:
-            return make_optimizer(cfg, params, capturable=capturable)
-        return make_optimizer(cfg, params, lr=hparams[0],
-                              weight_decay=hparams[1], capturable=capturable)
-
     live: Optional[_Kept] = None   # what the runner keeps across calls
     captures = []                  # why each capture was made
 
     def start(body_of, key, masks, seed, cause):
         """The runner's tensors and body for ``key``'s inputs, the split's
         masks (copied: later splits are written into them) and ``seed``."""
-        ops, x, labels, labels_onehot, hparams = key
+        ops, x, labels, labels_onehot = key
         dev = x.device
-        gens = (torch.Generator(device=dev),
-                torch.Generator(device=dev) if cfg.remat else None)
-        seed_generators(gens, seed)
-        opt = optimizer(hparams)
+        opt = make_optimizer(cfg, params, capturable=capturable)
         masks = tuple(m.clone() for m in masks)
         packed = packed_words(labels, masks, labels_onehot)
         counts = global_counts(masks)
         state = LoopState.initial(epochs, dev)
-        return _Kept(key=key, gens=gens, opt=opt, state=state, masks=masks,
-                     packed=packed, counts=counts,
-                     loop=Replay(capture_device(dev, group, graph), gens),
-                     body=body_of(state, gens, opt, masks, packed, counts),
+        drop = DropoutKey.new(seed, _rank_and_world(group)[0], state.k)
+        return _Kept(key=key, drop=drop, opt=opt, state=state,
+                     limit=torch.zeros((), dtype=torch.int64, device=dev),
+                     masks=masks, packed=packed, counts=counts,
+                     loop=Replay(capture_device(dev, group, graph)),
+                     body=body_of(state, drop, opt, masks, packed, counts),
                      cause=cause)
 
     def rewrite(lv, masks, seed):
@@ -812,7 +941,7 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         counts = global_counts(masks)
         if counts is not None:
             lv.counts.copy_(counts)
-        seed_generators(lv.gens, seed)
+        lv.drop.set_seed(seed)
         set_optimizer_state(lv.opt)
         lv.state.reset()
 
@@ -828,39 +957,38 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         """The runner's tensors set up or rewritten for this call, the
         model and state set from ``init_params`` / ``init_state``, the loop
         up to ``budget`` bodies in all (or to ``epoch_limit``), and the
-        results; ``body_of(state, gens, opt, masks, packed, counts)``
+        results; ``body_of(state, drop, opt, masks, packed, counts)``
         makes the body."""
         nonlocal live
         t0 = time.perf_counter()
-        key = (ops, x, labels, labels_onehot,
-               None if hparams is None else tuple(map(float, hparams)))
+        key = (ops, x, labels, labels_onehot)
         if live is not None and live.same(key):
             if live.loop.busy:
                 live.cause = "a retry: the last call raised"
             rewrite(live, masks, seed)
         else:
             cause = ("the first call" if live is None else
-                     "other hparams" if live.key[4] != key[4] else
                      "other ops, x or labels")
             release()
             live = start(body_of, key, masks, seed, cause)
         lv = live
+        lv.opt.set_hparams(*((cfg.lr, cfg.weight_decay) if hparams is None
+                             else map(float, hparams)))
         if init_params is not None:
             model.load_state_dict(init_params)
         if init_state is not None:
             model.load_state_dict(init_state.variables)
             set_optimizer_state(lv.opt, init_state.opt_state)
-            for gen, st in zip(lv.gens, init_state.generators):
-                if gen is not None:
-                    gen.set_state(st)
             lv.state.copy_(init_state.loop)
         limit = budget if epoch_limit is None else min(int(epoch_limit),
                                                         budget)
         done = 0 if init_state is None else init_state.bodies
         if init_state is not None and bool(init_state.loop.stop):
             limit = done
+        lv.limit.fill_(limit)
         ran, replays, capture_ms, setup_ms = lv.loop.run(
-            lv.body, max(limit - done, 0), lv.state.stop if es else None, t0)
+            lv.body, max(limit - done, 0), lv.state.stop if es else None, t0,
+            device_loop=(lv.state.k, lv.limit, done))
         if capture_ms is not None:
             captures.append(lv.cause)
         lv.opt.zero_grad(set_to_none=True)   # frees the graph's gradients
@@ -874,9 +1002,7 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
             runner = RunnerState(
                 variables={k: v.detach().clone()
                            for k, v in model.state_dict().items()},
-                opt_state=opt_state, loop=lv.state.clone(),
-                generators=[None if g is None else g.get_state()
-                            for g in lv.gens])
+                opt_state=opt_state, loop=lv.state.clone())
         return result, SplitState(
             epoch=bodies, train_losses=lv.state.train_losses[:bodies].clone(),
             val_hist=lv.state.val_hist[:result.epochs_run].clone(),
@@ -890,11 +1016,9 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         parameters in a separate forward; stops after ``epochs`` or when
         the early-stopping rule fires (that epoch counts)."""
 
-        def body_of(s, gens, opt, masks, packed, counts):
+        def body_of(s, drop, opt, masks, packed, counts):
             def body():
-                logits = train_forward(model, x, ops, gens[0],
-                                       remat=cfg.remat,
-                                       recompute_generator=gens[1])
+                logits = train_forward(model, x, ops, drop, remat=cfg.remat)
                 loss = loss_of(logits, labels, labels_onehot, masks[0],
                                None if counts is None else counts[0])
                 # sharded: the train-loss share rides the gradients'
@@ -933,11 +1057,10 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         whose evaluation fires the early-stopping rule still applies its
         update, then the loop ends."""
 
-        def body_of(s, gens, opt, masks, packed, counts):
+        def body_of(s, drop, opt, masks, packed, counts):
             def body():
                 logits_train, logits_eval = train_forward(
-                    model, x, ops, gens[0], paired_eval=True,
-                    remat=cfg.remat, recompute_generator=gens[1])
+                    model, x, ops, drop, paired_eval=True, remat=cfg.remat)
                 loss_share = loss_of(logits_train, labels, labels_onehot,
                                      masks[0],
                                      None if counts is None else counts[0])
@@ -972,6 +1095,7 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
     runner = run_joint if joint else run
     runner.release, runner.captures = release, captures
     runner.kept = lambda: live
+    runner.model = model
     return runner
 
 
@@ -1238,10 +1362,9 @@ def run_experiment_sharded(dataset: GraphData | str, cfg: TrainConfig, *,
     k-epoch segments (the joint loop's budget is ``epochs + 1`` bodies)
     and snapshots the runner's state between them (``utils/checkpoint.py``):
     rank 0 writes the replicated state to ``split<idx>_state`` (the
-    model's ``state_dict``, the optimizer's, the loop state) and every
-    rank its dropout generators' state to ``split<idx>_rng_rank<r>``;
-    ``resume`` continues each split from them, equal bit for bit to the
-    uninterrupted run.  (Without ``checkpoint_every`` nothing is saved,
+    model's ``state_dict``, the optimizer's, the loop state; the dropout
+    keys follow from the loop's ``k``); ``resume`` continues each split
+    from it, equal bit for bit to the uninterrupted run.  (Without ``checkpoint_every`` nothing is saved,
     as in the JAX package.)
 
     ``logger``: an ``ExperimentLogger`` or any object with its ``info`` /
@@ -1313,8 +1436,8 @@ def _segmented_split(runner, model, init, args, kwargs, budget: int,
     """One split of ``run_experiment_sharded`` in ``every``-body segments
     (the JAX package's ``run_segment`` loop), each a call of the run's
     ``runner`` (which replays the run's capture): the zero-body state
-    first (the split's initial parameters ``init``, moments, loop state
-    and generators), or the snapshot at ``prefix`` when resuming; then
+    first (the split's initial parameters ``init``, moments and loop
+    state), or the snapshot at ``prefix`` when resuming; then
     segment after segment until the budget or the stop flag, each
     snapshotted.  Leaves the split's final parameters in ``model`` and
     returns its result."""
@@ -1328,9 +1451,9 @@ def _segmented_split(runner, model, init, args, kwargs, budget: int,
 
     run_segment = retry_transient(run_segment, logger=logger, agree=agree)
     state = run_segment(None, 0)
-    state_path, rng_path = f"{prefix}_state", f"{prefix}_rng_rank{rank}"
+    state_path = f"{prefix}_state"
     if resume and Path(state_path).exists():
-        state = _restore_segment(state_path, rng_path, dev)
+        state = _restore_segment(state_path, dev)
         if logger is not None:
             logger.info("%s: resumed after %d bodies", prefix, state.bodies)
     while not bool(state.loop.stop) and state.bodies < budget:
@@ -1339,26 +1462,16 @@ def _segmented_split(runner, model, init, args, kwargs, budget: int,
             save_checkpoint(state_path, state.variables,
                             opt_state=state.opt_state, step=state.bodies,
                             extra={"loop": dataclasses.asdict(state.loop)})
-        save_checkpoint(rng_path, {"generators": state.generators},
-                        step=state.bodies)
     model.load_state_dict(state.variables)
     return state.loop.result(joint)
 
 
-def _restore_segment(state_path: str, rng_path: str, dev) -> RunnerState:
-    """A ``RunnerState`` from rank 0's snapshot and this rank's
-    generators, which must come from the same segment's end."""
+def _restore_segment(state_path: str, dev) -> RunnerState:
+    """A ``RunnerState`` from rank 0's snapshot."""
     snap = restore_checkpoint(state_path, map_location=dev)
-    rng = restore_checkpoint(rng_path, map_location="cpu")
-    if rng["step"] != snap["step"]:
-        raise RuntimeError(
-            f"{rng_path} holds the generators after {rng['step']} bodies, "
-            f"{state_path} the state after {snap['step']}: not one "
-            f"segment's end")
     return RunnerState(variables=snap["variables"],
                        opt_state=snap["opt_state"],
-                       loop=LoopState(**snap["extra"]["loop"]),
-                       generators=rng["variables"]["generators"])
+                       loop=LoopState(**snap["extra"]["loop"]))
 
 
 def _experiment_result(data, cfg, results, elapsed, steady_time,
@@ -1397,7 +1510,7 @@ def _sync(dev) -> None:
 
 def run_experiment(dataset: GraphData | str, cfg: TrainConfig, *, splits=None,
                    logger=None, prepared=None, runner=None, hparams=None,
-                   device=None) -> dict:
+                   split_runner=None, device=None) -> dict:
     """Multi-split experiment, the counterpart of the JAX package's
     ``run_experiment``: returns its result dict (test mean/std, per-split
     test metrics, epochs, run time, ``epoch_ms_avg`` and
@@ -1415,18 +1528,26 @@ def run_experiment(dataset: GraphData | str, cfg: TrainConfig, *, splits=None,
     (skips preprocessing); ``runner(model, ops, x, labels, masks, *,
     seed, labels_onehot, hparams)`` runs one split from the model's
     current parameters (the split's initial ones) in place of the run's
-    split runner; ``hparams = (lr, weight_decay)`` builds the optimizer
-    from those values.  ``logger``: an ``ExperimentLogger`` or any object
-    with its ``info`` / ``log_split`` / ``log_result``."""
+    split runner; ``hparams = (lr, weight_decay)`` runs the optimizer with
+    those values in place of the config's (written into the runner's
+    optimizer tensors).  ``split_runner``, a ``make_split_runner`` runner
+    kept across runs (the sweep keeps one a dropout value), takes the
+    place of the run's own: its model takes each split's initial
+    parameters, and the run builds no model and no runner.  ``logger``: an
+    ``ExperimentLogger`` or any object with its ``info`` / ``log_split`` /
+    ``log_result``."""
     data, ops, x, labels, labels_onehot, nclass = (
         prepared if prepared is not None
         else prepare_data(dataset, cfg, device=device))
     dev = x.device
     nfeat, nnodes = x.shape[1], x.shape[0]
-    model = build_model(cfg, nfeat, nclass, device=dev, seed=cfg.seed,
-                        nnodes=nnodes)
+    if split_runner is not None:
+        model = split_runner.model
+    else:
+        model = build_model(cfg, nfeat, nclass, device=dev, seed=cfg.seed,
+                            nnodes=nnodes)
     if runner is None:
-        split_runner = make_split_runner(model, cfg)
+        split_runner = split_runner or make_split_runner(model, cfg)
 
         def runner(model, *args, **kwargs):
             return split_runner(*args, **kwargs)
@@ -1471,12 +1592,11 @@ def make_epoch_fns(model: ACMGNN, cfg: TrainConfig):
     """One-epoch-at-a-time train and eval functions of the observable
     path (JAX ``make_epoch_fns``):
 
-    - ``train_epoch(opt, generator, ops, x, labels, labels_onehot,
-      train_mask, recompute_generator=None)``: one dropout forward
-      (checkpointed with ``cfg.remat``, the recompute drawing from
-      ``recompute_generator``, by default a copy of ``generator``'s
-      state), backward and optimizer step, in place; returns the train
-      loss;
+    - ``train_epoch(opt, key, ops, x, labels, labels_onehot,
+      train_mask)``: one dropout forward under ``key``
+      (``ops/dropout.DropoutKey``: the split's seed, the epoch;
+      checkpointed with ``cfg.remat``), backward and optimizer step, in
+      place; returns the train loss;
     - ``eval_epoch(ops, x, labels, labels_onehot, masks, packed)``: one
       eval forward; ``{"train_metric", "val_metric", "test_metric",
       "val_loss"}`` (ROC-AUC: one score sort serves the three masks;
@@ -1493,12 +1613,8 @@ def make_epoch_fns(model: ACMGNN, cfg: TrainConfig):
             return masked_bce_with_logits(logits, labels_onehot, mask)
         return masked_nll(torch.log_softmax(logits, dim=1), labels, mask)
 
-    def train_epoch(opt, generator, ops, x, labels, labels_onehot,
-                    train_mask, recompute_generator=None):
-        if cfg.remat and generator is not None and recompute_generator is None:
-            recompute_generator = generator.clone_state()
-        logits = train_forward(model, x, ops, generator, remat=cfg.remat,
-                               recompute_generator=recompute_generator)
+    def train_epoch(opt, key, ops, x, labels, labels_onehot, train_mask):
+        logits = train_forward(model, x, ops, key, remat=cfg.remat)
         loss = loss_of(logits, labels, labels_onehot, train_mask)
         opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -1520,19 +1636,6 @@ def make_epoch_fns(model: ACMGNN, cfg: TrainConfig):
     return train_epoch, eval_epoch
 
 
-def epoch_seed(seed: int, epoch: int) -> int:
-    """The dropout seed of the stepwise path's epoch ``epoch`` in the split
-    seeded ``seed``, derived from ``(seed, epoch)`` (JAX ``fold_in(run_key,
-    epoch)``): an epoch draws the same masks however it is reached."""
-    return int(np.random.SeedSequence((seed, epoch)).generate_state(1)[0])
-
-
-def epoch_generator(device, seed: int, epoch: int) -> torch.Generator:
-    """A new generator seeded with ``epoch_seed(seed, epoch)``: the state
-    the stepwise path's generator starts that epoch from."""
-    return torch.Generator(device=device).manual_seed(epoch_seed(seed, epoch))
-
-
 # the stepwise epoch's readings, in the order of its device buffer
 EPOCH_READS = ("loss", "train_metric", "val_metric", "test_metric",
                "val_loss")
@@ -1549,8 +1652,8 @@ def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
     split's test metric is the one at its best-val epoch.
 
     Set up once per run, as JAX jits ``train_epoch`` and ``eval_epoch``
-    once: the model, the optimizer, one dropout generator (with
-    ``cfg.remat`` its twin for the recompute) and the epoch functions.
+    once: the model, the optimizer, the dropout key and the epoch
+    functions.
     Split ``idx`` loads ``build_model(..., seed=cfg.seed + idx)``'s
     parameters into the model (``initial_params``), zeroes the optimizer's
     state in place and writes its masks (as in ``run_experiment``) and
@@ -1560,10 +1663,12 @@ def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
     ``graph`` (the default) on the card the epoch is one CUDA graph
     (``Replay``): the run's first executed epoch runs eagerly, the second
     is captured, and every later epoch, of every split, replays it;
-    ``graph=False`` (and the CPU) runs the same epoch eagerly.  Before
-    each epoch the generator (and its twin) is reseeded from
-    ``epoch_seed(cfg.seed + idx, epoch)``, so an epoch draws the masks of
-    a fresh ``epoch_generator`` however it is reached.
+    ``graph=False`` (and the CPU) runs the same epoch eagerly.  Dropout
+    draws under the key (``cfg.seed + idx``, rank 0, epoch, site), the
+    epoch written into its device tensor before each epoch: JAX's
+    ``fold_in(run_key, epoch)``, so an epoch draws the same masks however
+    it is reached, and the same masks as ``run_experiment``'s sequential
+    loop in the same split.
     ``epoch_ms_steady`` leaves out the epochs that pay set-up: the eager
     first epoch and the capturing one (without a capture, the first
     executed epoch).
@@ -1590,16 +1695,16 @@ def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
                         nnodes=nnodes)
     opt = make_optimizer(cfg, list(model.parameters()))
     train_epoch, eval_epoch = make_epoch_fns(model, cfg)
-    gens = (torch.Generator(device=dev),
-            torch.Generator(device=dev) if cfg.remat else None)
-    loop = Replay(capture_device(dev, graph=graph), gens)
+    key = DropoutKey.new(cfg.seed, 0, torch.zeros((), dtype=torch.int64,
+                                                  device=dev))
+    loop = Replay(capture_device(dev, graph=graph))
     reads = torch.zeros(len(EPOCH_READS), dtype=torch.float64, device=dev)
     bufs = []        # the split's masks and packed words, written in place
 
     def one_epoch():
         masks, packed = bufs
-        loss = train_epoch(opt, gens[0], ops, x, labels, labels_onehot,
-                           masks[0], recompute_generator=gens[1])
+        loss = train_epoch(opt, key, ops, x, labels, labels_onehot,
+                           masks[0])
         ev = eval_epoch(ops, x, labels, labels_onehot, masks, packed)
         reads.copy_(torch.stack([
             v.reshape(()).to(torch.float64)
@@ -1631,6 +1736,7 @@ def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
         model.load_state_dict(initial_params(
             cfg, nfeat, nclass, seed=cfg.seed + idx, nnodes=nnodes))
         set_optimizer_state(opt)
+        key.set_seed(cfg.seed + idx)
         best_val = -math.inf
         start_epoch = 0
         last_path = hist_path = None
@@ -1658,10 +1764,7 @@ def run_experiment_stepwise(dataset: GraphData | str, cfg: TrainConfig, *,
         for e in range(start_epoch, cfg.epochs):
 
             def do_epoch():
-                seed = epoch_seed(cfg.seed + idx, e)
-                for gen in gens:
-                    if gen is not None:
-                        gen.manual_seed(seed)
+                key.epoch.fill_(e)
                 _, replays, capture_ms, _ = loop.run(one_epoch, 1)
                 return replays, capture_ms, reads.tolist()
 

@@ -31,13 +31,16 @@ Phases (any failure exits non-zero and prints no result):
 3. The main path: ``prepare_data``, ``build_model`` and ``run_joint`` of
    the headline ACM-GCN+ configuration at full width (hidden 64, bf16
    gathers), in the runner's default form on the card (the first body
-   eagerly, every later one a replay of one captured CUDA graph),
+   eagerly, then one captured CUDA graph run by a device loop, one
+   launch a call: K9 evaluates the stop rule after each body),
    warm-up then timed epochs; ms/epoch over the run and over the
-   replays, the capture's ms, finite losses, and every kernel's launch
-   count (launches that ran: a replay counts its graph's) against the
-   count the path implies; then a torch.profiler window over the
-   replays: device time by kernel group, device operations, the
-   device's busy share and the host's waits for it per epoch.
+   looped bodies, the capture's ms, finite losses, and every kernel's
+   launch count (launches that ran: a looped body counts its graph's)
+   against the count the path implies, K8 (dropout) as
+   ``k8_per_body`` implies and K9 once a launch and once a body; then a
+   torch.profiler window over the looped bodies: device time by kernel
+   group, device operations, the device's busy share and the host's
+   waits for it per epoch.
 4. Card against CPU on a small graph (dropout 0, f32 gathers, 20 epochs):
    final parameters and split results agree.
 5. The genius-shaped ROC-AUC path (bench.py's genius scenario: Chung-Lu
@@ -56,10 +59,11 @@ Phases (any failure exits non-zero and prints no result):
       the sequential loop (without and with early stopping), captured as
       in phase 3: ms/epoch, the capture's ms, finite losses, best
       val/test ROC-AUC, launch counts against the counts each path
-      implies, and a profiler window; then (d) the cost of the per-epoch
-      stop-flag read in the captured form, timed over alternating pairs
-      of full-length sequential runs, and each arm's host waits per
-      epoch (none without early stopping, one with it);
+      implies, and a profiler window; then (d) the cost of the early
+      stopping rule in the captured form (K9 reads the flag on the
+      device), timed over alternating pairs of full-length sequential
+      runs, each a new runner and each on one kept runner (one launch a
+      run), and each arm's host waits per epoch;
    c. card against CPU on a small genius stand-in (joint ELL and joint
       COO over 40 epochs, sequential with an early stop that fires).
 6. The sharded path (the graph row-partitioned over ranks; K6 packs each
@@ -125,15 +129,16 @@ Phases (any failure exits non-zero and prints no result):
       forward's launches counted), bf16 features with bf16 GEMMs, AdamW,
       the RCM reorder (and the host seconds of the order); then each knob
       card against CPU on phase 4's small graph.
-8. The captured split loop against the eager one (``make_split_runner(...,
-   graph=False)``):
+8. The captured split loop (a device loop around one graph) against the
+   eager one (``make_split_runner(..., graph=False)``):
    a. 20 epochs of each form from the same parameters and seed on the
       headline (with and without remat) and on genius joint ELL, joint
       COO, sequential, and sequential with early stopping: parameters,
       train-loss and val-loss histories, best metrics and epochs_run bit
       for bit; launch counts equal, and as each path implies; no
-      occupancy query in the captured run; the capture's ms and both
-      forms' peak memory;
+      occupancy query in the captured run; the captured body's node
+      types (what a conditional body may hold); the capture's ms and
+      both forms' peak memory;
    b. on the headline and genius joint ELL, alternating pairs of the two
       forms: ms/epoch over the run and over the replays, medians and
       quartiles, the pairs won; one profile of each form.
@@ -195,8 +200,8 @@ Phases (any failure exits non-zero and prints no result):
       epochs and resumed (the snapshots, histories, best weights and
       results equal bit for bit),
       ``predict`` (logits equal to an eval forward of the checkpoint),
-      COO training (K5), ``homophily``, a 2 x 2 ``sweep`` (one capture a
-      grid point; each point equal to its own ``run_experiment``),
+      COO training (K5), ``homophily``, a 2 x 2 x 2 ``sweep`` (one
+      capture a dropout value; each point equal to its eager form),
       ``gen-graphs``, ``gen-feats``
       from cora-shaped Planetoid files and ``synthetic-train``.
 
@@ -251,8 +256,19 @@ Phases (any failure exits non-zero and prints no result):
       (its 4-rank form is an 11c case);
    f. the headline at world size 1 over NCCL with ``checkpoint_every``
       (2 splits x 10 epochs, segments of 4 bodies): one capture for the
-      run, every segment of both splits a replay of it, equal bit for bit
-      to the run without checkpoints.
+      run, every segment of both splits one device-loop launch, equal bit
+      for bit to the run without checkpoints and to the segments' eager
+      form.
+
+12. The kernels with no TPU counterpart: K8 (counter-based dropout) bit
+   for bit against its plain version, forward and backward, f32 and
+   bf16, at the headline's widths, and at wiki's full input and hidden
+   element counts (one launch each, slabs held to the plain version);
+   timed in turns beside the bound, the plain version and ``F.dropout`` /
+   ``native_dropout_backward``; K9's device
+   loop against its plain condition (limit, stop flag, a limit already
+   reached) and its cost an iteration over 10,000 one-kernel bodies
+   beside a replay a body with the host reading the condition.
 
 The line before the last is the kernel table as JSON (every row with
 ``ms`` and ``device_ms``, ``library_ms`` and ``library_device_ms``); the
@@ -275,6 +291,9 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32, outside the tensor cores
+# H100 SXM 32-bit integer operations: 64 INT32 lanes an SM x 132 SMs x
+# 1.98 GHz boost (the Hopper white paper's SM), one operation a lane
+INT32_OPS = 16.7e12
 WARM_EPOCHS, TIMED_EPOCHS, PROFILE_EPOCHS = 2, 10, 8
 GENIUS_TIMED_EPOCHS, GENIUS_SEQ_EPOCHS, GENIUS_ES = 20, 40, 5
 
@@ -1174,11 +1193,13 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
         cfg, epochs=timed_epochs), group=group)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res, state = timed(ops, x, y, masks, seed=2, return_state=True,
-                       labels_onehot=y1h)
+    with _loop_launches() as launched:
+        res, state = timed(ops, x, y, masks, seed=2, return_state=True,
+                           labels_onehot=y1h)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(kernels.launches)
+    launched[0] += int(warm_state.capture_ms is not None)
     bodies = warm_state.epoch + state.epoch
     ms_run = 1e3 * dt / state.epoch
     if not state.replays:
@@ -1202,8 +1223,13 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
         fail(f"{tag} non-finite training loss")
     want = expected(bodies)
     print(f"{tag} launches {json.dumps(counts, sort_keys=True)}")
-    if counts != want:
+    if without_loop_kernels(counts) != want:
         fail(f"{tag} launch counts {counts} != expected {want}")
+    if state.replays and launched[0] != 2:
+        fail(f"{tag} {launched[0]} device-loop launches for the warm-up "
+             f"and the timed run, not one each")
+    check_loop_kernels(tag, counts, cfg, bodies, launched[0],
+                       warm_state.replays + state.replays)
     groups = {}
     if profile:
         def run_of(epochs):
@@ -1251,15 +1277,21 @@ def phase_genius_paths(adj, feats, labels, masks_np):
     return out
 
 
+KEPT_PAIRS = 6                   # 5d's pairs on kept runners (steady)
+
+
 def phase_stop_flag_cost(data, masks_np, pairs: int = 10):
-    """What the sequential loop pays for reading the early-stopping flag
-    on the host once per epoch, in the captured form: runs of
-    ``GENIUS_SEQ_EPOCHS`` epochs without early stopping and with it
-    (window ``GENIUS_ES``), in alternating pairs, then one profile of
-    each arm (the host's waits for the device per epoch: none without
-    the rule, one with it).  Both arms get an empty val mask, so the val
-    loss is 0 every epoch: the rule is read after every epoch and never
-    fires, and both arms do the same device work."""
+    """What the sequential loop pays for its early-stopping rule in the
+    captured form (since PR 15 a device loop whose K9 reads the flag; PR
+    14's host read it once an epoch): runs of ``GENIUS_SEQ_EPOCHS`` epochs
+    without early stopping and with it (window ``GENIUS_ES``), in
+    alternating pairs, each a new runner (its eager first body and
+    capture inside the timed run, as before PR 15); then the same pairs
+    on one kept runner per arm, each call one device-loop launch and one
+    read of ``k`` (the steady cost, without a capture's host noise); then
+    one profile of each arm (the host's waits for the device per epoch).
+    Both arms get an empty val mask, so the val loss is 0 every epoch: the
+    rule is evaluated after every epoch and never fires."""
     import torch
 
     from acmgnn_tpu_torch.train.trainer import (
@@ -1293,13 +1325,38 @@ def phase_stop_flag_cost(data, masks_np, pairs: int = 10):
     # the host's contention only ever adds time, so each arm's fastest run
     # is its least disturbed one
     low = min(ms[GENIUS_ES]) - min(ms[0])
-    print(f"[5d] stop-flag read, sequential loop (captured), "
+    kept = {es: make_split_runner(model, dataclasses.replace(
+        cfg, early_stopping=es)) for es in (0, GENIUS_ES)}
+    for run in kept.values():          # the eager first body, the capture
+        run(ops, x, y, masks, labels_onehot=y1h)
+    steady = {0: [], GENIUS_ES: []}
+    for i in range(KEPT_PAIRS):
+        for es in ((0, GENIUS_ES) if i % 2 == 0 else (GENIUS_ES, 0)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = kept[es](ops, x, y, masks, seed=i, labels_onehot=y1h)
+            torch.cuda.synchronize()
+            if res.epochs_run != GENIUS_SEQ_EPOCHS:
+                fail(f"[5d] early_stopping={es} stopped at {res.epochs_run}")
+            steady[es].append(1e3 * (time.perf_counter() - t0)
+                              / GENIUS_SEQ_EPOCHS)
+    s_diffs = sorted(b - a for a, b in zip(steady[0], steady[GENIUS_ES]))
+    s_median = float(np.median(s_diffs))
+    print(f"[5d] steady (one kept runner per arm, one device-loop launch a "
+          f"run): ms/epoch without {[round(v, 4) for v in steady[0]]}, with "
+          f"{[round(v, 4) for v in steady[GENIUS_ES]]}; paired differences "
+          f"{[round(v, 4) for v in s_diffs]}, median {s_median:.4f} "
+          f"ms/epoch ({CARD_LINE}); prediction (PERF.md, PR 15) within "
+          f"+-0.03: {'held' if abs(s_median) <= 0.03 else 'missed'}")
+    print(f"[5d] stop rule, sequential loop (captured: a device loop whose "
+          f"K9 reads the flag; the host reads k once a run), "
           f"{GENIUS_SEQ_EPOCHS} epochs per run, {pairs} alternating pairs: "
           f"ms/epoch without {[round(v, 3) for v in ms[0]]}, with "
           f"early_stopping={GENIUS_ES} {[round(v, 3) for v in ms[GENIUS_ES]]}"
           f"; paired differences {[round(v, 3) for v in diffs]}, median "
           f"{median:.3f}; fastest with minus fastest without {low:.3f} "
-          f"ms/epoch")
+          f"ms/epoch ({CARD_LINE}); prediction (PERF.md, PR 15) within "
+          f"+-0.03: {'held' if abs(median) <= 0.03 else 'missed'}")
     for es in (0, GENIUS_ES):
         def run_of(epochs, es=es):
             c = dataclasses.replace(cfg, epochs=epochs, early_stopping=es)
@@ -1309,6 +1366,220 @@ def phase_stop_flag_cost(data, masks_np, pairs: int = 10):
         phase_profile(f"[5d early_stopping={es}]", run_of,
                       epochs=PROFILE_EPOCHS + GENIUS_ES)
     return median
+
+
+K8_REPLACES = ("none (flax nn.Dropout under fold_in(run_key, epoch), "
+               "acmgnn_tpu/train/trainer.py:235; XLA's, not a Pallas kernel)")
+K9_REPLACES = ("none (the lax.while_loop condition, "
+               "acmgnn_tpu/train/trainer.py:296; XLA's, not a Pallas kernel)")
+K8_SHAPE = (168_114, 64)         # the headline's hidden width (layer 1's
+#                                  output, the site with a backward)
+K9_BODIES = 10_000
+
+
+def _k8_bound(elems, read, write):
+    """K8's least time: ``read`` and ``write`` bytes an element, or its
+    Philox work (10 rounds of 4 multiplies and 4 other 32-bit operations
+    for four elements, and the threshold: ~12 an element) at the card's
+    32-bit integer rate, whichever is larger."""
+    t_bytes = 1e3 * elems * (read + write) / HBM_BYTES_PER_S
+    t_ops = 1e3 * elems * 12 / INT32_OPS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _k8_wiki_slabs(D, key, gen):
+    """K8 at wiki's full input: one launch over ``[WIKI n, WIKI f]`` f32
+    (1.16e9 elements, 4.6 GB), and its hidden ``[WIKI n, 64]``, each held
+    bit for bit to ``dropout_plain`` on slabs of 2^20 elements: the first,
+    seven spread through the tensor, and the last, which starts off a
+    multiple of 4 (the plain version over the whole would need ~25 GB of
+    int64 temporaries).  The counter's high word stays 0 at this count
+    (it counts Philox calls, 4 elements each, from 2^32: 2^34 elements,
+    twice the card's memory in f32).  Returns the elements checked."""
+    import torch
+
+    checked = 0
+    for width in (WIKI["f"], K8_SHAPE[1]):
+        h = torch.randn(WIKI["n"], width, generator=gen, device="cuda")
+        out = D._launch(h, 0.5, key, 3).reshape(-1)
+        flat = h.reshape(-1)
+        n = flat.numel()
+        slab = min(1 << 20, n // 9)
+        starts = [0] + [(n // 8) * j + 4 * j + 1 for j in range(1, 8)] + [
+            n - slab]
+        for s0 in starts:
+            if not torch.equal(out[s0:s0 + slab], D.dropout_plain(
+                    flat[s0:s0 + slab], 0.5, key, 3, start=s0)):
+                fail(f"[12] K8 at [{WIKI['n']}, {width}] f32 differs from "
+                     f"its plain version in elements {s0}..{s0 + slab}")
+            checked += slab
+        del h, out, flat
+    torch.cuda.empty_cache()
+    return checked
+
+
+def phase_loop_kernels(counts):
+    """[12] K8 (dropout) and K9 (the device loop's condition), the two
+    kernels of this slice with no TPU counterpart.  K8 bit for bit
+    against its plain version, forward and backward, f32 and bf16, at the
+    headline's widths (input 7, hidden 64, N=168,114) and after its epoch
+    tensor changed, and at wiki's full element counts (``_k8_wiki_slabs``);
+    timed in turns at the hidden width beside the bound, the plain version
+    and ``F.dropout`` / ``native_dropout_backward``.  K9: a device loop of
+    a one-kernel body stops where its plain condition stops it (the
+    limit, a stop flag the body sets, a limit already reached); its cost
+    per iteration over ``K9_BODIES`` bodies in one launch beside the same
+    body replayed once a body with the host reading the condition (the
+    eager loop's form).  Returns the kernel rows (launches from phase
+    3's main path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from acmgnn_tpu_torch.ops import dropout as D
+    from acmgnn_tpu_torch.ops.loop import DeviceLoop, loop_condition
+    from acmgnn_tpu_torch.train import trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    epoch = torch.tensor(7, device="cuda")
+    key = D.DropoutKey.new(3, 0, epoch)
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for width in (7, K8_SHAPE[1]):
+            h = torch.randn(K8_SHAPE[0], width, generator=gen,
+                            device="cuda").to(dtype)
+            g = torch.randn(K8_SHAPE[0], width, generator=gen, device="cuda")
+            for e in (7, 8):
+                epoch.fill_(e)
+                out = D._launch(h, 0.5, key, 1)
+                back = D._launch(g, 0.5, key, 1, name="k8_dropout_bwd")
+                if not (torch.equal(out, D.dropout_plain(h, 0.5, key, 1))
+                        and torch.equal(back, D.dropout_plain(
+                            g, 0.5, key, 1))):
+                    fail(f"[12] K8 {dtype} w{width} epoch {e} differs from "
+                         f"its plain version")
+                checked += 1
+    epoch.fill_(7)
+    wiki_checked = _k8_wiki_slabs(D, key, gen)
+    n = K8_SHAPE[0] * K8_SHAPE[1]
+    h = torch.randn(*K8_SHAPE, generator=gen, device="cuda")
+    g = torch.randn(*K8_SHAPE, generator=gen, device="cuda")
+    forms = {
+        "fwd": lambda: D._launch(h, 0.5, key, 1),
+        "bwd": lambda: D._launch(g, 0.5, key, 1, name="k8_dropout_bwd"),
+    }
+    t = {k: [] for k in forms}
+    for i in range(4):
+        for k in (forms if i % 2 == 0 else reversed(list(forms))):
+            t[k].append(time_ms(forms[k], 50))
+    ms = {k: float(np.median(v)) for k, v in t.items()}
+    dev = {k: device_ms(f) for k, f in forms.items()}
+    plain_ms = time_ms(lambda: D.dropout_plain(h, 0.5, key, 1), 5)
+    lib_f = lambda: F.dropout(h, 0.5, True)          # noqa: E731
+    _, lib_mask = torch.ops.aten.native_dropout(h, 0.5, True)
+    lib_b = lambda: torch.ops.aten.native_dropout_backward(  # noqa: E731
+        g, lib_mask, 2.0)
+    lib = {"fwd": (time_ms(lib_f, 50), device_ms(lib_f)),
+           "bwd": (time_ms(lib_b, 50), device_ms(lib_b))}
+    print(f"[12] K8 bit-equal to its plain version in {checked} cases "
+          f"(fwd and bwd; f32, bf16; w7, w64 at N={K8_SHAPE[0]}; two "
+          f"epochs) and on {wiki_checked} elements of one launch each at "
+          f"[{WIKI['n']}, {WIKI['f']}] and [{WIKI['n']}, {K8_SHAPE[1]}] "
+          f"f32 (18 slabs); at {list(K8_SHAPE)} f32, medians of 4 turns: "
+          f"fwd {ms['fwd']:.4f} ms (device {_ms(dev['fwd'])}), bwd "
+          f"{ms['bwd']:.4f} ({_ms(dev['bwd'])}); plain {plain_ms:.3f}; "
+          f"F.dropout {lib['fwd'][0]:.4f} (device {_ms(lib['fwd'][1])}), "
+          f"native_dropout_backward {lib['bwd'][0]:.4f} "
+          f"({_ms(lib['bwd'][1])}) ({CARD_LINE})")
+    rows = []
+    for side in ("fwd", "bwd"):
+        b_ms, b_by = _k8_bound(n, 4, 4)
+        rows.append(dict(
+            name=f"k8_dropout_{side}_d{K8_SHAPE[1]}",
+            counter=f"k8_dropout_{side}", route="cuda",
+            source="acmgnn_tpu_torch/csrc/dropout.cu", replaces=K8_REPLACES,
+            max_abs_err=0.0, ms=ms[side], device_ms=dev[side],
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib[side][0], library_device_ms=lib[side][1],
+            path="headline (twitch-gamers, joint, ELL): launches phase 3, "
+                 "timed phase 12",
+            launches=counts.get(f"k8_dropout_{side}", 0)))
+
+    # K9: a body of one kernel that sets the stop flag at k == stop_at
+    k = torch.zeros((), dtype=torch.int64, device="cuda")
+    limit = torch.zeros((), dtype=torch.int64, device="cuda")
+    stop = torch.zeros((), dtype=torch.bool, device="cuda")
+    stop_at = torch.tensor(37, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        def body():
+            k.add_(1)
+            torch.ge(k, stop_at, out=stop)
+
+        body()
+        graph = trainer._capture(body, keep_graph=True)
+        loop = DeviceLoop(graph.graph, k, limit, stop)
+
+        def run(start, lim, at):
+            k.fill_(start)
+            stop.zero_()
+            limit.fill_(lim)
+            stop_at.fill_(at)
+            loop.launch()
+            return int(k)
+
+        def plain(start, lim, at):
+            kk = start
+            while bool(loop_condition(torch.tensor(kk), torch.tensor(lim),
+                                      torch.tensor(kk >= at and kk != start))):
+                kk += 1
+            return kk
+
+        cases = [(0, 50, 37), (0, 20, 37), (5, 5, 37), (0, 1, 37)]
+        got = [run(*c) for c in cases]
+        want = [plain(*c) for c in cases]
+        if got != want:
+            fail(f"[12] K9's loop stopped at {got}, its plain condition at "
+                 f"{want}")
+        stop_at.fill_(2 ** 62)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        k.zero_()
+        limit.fill_(K9_BODIES)
+        t0.record()
+        loop.launch()
+        t1.record()
+        t1.synchronize()
+        loop_ms = t0.elapsed_time(t1) / K9_BODIES
+        k.zero_()
+        limit.fill_(200)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        while bool(loop_condition(k, limit, stop)):
+            graph.replay()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - h0) / 200
+        loop.destroy()
+        graph.graph.reset()
+    torch.cuda.current_stream().wait_stream(side)
+    b_ms = 1e3 * (8 + 8 + 1) / HBM_BYTES_PER_S
+    print(f"[12] K9: the device loop stops where its plain condition does "
+          f"({list(zip(cases, got))}: (k, limit, stop at) -> k); "
+          f"{loop_ms:.5f} ms an iteration over {K9_BODIES} bodies of one "
+          f"kernel in one launch (K9, the conditional node and the body), "
+          f"against {host_ms:.4f} ms a body replayed with the host reading "
+          f"the condition after each ({CARD_LINE})")
+    rows.append(dict(
+        name="k9_loop_cond", counter=LOOP_COUNTER, route="cuda",
+        source="acmgnn_tpu_torch/csrc/loop.cu", replaces=K9_REPLACES,
+        max_abs_err=0.0, ms=loop_ms, device_ms=loop_ms, plain_ms=host_ms,
+        bound_ms=b_ms, bound_by="bytes", library_ms=None,
+        library_device_ms=None,
+        path="headline (twitch-gamers, joint, ELL): launches phase 3, "
+             "timed phase 12",
+        launches=counts.get(LOOP_COUNTER, 0)))
+    return rows
 
 
 def _kernel_group(name: str) -> str:
@@ -1325,6 +1596,10 @@ def _kernel_group(name: str) -> str:
         return "K5 coo"
     if "halo_pack_kernel" in name:
         return "K6 halo pack"
+    if "dropout_kernel" in name:
+        return "K8 dropout"
+    if "loop_cond_kernel" in name:
+        return "K9 loop condition"
     if "nccl" in low:
         return "NCCL collectives"
     if "sort" in low:
@@ -1344,12 +1619,20 @@ def _kernel_group(name: str) -> str:
 ANNOTATION = re.compile(r"[\w.]+#[\w.]+")
 
 
-def replay_window(events):
+LOOP_MARK = "acm.device_loop"
+
+
+def replay_window(events, bodies=None):
     """Where the steady bodies of a profiled split run begin on the host's
     clock, and how many there are, from a torch.profiler window's
-    ``events``: captured, at the end of the capture
-    (``cudaGraphInstantiate``), one body per ``cudaGraphLaunch`` after it;
-    eager, ``(-inf, None)``: the whole run."""
+    ``events``: in a device loop (``LOOP_MARK`` ranges around its
+    launches), at the first launch, with the run's ``bodies`` less the
+    eager first; replayed a body at a time, at the end of the capture
+    (``cudaGraphInstantiate``), one body per ``cudaGraphLaunch`` after
+    it; eager, ``(-inf, None)``: the whole run."""
+    loops = [e.time_range.start for e in events if e.name == LOOP_MARK]
+    if loops and bodies is not None:
+        return min(loops), bodies - 1
     ends = [e.time_range.end for e in events
             if e.name.startswith("cudaGraphInstantiate")]
     if not ends:
@@ -1394,6 +1677,86 @@ def _bodies(cfg, res) -> int:
                                 and cfg.model_type in JOINT_CAPABLE)
 
 
+LOOP_COUNTER = "k9_loop_cond"
+
+
+def without_loop_kernels(counts):
+    """``counts`` without K8's and K9's counters: the launch counts that
+    the path's ``expected`` functions hold (K1-K7); K8 and K9 are held on
+    their own (``check_loop_kernels``, phase 12)."""
+    return {k: v for k, v in counts.items()
+            if not k.startswith(("k8_", "k9_"))}
+
+
+def k8_per_body(cfg):
+    """K8's (forward, backward) launches per loop body for the ACM
+    models the paths run: the input and layer 1's output are dropped in
+    the train branch (acmgcnpp also its skip branch), and the input's
+    backward is never launched (the features take no gradient); remat's
+    recompute draws every forward site again; None where the rule is not
+    written down (other model types)."""
+    if cfg.dropout == 0.0:
+        return 0, 0
+    sites = {"acmgcn": 2, "acmgcnp": 2, "acmgcnpp": 3}.get(cfg.model_type)
+    if sites is None:
+        return None
+    return sites * (2 if cfg.remat else 1), sites - 1
+
+
+def check_loop_kernels(tag, counts, cfg, bodies, loop_launches, replays):
+    """K8 as ``k8_per_body`` implies for ``bodies`` bodies (at least one
+    launch where the rule is not written down), and K9 once per device
+    loop launch plus once per body it ran (``replays``)."""
+    per = k8_per_body(cfg)
+    got = (counts.get("k8_dropout_fwd", 0), counts.get("k8_dropout_bwd", 0))
+    if per is None:
+        ok = got[0] > 0
+    else:
+        ok = got == (per[0] * bodies, per[1] * bodies)
+    k9 = counts.get(LOOP_COUNTER, 0)
+    print(f"{tag} K8 launches (fwd, bwd) {got}"
+          + ("" if per is None else f", {per} a body expected")
+          + f"; K9 {k9} ({loop_launches} device-loop launches, {replays} "
+          f"bodies in them)")
+    if not ok:
+        fail(f"{tag} K8 launches {got} for {bodies} bodies, expected "
+             f"{per} a body")
+    if k9 != loop_launches + replays:
+        fail(f"{tag} K9 ran {k9} times, not {loop_launches} + {replays}")
+
+
+@contextlib.contextmanager
+def _loop_launches():
+    """Counts ``DeviceLoop.launch`` calls in the block (one a runner call
+    on the card).  Yields a one-element list."""
+    from acmgnn_tpu_torch.ops.loop import DeviceLoop
+
+    made = [0]
+
+    def make(launch):
+        def wrapper(self):
+            made[0] += 1
+            return launch(self)
+        return wrapper
+
+    with _wrapped(DeviceLoop, "launch", make):
+        yield made
+
+
+def body_node_types(runner):
+    """The node types of ``runner``'s captured body (``ops.loop.node_types``)
+    as ``{type: count}``, None before a capture."""
+    import collections
+
+    from acmgnn_tpu_torch.ops.loop import node_types
+
+    kept = runner.kept()
+    if kept is None or kept.loop.graph is None:
+        return None
+    return dict(collections.Counter(
+        t for t in node_types(kept.loop.graph.graph) if t not in "[]"))
+
+
 def phase_profile(tag, run_of, epochs=PROFILE_EPOCHS, ops_out=None):
     """Device time by kernel group, device operations, the device's busy
     share and the host's waits for the device, per steady loop body:
@@ -1420,8 +1783,20 @@ def phase_profile(tag, run_of, epochs=PROFILE_EPOCHS, ops_out=None):
             return capture(*a, **k)
         return wrapper
 
+    from acmgnn_tpu_torch.ops.loop import DeviceLoop
+
+    def marked(launch):
+        # the loop's launch on the profiler's clock: the window starts
+        # there (the capture's graph is not instantiated on its own)
+        def wrapper(self):
+            torch.cuda.synchronize()
+            with torch.profiler.record_function(LOOP_MARK):
+                return launch(self)
+        return wrapper
+
     torch.cuda.synchronize()
     with _wrapped(trainer, "_capture", settled), \
+            _wrapped(DeviceLoop, "launch", marked), \
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1429,12 +1804,14 @@ def phase_profile(tag, run_of, epochs=PROFILE_EPOCHS, ops_out=None):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     events = list(prof.events())
-    start, replays = replay_window(events)
+    start, replays = replay_window(events, bodies)
     dev, end = device_ops(events, start)
     form = "eager: the whole run"
     if replays is not None:
         bodies, wall_us = replays, (end - start if dev else 0.0)
-        form = "captured: the replays, from the end of the capture"
+        form = ("captured: the device loop's bodies, from its launch"
+                if any(e.name == LOOP_MARK for e in events) else
+                "captured: the replays, from the end of the capture")
     host = [e for e in events if "cuda" not in str(e.device_type).lower()
             and e.time_range.start >= start]
     n_ops = sum(cnt for _, cnt in dev.values())
@@ -1474,8 +1851,10 @@ def phase_profile(tag, run_of, epochs=PROFILE_EPOCHS, ops_out=None):
     print(f"{tag} host self time by operation (profiler on), top 8: "
           + "; ".join(f"{key[:40]} {us / 1e3 / bodies:.3f} ms "
                       f"x{cnt / bodies:.1f}" for key, (us, cnt) in top))
-    # captured: the waits between the first replay's launch and the
-    # last one's, per interval (the run's closing waits fall after it)
+    # replayed a body at a time: the waits between the first replay's
+    # launch and the last one's, per interval (the run's closing waits
+    # fall after it); a device loop is one launch, whose run ends in the
+    # host's one read of k: its waits are counted over its bodies
     launches = sorted(e.time_range.start for e in events
                       if e.name == "cudaGraphLaunch"
                       and e.time_range.start >= start)
@@ -2113,13 +2492,15 @@ def _sharded_split(prep, cfg, masks_np, group, graph=True):
         nnodes = prep.data.num_nodes
     kernels.reset_launches()
     model = build_model(cfg, x.shape[1], nclass, seed=2, nnodes=nnodes)
-    with _collectives_captured() as seen:
-        res, state = make_split_runner(model, cfg, group=group,
-                                       graph=graph)(
-            *args, seed=5, labels_onehot=y1h, return_state=True)
+    runner = make_split_runner(model, cfg, group=group, graph=graph)
+    with _collectives_captured() as seen, _loop_launches() as launched:
+        res, state = runner(*args, seed=5, labels_onehot=y1h,
+                            return_state=True)
     torch.cuda.synchronize()
-    return dict(res=res, state=state, counts=dict(kernels.launches),
-                collectives=seen[0],
+    return dict(res=res, state=state,
+                counts=_loop_counted(dict(kernels.launches), state,
+                                     launched[0]),
+                collectives=seen[0], nodes=body_node_types(runner),
                 params={k: v.detach().clone()
                         for k, v in model.state_dict().items()})
 
@@ -2141,7 +2522,9 @@ def sharded_capture_equality(tag, prep, cfg, masks_np, group, collectives):
           f"{captured['res'].epochs_run}; launches equal "
           f"{eager['counts'] == captured['counts']}; the runner's "
           f"all-reduces recorded in the graph: {captured['collectives']} a "
-          f"replay (expected {collectives})")
+          f"replay (expected {collectives}); the captured body's node "
+          f"types {captured['nodes']} (a device loop's body takes kernel, "
+          f"memset, memcpy, empty, child-graph and conditional nodes)")
     if (eager["state"].capture_ms is not None or capture_ms is None
             or eager["counts"] != captured["counts"]):
         fail(f"{tag} the eager and captured forms differ in form or "
@@ -2641,7 +3024,7 @@ def _experiment(tag, data, cfg, expected, prepared=None):
           f"{peak:.0f} MiB; {json.dumps(out)}")
     want = expected(bodies)
     print(f"{tag} launches {json.dumps(counts, sort_keys=True)}")
-    if counts != want:
+    if without_loop_kernels(counts) != want:
         fail(f"{tag} launch counts {counts} != expected {want}")
     if not np.isfinite(out["test_mean"]) or out["epoch_ms_steady"] is None:
         fail(f"{tag} no finite result")
@@ -2720,7 +3103,8 @@ def phase_stepwise(data, cfg):
               f"{sum(c[1] for c in calls)} replays, captures "
               f"{[round(c[2], 1) for c in calls if c[2] is not None]} ms; "
               f"launches {json.dumps(counts, sort_keys=True)}")
-        if counts != want or eager_counts != want:
+        if (without_loop_kernels(counts) != want or counts != eager_counts
+                or LOOP_COUNTER in counts):
             fail(f"[7b] stepwise launch counts {counts} (eager "
                  f"{eager_counts}) != expected {want}")
         if rows != eager_rows or len(rows) != epochs:
@@ -2782,9 +3166,10 @@ def phase_entry_points(adj, feats, labels):
     out["remat"] = _experiment(
         "[7c remat]", data, dataclasses.replace(knob, remat=True),
         lambda b: remat_counts(b, setup=0), prepared)
-    print("[7c] remat runs in the captured form: its recompute draws from "
-          "a twin of the dropout generator, both registered with the graph "
-          "(phase 8a holds the captured form to the eager one bit for bit)")
+    print("[7c] remat runs in the captured form: its recompute draws the "
+          "forward's masks from the same keys (seed, epoch, site), nothing "
+          "restored (phase 8a holds the captured form to the eager one bit "
+          "for bit)")
     print(f"[7c] peak memory: plain {out['plain'][2]:.0f} MiB, remat "
           f"{out['remat'][2]:.0f} MiB; ms/epoch steady: plain "
           f"{out['plain'][0]['epoch_ms_steady']:.3f}, remat "
@@ -3040,14 +3425,29 @@ def _split(prepared, cfg, masks, graph, seed=7):
     base = torch.cuda.memory_allocated()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res, state = make_split_runner(model, cfg, graph=graph)(
-        ops, x, y, masks, seed=seed, labels_onehot=y1h, return_state=True)
+    runner = make_split_runner(model, cfg, graph=graph)
+    with _loop_launches() as launched:
+        res, state = runner(ops, x, y, masks, seed=seed, labels_onehot=y1h,
+                            return_state=True)
     torch.cuda.synchronize()
     return dict(res=res, state=state, wall=time.perf_counter() - t0,
-                counts=dict(kernels.launches),
+                counts=_loop_counted(dict(kernels.launches), state,
+                                     launched[0]),
                 peak=(torch.cuda.max_memory_allocated() - base) / 2**20,
                 params={k: p.detach().clone()
-                        for k, p in model.state_dict().items()})
+                        for k, p in model.state_dict().items()},
+                nodes=body_node_types(runner))
+
+
+def _loop_counted(counts, state, launched):
+    """``counts`` without K9's counter, which must read one launch per
+    device loop launched plus one per body it ran (none eager); a loop
+    launched at all must be the call's one launch."""
+    k9 = counts.pop(LOOP_COUNTER, 0)
+    if launched > 1 or k9 != launched + (state.replays if launched else 0):
+        fail(f"K9 ran {k9} times in {launched} device-loop launches of "
+             f"{state.replays} bodies")
+    return counts
 
 
 def _bit_equal(tag, eager, captured):
@@ -3089,7 +3489,7 @@ def phase_capture_equality(cases):
         bodies = captured["state"].epoch
         want = expected(bodies)
         if eager["counts"] != captured["counts"] or \
-                captured["counts"] != want:
+                without_loop_kernels(captured["counts"]) != want:
             fail(f"[8a {tag}] launch counts eager {eager['counts']}, "
                  f"captured {captured['counts']}, expected {want}")
         print(f"[8a {tag}] eager and captured, {cfg.epochs} epochs "
@@ -3097,7 +3497,10 @@ def phase_capture_equality(cases):
               f"tensors: best metrics, train-loss and val-loss histories, "
               f"parameters), epochs_run {captured['res'].epochs_run}, "
               f"{bodies} bodies; launch counts equal and as expected "
-              f"{json.dumps(want, sort_keys=True)}; capture "
+              f"{json.dumps(want, sort_keys=True)} (K8 "
+              f"{captured['counts'].get('k8_dropout_fwd', 0)} fwd, "
+              f"{captured['counts'].get('k8_dropout_bwd', 0)} bwd); body "
+              f"node types {captured['nodes']}; capture "
               f"{captured['state'].capture_ms:.1f} ms; the run's peak memory "
               f"above its inputs: eager {eager['peak']:.0f} MiB, captured "
               f"{captured['peak']:.0f} MiB")
@@ -4017,6 +4420,7 @@ def phase_cli_genius(root, ms_5b):
     # that are not uniform: its ELL halves carry values (K1's valued form)
     bodies = CLI_SPLITS * (CLI_EPOCHS + 1)
     want = valued(joint_counts(bodies, "k1_spmm", 12, k4=True))
+    counts = without_loop_kernels(counts)
     print(f"[10a] cli train: {t_cli:.1f} s (prepare, {CLI_SPLITS} splits, "
           f"profiler trace written); launches "
           f"{json.dumps(counts, sort_keys=True)}")
@@ -4269,26 +4673,39 @@ def phase_cli_small(root):
     print(f"[10b] homophily = the metrics on the loaded arrays: {hom}")
 
     grid = {"lr": [0.01, 0.05], "weight_decay": [0.0, 5e-4],
-            "dropout": [0.5]}
+            "dropout": [0.0, 0.5]}
     with _Recording(trainer, "run_experiment") as points, \
-            _captured_runs("[10b] sweep", captures=4):
+            _captured_runs("[10b] sweep", captures=2) as calls:
         best, _ = _cli(["sweep"] + base + logs + [
             "--epochs", "10", "--grid", json.dumps(grid)])
-    if len(points) != 4:
-        fail(f"[10b] sweep ran {len(points)} grid points, not 4")
-    for p in points:
-        ref = trainer.run_experiment(name, trainer.TrainConfig(**p["config"]))
-        if ref["per_split"] != p["per_split"]:
+    if len(points) != 8:
+        fail(f"[10b] sweep ran {len(points)} grid points, not 8")
+
+    def eager(model, *args, **kwargs):
+        return trainer.make_split_runner(model, cfg_p, graph=False)(
+            *args, **kwargs)
+
+    # the last (lr, wd) point of each dropout value: its runner's
+    # hyperparameters rewritten three times since its capture
+    for p in (points[3], points[7]):
+        cfg_p = trainer.TrainConfig(**p["config"])
+        ref = trainer.run_experiment(name, cfg_p, runner=eager)
+        if (ref["per_split"] != p["per_split"]
+                or ref["epochs_total"] != p["epochs_total"]):
             fail(f"[10b] sweep point {p['config']['lr']}, "
-                 f"{p['config']['weight_decay']}: {p['per_split']} != its "
-                 f"own run_experiment {ref['per_split']}")
+                 f"{p['config']['weight_decay']}, "
+                 f"{p['config']['dropout']}: {p['per_split']} != its eager "
+                 f"form (graph=False) {ref['per_split']}")
     if best["test_mean"] != max(p["test_mean"] for p in points):
         fail(f"[10b] sweep best {best['test_mean']} is not the highest")
-    print(f"[10b] sweep 2 x 2 (lr x wd), dropout 0.5, one capture a grid "
-          f"point: each point = its own run_experiment bit for bit; best "
+    print(f"[10b] sweep 2 x 2 x 2 (lr x wd x dropout), {len(calls)} runner "
+          f"calls, 2 captures (one a dropout value; (lr, wd) written into "
+          f"the optimizer's tensors): the last (lr, wd) point of each "
+          f"dropout value = its eager form (graph=False) bit for bit; best "
           f"test_mean "
           f"{best['test_mean']:.4f} at lr {best['config']['lr']}, wd "
-          f"{best['config']['weight_decay']}")
+          f"{best['config']['weight_decay']}, dropout "
+          f"{best['config']['dropout']}")
 
     _write_planetoid_files(root, "cora")
     syn = root / "synthetic"
@@ -4678,6 +5095,7 @@ def phase_wiki_sharded():
               f"within 1% of 22.65 GiB: {peak:.3f}, "
               f"{'held' if abs(peak / 22.65 - 1) <= 0.01 else 'missed'}")
     want = wiki_counts(out["epochs_total"])
+    counts = without_loop_kernels(counts)
     print(f"[11a] launches {json.dumps(counts, sort_keys=True)}")
     if counts != want:
         fail(f"[11a] launch counts {counts} != expected {want}")
@@ -5268,8 +5686,9 @@ def _check_zoo_case(tag, data, cfg, run, gaps, trajectory=True):
 
 
 def resume11_config(joint):
-    """Phase 11d's runs: the headline model at dropout 0.5 (the
-    generators' states matter), 2 splits x ``RESUME_EPOCHS``; the
+    """Phase 11d's runs: the headline model at dropout 0.5 (each
+    segment's masks follow from the snapshot's loop counter), 2 splits x
+    ``RESUME_EPOCHS``; the
     sequential case with the structure channel."""
     over = dict(dropout=0.5, lr=1e-3, weight_decay=0.0, num_splits=2,
                 epochs=RESUME_EPOCHS, spmm_dtype="bfloat16", seed=0)
@@ -5282,8 +5701,9 @@ def _resume_rank(rank, world, store_path, out_dir):
     """One rank of phase 11d: for the joint and the sequential loop, the
     run without checkpoints, the checkpointed run, and the checkpointed
     run cut right after the last split's snapshot at half its epochs
-    (every rank raises there) and resumed; results, parameters and each
-    snapshot's tensors written for the parent."""
+    (every rank raises at its next segment's runner call) and resumed;
+    results, parameters and each snapshot's tensors written for the
+    parent."""
     import torch
     import torch.distributed as dist
 
@@ -5301,7 +5721,7 @@ def _resume_rank(rank, world, store_path, out_dir):
     class Cut(Exception):
         pass
 
-    save = trainer.save_checkpoint
+    make = trainer.make_split_runner
     for joint in (True, False):
         cfg = resume11_config(joint)
         base = f"{out_dir}/ckpt-{int(joint)}"
@@ -5316,31 +5736,35 @@ def _resume_rank(rank, world, store_path, out_dir):
                         params={k: v.cpu()
                                 for k, v in model.state_dict().items()})
 
-        def save_then_cut(path, *a, step=0, **k):
-            out = save(path, *a, step=step, **k)
-            if (f"split{cfg.num_splits - 1}_rng" in str(path)
-                    and step >= cfg.epochs // 2):
-                raise Cut(path)
-            return out
+        def cutting(model, c, **kw):
+            runner = make(model, c, **kw)
+
+            def call(*a, **k):
+                st = k.get("init_state")
+                if (k.get("seed") == c.seed + c.num_splits - 1
+                        and st is not None and st.bodies >= c.epochs // 2):
+                    raise Cut(st.bodies)
+                return runner(*a, **k)
+            return call
 
         out = {"plain": run(None, False), "whole": run(f"{base}/whole",
                                                        False)}
-        trainer.save_checkpoint = save_then_cut
+        trainer.make_split_runner = cutting
         try:
             run(f"{base}/cut", False)
             raise RuntimeError("the run was not cut")
         except Cut:
             pass
         finally:
-            trainer.save_checkpoint = save
+            trainer.make_split_runner = make
+        dist.barrier()
         out["resumed"] = run(f"{base}/cut", True)
         dist.barrier()
         for name in ("whole", "cut"):
             d = f"{base}/{name}"
             out[f"snap_{name}"] = {
                 f: restore_checkpoint(f"{d}/{f}", map_location="cpu")
-                for f in sorted(os.listdir(d))
-                if f.endswith("_state") or f.endswith(f"rng_rank{rank}")}
+                for f in sorted(os.listdir(d)) if f.endswith("_state")}
         torch.save(out, f"{out_dir}/resume-{int(joint)}-rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -5351,8 +5775,8 @@ def phase_resume_sharded():
     run without checkpoints bit for bit (per-split test metrics, epochs,
     the last split's parameters and buffers), and the resumed run's last
     snapshots equal the uninterrupted run's (parameters, Adam's moments
-    and step, the loop state with its loss and val histories, the rank's
-    generators); for the joint and the sequential loop."""
+    and step, the loop state with its loss and val histories); for the
+    joint and the sequential loop."""
     import shutil
 
     import torch
@@ -5427,9 +5851,11 @@ def phase_segments_nccl(adj, feats, labels):
     runs = {}
     init_distributed_nccl()
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            for name, kw in (("plain", {}), ("segments", dict(
-                    checkpoint_dir=tmp, checkpoint_every=SEGMENT_EVERY))):
+        for name, kw in (("plain", {}), ("segments", dict(
+                checkpoint_every=SEGMENT_EVERY))):
+            with tempfile.TemporaryDirectory() as tmp:
+                if kw:
+                    kw["checkpoint_dir"] = tmp
                 t0 = time.perf_counter()
                 with _captured_runs(f"[11f {name}]") as calls:
                     out, model = trainer.run_experiment_sharded(
@@ -5438,8 +5864,22 @@ def phase_segments_nccl(adj, feats, labels):
                 runs[name] = (out, {k: v.detach().clone() for k, v in
                                     model.state_dict().items()},
                               calls, time.perf_counter() - t0)
+        # the segments' eager form: the same host loop without a capture
+        with tempfile.TemporaryDirectory() as tmp, \
+                _wrapped(trainer, "capture_device",
+                         lambda f: lambda *a, **k: None):
+            out, model = trainer.run_experiment_sharded(
+                data, cfg, return_model=True, checkpoint_dir=tmp,
+                checkpoint_every=SEGMENT_EVERY)
+        runs["eager"] = (out, {k: v.detach().clone() for k, v in
+                               model.state_dict().items()})
     finally:
         dist.destroy_process_group()
+    e_out, e_params = runs["eager"]
+    if (e_out["per_split"] != runs["segments"][0]["per_split"]
+            or not _tree_equal(e_params, runs["segments"][1])):
+        fail(f"[11f] the looped segments {runs['segments'][0]} differ from "
+             f"their eager form {e_out}")
     (p_out, p_params, _, p_s), (s_out, s_params, calls, s_s) = (
         runs["plain"], runs["segments"])
     if (p_out["per_split"] != s_out["per_split"]
@@ -5455,7 +5895,8 @@ def phase_segments_nccl(adj, feats, labels):
           f"too): per_split {s_out['per_split']}, {len(s_params)} tensors; "
           f"{s_s:.1f} s against {p_s:.1f} s, epoch_ms_steady "
           f"{s_out['epoch_ms_steady']:.3f} against "
-          f"{p_out['epoch_ms_steady']:.3f} ({CARD_LINE})")
+          f"{p_out['epoch_ms_steady']:.3f} ({CARD_LINE}); the segments "
+          f"equal their eager form (graph=False) bit for bit")
 
 
 def phase_sharded_zoo(g_adj, g_feats, g_labels, adj, feats, labels):
@@ -5523,6 +5964,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def lap(phases):
+        print(f"[t] phases {phases} done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     phase_environment()
     t0 = time.perf_counter()
     adj, feats, labels = twitch_gamers_scale_graph(0)
@@ -5533,7 +5979,12 @@ def main() -> int:
     for row in rows:
         row.update(path="headline (twitch-gamers, joint, ELL)",
                    launches=counts.get(row["counter"], 0))
+    l_rows = phase_loop_kernels(counts)
+    for row in l_rows:
+        if row["launches"] == 0:
+            fail(f"{row['name']} was not launched on its path")
     phase_card_vs_cpu()
+    lap("1-4, 12")
 
     t0 = time.perf_counter()
     g_adj, g_feats, g_labels = linkx_scale_graph("genius")
@@ -5551,6 +6002,7 @@ def main() -> int:
                    launches=paths[key][0].get(row["counter"], 0))
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on its path")
+    lap(5)
 
     s_rows = phase_sharded_kernels(adj, feats)
     s1_counts, s_ms = phase_sharded_main_path(adj, feats, labels, ms_epoch)
@@ -5572,6 +6024,7 @@ def main() -> int:
                            row["counter"], 0))
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on its path")
+    lap(6)
 
     p_rows = phase_probe()
     entry = phase_entry_points(adj, feats, labels)
@@ -5579,6 +6032,7 @@ def main() -> int:
     phase_optimizer_check()
     capture = phase_capture(adj, feats, labels, g_adj, g_feats, g_labels,
                             g_masks)
+    lap("7-8")
 
     t0 = time.perf_counter()
     p_adj, p_feats, p_labels = linkx_scale_graph("penn94_pp")
@@ -5596,7 +6050,9 @@ def main() -> int:
                                                           dense, zoo)
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on its path")
+    lap(9)
     cli_out = phase_cli(paths["ell"][4])
+    lap(10)
     w_rows, w_secs = phase_sharded_zoo(g_adj, g_feats, g_labels, adj, feats,
                                        labels)
     steady = {k: entry[k][0]["epoch_ms_steady"]
@@ -5634,8 +6090,8 @@ def main() -> int:
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in rows + g_rows + s_rows + p_rows
-                                  + i_rows + w_rows]}))
+                                  for r in rows + l_rows + g_rows + s_rows
+                                  + p_rows + i_rows + w_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -157,26 +157,33 @@ class Cut(Exception):
 
 def cut_resumed(run, epochs, last_split, ckpt_dir):
     """``run(checkpoint_dir, resume)`` cut right after the first snapshot
-    of split ``last_split`` at half the epochs or later (every rank cuts
-    there, after writing its generators), then run again with
-    ``resume``: the resumed run's result and model."""
-    save = trainer.save_checkpoint
+    of split ``last_split`` at half the epochs or later: every rank cuts
+    at the next segment's call of the runner, after rank 0 wrote the
+    snapshot; then, once every rank is there, run again with ``resume``:
+    the resumed run's result and model."""
+    make = trainer.make_split_runner
 
-    def save_then_cut(path, *args, step=0, **kwargs):
-        out = save(path, *args, step=step, **kwargs)
-        if (f"split{last_split}_rng" in str(path)
-                and step >= epochs // 2):
-            raise Cut(path)
-        return out
+    def cutting(model, cfg, **kwargs):
+        runner = make(model, cfg, **kwargs)
 
-    trainer.save_checkpoint = save_then_cut
+        def run_segment(*args, **kw):
+            st = kw.get("init_state")
+            if (kw.get("seed") == cfg.seed + last_split and st is not None
+                    and st.bodies >= epochs // 2):
+                raise Cut(st.bodies)
+            return runner(*args, **kw)
+        return run_segment
+
+    trainer.make_split_runner = cutting
     try:
         run(ckpt_dir, False)
         raise AssertionError("the run was not cut")
     except Cut:
         pass
     finally:
-        trainer.save_checkpoint = save
+        trainer.make_split_runner = make
+    if dist.is_initialized():
+        dist.barrier()
     return run(ckpt_dir, True)
 
 
@@ -215,7 +222,7 @@ def snapshot_arrays(ckpt_dir, rank):
             out[name] = np.asarray(tree)
 
     for f in sorted(os.listdir(ckpt_dir)):
-        if f.endswith(f"rng_rank{rank}") or f.endswith("_state"):
+        if f.endswith("_state"):
             walk(restore_checkpoint(os.path.join(ckpt_dir, f)), f)
     return out
 

@@ -31,6 +31,7 @@ from acmgnn_tpu.train import trainer as jtrainer
 from acmgnn_tpu_torch.data.synthetic_scale import twitch_gamers_scale_graph
 from acmgnn_tpu_torch.models import layers
 from acmgnn_tpu_torch.models.convert import params_from_flax
+from acmgnn_tpu_torch.ops import dropout as dropout_mod
 from acmgnn_tpu_torch.ops import ell
 from acmgnn_tpu_torch.ops.graph import GraphData, locality_order
 from acmgnn_tpu_torch.train import TrainConfig, run_experiment
@@ -254,9 +255,9 @@ def test_run_experiment_stepwise_rocauc_matches_jax(graph, monkeypatch):
 def test_stepwise_refuses_checkpointing(graph, tmp_path):
     """Checkpointing runs on both paths and refuses nothing: the stepwise
     path writes the best and the whole-state snapshots and the history;
-    the sharded path, with ``checkpoint_every``, its segments' state and
-    this rank's generators (without it, as in the JAX package, nothing;
-    ``resume`` without snapshots starts afresh)."""
+    the sharded path, with ``checkpoint_every``, its segments' state alone
+    (dropout keeps no generator state to save; without it, as in the JAX
+    package, nothing; ``resume`` without snapshots starts afresh)."""
     cfg = TrainConfig(**dict(BASE, epochs=2, num_splits=1))
     for kw in (dict(checkpoint_dir=str(tmp_path / "none")),
                dict(checkpoint_every=2), dict(resume=True)):
@@ -267,7 +268,7 @@ def test_stepwise_refuses_checkpointing(graph, tmp_path):
                                    checkpoint_dir=str(tmp_path / "sharded"),
                                    checkpoint_every=1)
     assert {p.name for p in (tmp_path / "sharded").iterdir()} == {
-        "split0_state", "split0_rng_rank0"}
+        "split0_state"}
     trainer.run_experiment_stepwise(_data(graph), cfg, device="cpu",
                                     checkpoint_dir=str(tmp_path / "step"),
                                     checkpoint_every=1)
@@ -330,9 +331,11 @@ def _assert_split_close(res, params, jres, jparams, tol_params, tol_scalars):
 
 @pytest.mark.parametrize("joint", (True, False))
 def test_remat_leaves_training_unchanged_with_dropout(graph, joint):
-    """remat replays the dropout masks in the recompute: at dropout 0.5
-    the parameters after 6 epochs equal the plain run's (the same
-    arithmetic; 1e-6 for the backward's rounding)."""
+    """remat's recompute draws the forward's dropout masks with no twin
+    generator and nothing restored (a mask is a function of the key and
+    the site, and the recompute numbers its sites as the forward did): at
+    dropout 0.5 the parameters after 6 epochs equal the plain run's (the
+    same arithmetic; 1e-6 for the backward's rounding)."""
     cfg_kw = dict(BASE, dropout=0.5, epochs=6, joint=joint)
     res0, p0 = _one_split(graph, cfg_kw, seed=4)
     res1, p1 = _one_split(graph, dict(cfg_kw, remat=True), seed=4)
@@ -350,7 +353,10 @@ def test_remat_recomputes_every_forward_launch(graph, monkeypatch):
     (torch's non-reentrant checkpoint stops there): the eval branch's
     layer-2 K2, the forward's last launch, feeds metrics only and is not
     re-run; the set-up gather and the backward's K1/K3 calls are
-    unchanged."""
+    unchanged.  Dropout (K8's plain version) is called at the forward's
+    two sites, the input and layer 1's output, in the train branch only;
+    remat's recompute calls both again, and the backward calls none on
+    the CPU (the plain version's gradient is autograd's)."""
     calls = {}
 
     def counted(name, fn):
@@ -361,7 +367,8 @@ def test_remat_recomputes_every_forward_launch(graph, monkeypatch):
 
     for mod, name in ((ell, "row_gather_spmm"),
                       (layers, "attention_mix_forward"),
-                      (layers, "attention_mix_backward")):
+                      (layers, "attention_mix_backward"),
+                      (dropout_mod, "dropout_plain")):
         monkeypatch.setattr(mod, name, counted(name, getattr(mod, name)))
     import acmgnn_tpu_torch.ops.spmm as spmm_mod
     monkeypatch.setattr(spmm_mod, "row_gather_spmm", ell.row_gather_spmm)
@@ -375,10 +382,12 @@ def test_remat_recomputes_every_forward_launch(graph, monkeypatch):
     fwd_gathers = 2 * bodies                      # input + layer-2 gathers
     assert plain == {"row_gather_spmm": 1 + fwd_gathers + bodies,
                      "attention_mix_forward": 4 * bodies,
-                     "attention_mix_backward": 2 * bodies}
+                     "attention_mix_backward": 2 * bodies,
+                     "dropout_plain": 2 * bodies}
     assert remat == {"row_gather_spmm": 1 + 2 * fwd_gathers + bodies,
                      "attention_mix_forward": 7 * bodies,
-                     "attention_mix_backward": 2 * bodies}
+                     "attention_mix_backward": 2 * bodies,
+                     "dropout_plain": 4 * bodies}
 
 
 def test_remat_matches_jax_remat(graph):
@@ -639,13 +648,17 @@ def test_card_check_of_adamw_is_well_conditioned():
 
 def test_adamw_at_lr_0_01_parts_at_a_relu_input_near_zero(monkeypatch):
     """Why 7c's AdamW trajectory runs at lr 1e-3: at phase 4's lr 0.01 the
-    card parts from the CPU by 1.092e-2 after 20 epochs (H100 80GB HBM3,
-    700 W), and so do two summation orders of the CPU port with no card
-    involved (ELL and COO at 8 threads).  The two runs agree to rounding
-    until one ReLU input lies within rounding of zero and takes opposite
-    signs in them; from there the final parameters part past 1e-4.  The
-    optimizer's arithmetic at lr 0.01 is held apart from any trajectory
-    (``test_optimizer_check_holds_the_cards_form``)."""
+    card parted from the CPU by 1.092e-2 after 20 epochs (H100 80GB HBM3,
+    700 W, the model seeded 3), and so do two summation orders of the CPU
+    port with no card involved (ELL and COO at 8 threads).  The two runs
+    agree to rounding until one ReLU input lies within rounding of zero
+    and takes opposite signs in them; from there the final parameters
+    part past 1e-4.  Whether a realization meets such an input depends on
+    the rounding: since the CPU's card form divides by lr as the card
+    does (a multiply by its f32 reciprocal, not the CPU's division) the
+    model seeded 3 crosses none in 20 epochs here, the one seeded 8 does.
+    The optimizer's arithmetic at lr 0.01 is held apart from any
+    trajectory (``test_optimizer_check_holds_the_cards_form``)."""
     import chip_smoke
 
     cfg0 = chip_smoke.knob_check_config(optimizer="adamw")
@@ -669,7 +682,7 @@ def test_adamw_at_lr_0_01_parts_at_a_relu_input_near_zero(monkeypatch):
             _, ops, x, y, _, nclass = trainer.prepare_data(data, cfg,
                                                            device="cpu")
             model = trainer.build_model(cfg, x.shape[1], nclass,
-                                        device="cpu", seed=3)
+                                        device="cpu", seed=8)
             monkeypatch.setattr(torch, "relu", recorded)
             trainer.make_split_runner(model, cfg, capturable=True)(
                 ops, x, y, masks)

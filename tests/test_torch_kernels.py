@@ -25,6 +25,7 @@ the card tests hold the compiled kernels to those.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 import subprocess
@@ -196,6 +197,14 @@ def test_wrappers_refuse_a_device_without_kernel():
         rocauc_from_sorted(s, order, packed, 2, False)
     with pytest.raises(ValueError, match="CUDA"):
         halo_pack(x, torch.empty_like(x, dtype=torch.bfloat16))
+    from acmgnn_tpu_torch.ops.dropout import DropoutKey, dropout
+    from acmgnn_tpu_torch.ops.loop import DeviceLoop
+
+    k = torch.zeros((), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        dropout(x, 0.5, DropoutKey.new(0, 0, k), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        DeviceLoop(None, k, k)
 
 
 def test_port_imports_no_jax():
@@ -544,7 +553,8 @@ def test_run_joint_card_matches_cpu_and_counts_launches(cuda):
             assert dict(kernels.launches) == {
                 "k1_spmm_w7": 1, "k1_spmm_w8": it, "k1_spmm_w4": it,
                 "k2_attn_fwd_d16": 2 * it, "k2_attn_fwd_d2": 2 * it,
-                "k3_attn_bwd_d16": it, "k3_attn_bwd_d2": it}
+                "k3_attn_bwd_d16": it, "k3_attn_bwd_d2": it,
+                LOOP_COUNTER: it}
     for k, ref in params["cpu"].items():
         np.testing.assert_allclose(params["cuda"][k].numpy(), ref.numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=k)
@@ -616,12 +626,14 @@ def _run_form(data, cfg, masks_np, graph):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", tuple(CAPTURE_CASES))
 def test_captured_loop_equals_eager_bit_for_bit(cuda, case):
-    """Each body after the first replayed from one CUDA graph gives the
-    eager loop's run bit for bit: parameters, the train-loss and val-loss
-    histories, best metrics and ``epochs_run``; the dropout generator (and
-    remat's twin) advance as eagerly; ``kernels.launches`` counts the same
-    launches; the capture asks K2/K3's occupancy of no new instance (its
-    buffers are aligned as the eager ones)."""
+    """Every body after the first run by one launch of the device loop
+    around one CUDA graph (K9 deciding after each body) gives the eager
+    loop's run bit for bit: parameters, the train-loss and val-loss
+    histories, best metrics and ``epochs_run`` (an early stop at the same
+    epoch); dropout draws the eager run's masks (K8 keyed by the loop's
+    counter); ``kernels.launches`` counts the same launches, and K9 once
+    more than the replayed bodies; the capture asks K2/K3's occupancy of
+    no new instance (its buffers are aligned as the eager ones)."""
     data, cfg, masks_np = _capture_case(case)
     eager = _run_form(data, cfg, masks_np, False)
     resident = set(layers._resident)
@@ -638,6 +650,7 @@ def test_captured_loop_equals_eager_bit_for_bit(cuda, case):
     assert torch.equal(se.val_hist, sc.val_hist)
     for k in pe:
         assert torch.equal(pe[k], pc[k]), k
+    assert cc.pop(LOOP_COUNTER) == sc.replays + 1
     assert ce == cc
 
 
@@ -682,6 +695,7 @@ def test_sharded_nccl_capture_equals_eager(cuda, case):
         dist.destroy_process_group()
     (re, se, pe, ce), (rc, sc, pc, cc) = runs
     assert se.capture_ms is None and sc.capture_ms is not None
+    assert cc.pop(LOOP_COUNTER) == sc.replays + 1
     assert re.epochs_run == rc.epochs_run and ce == cc
     for f in ("test_metric", "val_metric", "val_loss", "train_loss"):
         assert torch.equal(getattr(re, f), getattr(rc, f)), f
@@ -693,9 +707,11 @@ def test_sharded_nccl_capture_equals_eager(cuda, case):
 
 @pytest.mark.gpu
 def test_captured_loop_counts_launches_per_replay(cuda):
-    """The captured joint loop counts one body's launches per replay and
-    none at the capture: at 12 and at 20 epochs the counts are what the
-    run's bodies imply (dropout 0: both layer-1 branches read x_agg)."""
+    """The captured joint loop counts one body's launches per body the
+    device loop ran and none at the capture: at 12 and at 20 epochs the
+    counts are what the run's bodies imply (dropout 0: both layer-1
+    branches read x_agg, and K8 runs nowhere), K9 once a body after the
+    eager first and once before them."""
     data, cfg, masks_np = _capture_case("joint_ell")
     for epochs in (12, 20):
         run_cfg = dataclasses.replace(cfg, dropout=0.0, epochs=epochs,
@@ -704,7 +720,7 @@ def test_captured_loop_counts_launches_per_replay(cuda):
         assert _run_form(data, run_cfg, masks_np, True)[3] == {
             "k1_spmm_w7": 1, "k1_spmm_w8": it, "k1_spmm_w4": it,
             "k2_attn_fwd_d16": 2 * it, "k2_attn_fwd_d2": 2 * it,
-            "k3_attn_bwd_d16": it, "k3_attn_bwd_d2": it}
+            "k3_attn_bwd_d16": it, "k3_attn_bwd_d2": it, LOOP_COUNTER: it}
 
 
 def _same_tree(a, b) -> bool:
@@ -737,6 +753,27 @@ class _Splits:
         pass
 
 
+LOOP_COUNTER = "k9_loop_cond"
+
+
+@contextlib.contextmanager
+def _loop_launches():
+    """How many times a device loop is launched inside the block."""
+    from acmgnn_tpu_torch.ops.loop import DeviceLoop
+
+    launch, made = DeviceLoop.launch, [0]
+
+    def counted(self):
+        made[0] += 1
+        launch(self)
+
+    DeviceLoop.launch = counted
+    try:
+        yield made
+    finally:
+        DeviceLoop.launch = launch
+
+
 @pytest.fixture
 def captures(monkeypatch):
     """How many CUDA graphs ``trainer._capture`` records while the test
@@ -758,10 +795,11 @@ def captures(monkeypatch):
 @pytest.mark.parametrize("case", ("joint_ell_remat", "joint_pp_batchnorm",
                                   "sequential_rocauc"))
 def test_one_capture_a_run_equals_a_capture_a_split(cuda, case, captures):
-    """``run_experiment`` (3 splits) captures once and replays that graph
-    in splits 1 and 2, each written in place (parameters, moments, loop
-    state, masks, generators); every split's result equals, bit for bit,
-    the same run with a fresh model and runner (and capture) a split."""
+    """``run_experiment`` (3 splits) captures once and runs every split in
+    one launch of the device loop around that graph, each written in
+    place (parameters, moments, loop state, masks, the dropout seed);
+    every split's result equals, bit for bit, the same run with a fresh
+    model and runner (and capture) a split; each split is one launch."""
     from acmgnn_tpu_torch.train import trainer
 
     data, cfg, _ = _capture_case(case)
@@ -778,10 +816,12 @@ def test_one_capture_a_run_equals_a_capture_a_split(cuda, case, captures):
 
         captures[0] = 0
         log = _Splits()
-        trainer.run_experiment(data, cfg, logger=log,
-                               runner=hook if fresh else None)
+        with _loop_launches() as launched:
+            trainer.run_experiment(data, cfg, logger=log,
+                                   runner=hook if fresh else None)
         runs.append(log.results)
         assert captures[0] == (3 if fresh else 1)
+        assert launched[0] == 3
     for a, b in zip(*runs):
         assert a.epochs_run == b.epochs_run
         for f in ("test_metric", "val_metric", "val_loss", "train_loss"):
@@ -791,28 +831,30 @@ def test_one_capture_a_run_equals_a_capture_a_split(cuda, case, captures):
 @pytest.mark.gpu
 def test_a_failed_replay_is_retried_on_a_new_capture(cuda, captures,
                                                      monkeypatch):
-    """A transient failure raised by a replay in split 1: the split is
-    retried, the runner discards the graph it was replaying, runs its
-    first body eagerly and captures anew (2 captures in the run), and
-    every split's result equals the undisturbed run's bit for bit."""
+    """A transient failure raised by the device loop's launch in split 1:
+    the split is retried, the runner discards the loop and the graph it
+    was running, runs its first body eagerly and captures anew (2
+    captures in the run), and every split's result equals the undisturbed
+    run's bit for bit."""
     import time
 
+    from acmgnn_tpu_torch.ops.loop import DeviceLoop
     from acmgnn_tpu_torch.train import trainer
 
     data, cfg, _ = _capture_case("joint_ell")
     cfg = dataclasses.replace(cfg, num_splits=2)
     clean = _Splits()
     trainer.run_experiment(data, cfg, logger=clean)
-    replay = kernels.CountedGraph.replay
+    launch = DeviceLoop.launch
     calls = [0]
 
     def flaky(self):
         calls[0] += 1
-        if calls[0] == cfg.epochs + 5:       # split 1's fifth replay
+        if calls[0] == 2:                    # split 1's launch
             raise RuntimeError("UNAVAILABLE: an injected failure")
-        replay(self)
+        launch(self)
 
-    monkeypatch.setattr(kernels.CountedGraph, "replay", flaky)
+    monkeypatch.setattr(DeviceLoop, "launch", flaky)
     monkeypatch.setattr(time, "sleep", lambda s: None)
     captures[0] = 0
     retried = _Splits()
@@ -871,6 +913,73 @@ def test_card_optimizer_matches_optax_in_f64(cuda, optimizer):
     err, no_decay = chip_smoke.optimizer_check(cfg, "cuda")
     assert err <= 1.0, err
     assert no_decay > 10.0, no_decay
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("rows,width", [(168_114, 64), (168_114, 7),
+                                        (40_000, 600), (1001, 3)])
+def test_k8_equals_its_plain_version_bit_for_bit(cuda, rows, width, dtype):
+    """K8 forward and backward (the mask recomputed from the key) against
+    ``dropout_plain`` on the same inputs, bit for bit, at the headline's
+    widths (input 7, hidden 64 at N=168,114) and wiki's input width 600:
+    the threshold compare is exact in f32 and the division IEEE's on both
+    sides.  The key's epoch is read when the kernel runs."""
+    from acmgnn_tpu_torch.ops import dropout as dropout_mod
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + width)
+    h = torch.randn(rows, width, generator=gen, device=cuda).to(dtype)
+    epoch = torch.tensor(11, device=cuda)
+    key = dropout_mod.DropoutKey.new(3, 1, epoch)
+    hh = h.clone().requires_grad_(dtype == torch.float32)
+    out = dropout_mod.dropout(hh, 0.5, key, 2)
+    assert torch.equal(out.detach(), dropout_mod.dropout_plain(h, 0.5, key,
+                                                               2))
+    g = torch.randn(rows, width, generator=gen, device=cuda)
+    if hh.requires_grad:
+        out.backward(g)
+        assert torch.equal(hh.grad, dropout_mod.dropout_plain(g, 0.5, key, 2))
+    assert torch.equal(dropout_mod._launch(g, 0.5, key, 2),
+                       dropout_mod.dropout_plain(g, 0.5, key, 2))
+    epoch.fill_(12)
+    again = dropout_mod.dropout(h, 0.5, key, 2)
+    assert torch.equal(again, dropout_mod.dropout_plain(h, 0.5, key, 2))
+    assert not torch.equal(again, out.detach())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer,weight_decay", [("adam", 0.0),
+                                                    ("adam", 1e-3),
+                                                    ("adamw", 1e-2),
+                                                    ("adamw", 0.0)])
+def test_card_step_is_torchs_capturable_step(cuda, optimizer, weight_decay):
+    """``make_optimizer``'s card form (lr and decay in a device tensor)
+    equals torch's capturable multi-tensor Adam/AdamW with Python
+    hyperparameters bit for bit over 20 steps."""
+    from acmgnn_tpu_torch.train.trainer import make_optimizer
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p0 = [torch.randn(64, 7, generator=gen, device=cuda),
+          torch.randn(64, generator=gen, device=cuda)]
+    grads = [[torch.randn(p.shape, generator=gen, device=cuda) * 1e-3
+              for p in p0] for _ in range(20)]
+    cfg = TrainConfig(optimizer=optimizer, lr=1e-3,
+                      weight_decay=weight_decay)
+    cls = torch.optim.Adam if optimizer == "adam" else torch.optim.AdamW
+    runs = []
+    for make in (lambda ps: make_optimizer(cfg, ps),
+                 lambda ps: cls(ps, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=weight_decay, capturable=True,
+                                foreach=True)):
+        ps = [torch.nn.Parameter(p.clone()) for p in p0]
+        opt = make(ps)
+        for gs in grads:
+            for p, g in zip(ps, gs):
+                p.grad = g.clone()
+            opt.step()
+        runs.append(ps)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
