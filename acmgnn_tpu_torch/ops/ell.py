@@ -48,6 +48,23 @@ K1_HUB_DEGREE = 256
 K1_BLOCK = 256
 # lanes per row of each class, in sorted-row (descending degree) order
 K1_LANES = (K1_BLOCK, 32, 16, 8, 4, 2, 1)
+# K1's forms (csrc/spmm.cu): the narrow form gives a row lanes along its
+# entries and walks its indices once per 16 columns; the wide form gives
+# it lanes along its columns (16 bytes a lane) and walks its indices once
+# for up to 2 KB of the row.  Rows of K1_WIDE_BYTES or more take the wide
+# form (the crossover chip_smoke.py measures); every width of the
+# headline and genius paths (w4-w12, bf16 and f32) stays narrow.
+K1_FORMS = ("narrow", "wide")
+K1_WIDE_BYTES = 64
+# a hub row's warps in the wide form (entries w, w+8, ... each)
+K1_WARPS = K1_BLOCK // 32
+
+
+def k1_form(d: int, dtype: torch.dtype) -> str:
+    """The form K1 runs for a ``d``-column operand of ``dtype``: "wide"
+    for rows of ``K1_WIDE_BYTES`` or more, else "narrow"."""
+    nbytes = d * torch.finfo(dtype).bits // 8
+    return "wide" if nbytes >= K1_WIDE_BYTES else "narrow"
 
 
 def k1_lanes(deg, entries: int = K1_LANE_ENTRIES):
@@ -214,24 +231,37 @@ def k1_operand_ld(d: int, dtype: torch.dtype) -> int:
     """Row stride of K1's gather operand: a row of at most 32 bytes is
     padded to a power of two of bytes (bf16 w7: 14 → 16 bytes, w12: 24 →
     32), so it is one aligned 8- or 16-byte load sequence in one L2
-    sector; wider rows keep ``d``."""
-    nbytes = d * torch.finfo(dtype).bits // 8
-    if nbytes >= 32 or d == 0:
+    sector; a row of the wide form to a multiple of 16 bytes (bf16 w4814:
+    9,628 → 9,632), so it is a sequence of 16-byte vectors; other rows
+    keep ``d``."""
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = d * elem
+    if d == 0:
         return d
-    return (1 << (nbytes - 1).bit_length()) * 8 // torch.finfo(dtype).bits
+    if k1_form(d, dtype) == "wide":
+        return -(-nbytes // 16) * 16 // elem
+    if nbytes >= 32:
+        return d
+    return (1 << (nbytes - 1).bit_length()) // elem
 
 
 def k1_operand(x: torch.Tensor, dtype: torch.dtype,
                pre_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x`` (times ``pre_scale`` per row, in f32, rounded once) in K1's
     gather dtype, as a ``[N, d]`` view with K1's row stride
-    (``k1_operand_ld``); the padding columns are never read into a sum."""
+    (``k1_operand_ld``); the padding columns are never read into a sum.
+    A wide-form operand also starts 16-byte aligned."""
     d = x.shape[1]
     ld = k1_operand_ld(d, dtype)
     if pre_scale is not None:
         x = x.float() * pre_scale[:, None]
     if ld == d:
-        return x.to(dtype)
+        out = x.to(dtype)
+        if k1_form(d, dtype) == "wide" and (
+                out.stride(1) != 1 or out.stride(0) != d
+                or out.data_ptr() % 16):
+            out = out.contiguous()  # a view: the wide form's 16-byte rows
+        return out
     out = torch.empty(x.shape[0], ld, dtype=dtype, device=x.device)[:, :d]
     out.copy_(x)
     return out
@@ -265,19 +295,53 @@ def row_gather_spmm_plain(half: EllHalf, x: torch.Tensor,
 
 
 def k1_order_replay(half: EllHalf, x: torch.Tensor,
-                    z: Optional[torch.Tensor], alpha, beta) -> torch.Tensor:
-    """K1's arithmetic in its own order, in plain PyTorch: in a row's
-    group of ``k1_lanes(degree)`` lanes, lane l sums the row's entries l,
-    l+g, ... in turn (each product ``w·x`` rounded on its own), a
-    butterfly over lane offsets g/2, ..., 1 adds each warp's partials, a
-    hub row's warp partials are added in warp order, then the row scale
-    and the epilogue, one rounding per operation.  K1 equals this bit for
-    bit."""
+                    z: Optional[torch.Tensor], alpha, beta,
+                    form: Optional[str] = None) -> torch.Tensor:
+    """K1's arithmetic in its own order, in plain PyTorch, for ``form``
+    (default ``k1_form`` of the operand).  Narrow: in a row's group of
+    ``k1_lanes(degree)`` lanes, lane l sums the row's entries l, l+g, ...
+    in turn, a butterfly over lane offsets g/2, ..., 1 adds each warp's
+    partials, a hub row's warp partials are added in warp order.  Wide:
+    each column sums a row's entries in order; a hub row's warp w sums
+    entries w, w+8, ... and the 8 partials are added in warp order.  Each
+    product ``w·x`` is rounded on its own; then the row scale and the
+    epilogue, one rounding per operation.  K1 equals this bit for bit."""
     n, d = half.num_rows, x.shape[1]
     dev = x.device
+    form = k1_form(d, x.dtype) if form is None else form
     xf = torch.cat([x.float(), torch.zeros(1, d, device=dev)])
-    zero_row = x.shape[0]          # the appended zero row of xf
-    last = max(half.indices.numel() - 1, 0)
+    if form == "wide":
+        sums = _wide_order_sums(half, xf)
+    elif form == "narrow":
+        sums = _narrow_order_sums(half, xf)
+    else:
+        raise ValueError(f"K1 has forms {K1_FORMS}, got {form!r}")
+    out = torch.empty(n, d, device=dev)
+    out[half.row_ids.long()] = sums
+    if half.row_scale is not None:
+        out = out * half.row_scale[:, None]
+    out = column_constants(beta, dev) * out
+    if z is not None:
+        out = column_constants(alpha, dev) * z + out
+    return out
+
+
+def _order_terms(half: EllHalf, xf: torch.Tensor, e: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """The terms of entries ``e`` (the appended zero row of ``xf`` where
+    not ``valid``), each valued product rounded on its own."""
+    e = e.clamp(max=max(half.indices.numel() - 1, 0))
+    term = xf[torch.where(valid, half.indices[e].long(), xf.shape[0] - 1)]
+    if half.vals is not None:
+        term = _valued_terms(term, torch.where(valid, half.vals[e],
+                                               0)[..., None])
+    return term
+
+
+def _narrow_order_sums(half: EllHalf, xf: torch.Tensor) -> torch.Tensor:
+    """Each sorted row's sum in the narrow form's order."""
+    n, d = half.num_rows, xf.shape[1]
+    dev = xf.device
     sums = torch.zeros(n, d, device=dev)
     row0 = 0
     for lanes, row1 in zip(K1_LANES, half.lane_classes):
@@ -289,13 +353,7 @@ def k1_order_replay(half: EllHalf, x: torch.Tensor,
         acc = torch.zeros(row1 - row0, lanes, d, device=dev)
         for k in range(-(-int((end - beg).max()) // lanes)):
             e = beg + lanes * k + lane[None]
-            valid = e < end
-            e = e.clamp(max=last)
-            term = xf[torch.where(valid, half.indices[e].long(), zero_row)]
-            if half.vals is not None:
-                term = _valued_terms(term, torch.where(
-                    valid, half.vals[e], 0)[..., None])
-            acc = acc + term
+            acc = acc + _order_terms(half, xf, e, e < end)
         warp = min(lanes, 32)
         acc = acc.view(row1 - row0, lanes // warp, warp, d)
         wl = torch.arange(warp, device=dev)
@@ -308,14 +366,39 @@ def k1_order_replay(half: EllHalf, x: torch.Tensor,
             s = s + acc[:, w, 0]
         sums[row0:row1] = s
         row0 = row1
-    out = torch.empty(n, d, device=dev)
-    out[half.row_ids.long()] = sums
-    if half.row_scale is not None:
-        out = out * half.row_scale[:, None]
-    out = column_constants(beta, dev) * out
-    if z is not None:
-        out = column_constants(alpha, dev) * z + out
-    return out
+    return sums
+
+
+def _wide_order_sums(half: EllHalf, xf: torch.Tensor) -> torch.Tensor:
+    """Each sorted row's sum in the wide form's order.  Rows are sorted by
+    descending degree, so step k of a loop over entries touches only the
+    prefix of rows that have an entry k."""
+    n, d = half.num_rows, xf.shape[1]
+    dev = xf.device
+    deg = (half.indptr[1:] - half.indptr[:-1]).cpu()
+    sums = torch.zeros(n, d, device=dev)
+    hubs = half.lane_classes[0]
+    if hubs:    # warp w: entries w, w+8, ...; partials in warp order
+        warp = torch.arange(K1_WARPS, device=dev)
+        acc = torch.zeros(hubs, K1_WARPS, d, device=dev)
+        for k in range(-(-int(deg[0]) // K1_WARPS)):
+            m = int(torch.count_nonzero(deg[:hubs] > K1_WARPS * k))
+            e = half.indptr[:m, None] + K1_WARPS * k + warp[None]
+            valid = e < half.indptr[1:m + 1, None]
+            acc[:m] = torch.where(valid[..., None],
+                                  acc[:m] + _order_terms(half, xf, e, valid),
+                                  acc[:m])
+        s = acc[:, 0]
+        for w in range(1, K1_WARPS):
+            s = s + acc[:, w]
+        sums[:hubs] = s
+    rest = deg[hubs:]
+    for k in range(int(rest[0]) if rest.numel() else 0):
+        m = int(torch.count_nonzero(rest > k))   # a prefix: sorted rows
+        e = half.indptr[hubs:hubs + m] + k
+        sums[hubs:hubs + m] += _order_terms(
+            half, xf, e, torch.ones_like(e, dtype=torch.bool))
+    return sums
 
 
 _column_consts: dict = {}
@@ -332,7 +415,10 @@ def column_constants(values, device) -> torch.Tensor:
     return t
 
 
-def _row_gather_spmm_cuda(half: EllHalf, x, z, alpha, beta):
+def _row_gather_spmm_cuda(half: EllHalf, x, z, alpha, beta, form: str):
+    """K1 in ``form`` (``row_gather_spmm`` passes ``k1_form``'s; a
+    measurement may pass either).  ``alpha`` and ``beta`` are tuples of
+    per-column constants."""
     n, d = half.num_rows, x.shape[1]
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K1 takes a bf16 or f32 operand, got {x.dtype}")
@@ -346,6 +432,15 @@ def _row_gather_spmm_cuda(half: EllHalf, x, z, alpha, beta):
         raise TypeError(f"K1 takes f32 values, or bf16 values with a bf16 "
                         f"operand; got {half.vals.dtype} values, "
                         f"{x.dtype} operand")
+    if form not in K1_FORMS:
+        raise ValueError(f"K1 has forms {K1_FORMS}, got {form!r}")
+    if form == "wide" and (x.data_ptr() % 16
+                           or x.stride(0) * x.element_size() % 16):
+        raise ValueError(
+            f"K1's wide form reads 16-byte vectors: the operand's base and "
+            f"row stride must be 16-byte aligned (k1_operand pads its "
+            f"rows), got row stride {x.stride(0)} of {x.dtype} at address "
+            f"{x.data_ptr():#x}")
     arrays = [half.indptr, half.indices, half.row_ids]
     arrays += [t for t in (z, half.vals, half.row_scale) if t is not None]
     # the operand may be a row-padded view (k1_operand)
@@ -366,9 +461,9 @@ def _row_gather_spmm_cuda(half: EllHalf, x, z, alpha, beta):
         kernels.ptr(alpha_t), kernels.ptr(beta_t),
         kernels.ptr(half.row_scale), kernels.ptr(out), n, d,
         (ctypes.c_int * len(K1_LANES))(*half.lane_classes),
-        kernels.stream(),
+        K1_FORMS.index(form), kernels.stream(),
     )
-    kernels.check(lib, rc, "K1 spmm")
+    kernels.check(lib, rc, f"K1 spmm ({form} form)")
     kernels.count(f"k1_spmm_w{d}" + ("_valued" if half.vals is not None
                                       else ""))
     return out
@@ -380,11 +475,11 @@ def row_gather_spmm(half: EllHalf, x: torch.Tensor,
 
     ``x``: [num_cols, d] gather operand (bf16 or f32; a transpose half's
     operand is already pre-scaled), contiguous or a row-padded view
-    (``k1_operand``).  ``z``: optional f32 [num_rows, d] residual;
+    (``k1_operand``; K1's wide form, ``k1_form``, needs its 16-byte rows
+    and raises on others).  ``z``: optional f32 [num_rows, d] residual;
     ``alpha`` (default 0) and ``beta`` (default 1) are per-column
-    constants.  Returns
-    f32 [N, d].  A CPU operand runs the plain version; a CUDA operand
-    launches K1.
+    constants.  Returns f32 [N, d].  A CPU operand runs the plain
+    version; a CUDA operand launches K1.
     """
     d = x.shape[1]
     alpha = _columns(alpha, d, 0.0)
@@ -397,4 +492,4 @@ def row_gather_spmm(half: EllHalf, x: torch.Tensor,
         x = x.contiguous()
     return _row_gather_spmm_cuda(half, x,
                                  None if z is None else z.contiguous(),
-                                 alpha, beta)
+                                 alpha, beta, k1_form(d, x.dtype))

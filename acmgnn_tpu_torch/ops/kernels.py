@@ -52,9 +52,10 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "spmm": {
         # indptr, indices, vals, vals_bf16, row_ids, x, x_bf16, ld, z,
-        # alpha, beta, row_scale, out, n_rows, d, class_end (host), stream
+        # alpha, beta, row_scale, out, n_rows, d, class_end (host), form,
+        # stream
         "acm_k1_spmm": [_P, _P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _P, _P,
-                        _I, _I, _IP, _P],
+                        _I, _I, _IP, _I, _P],
     },
     "attention": {
         # z0..z3, ld0..ld3, t (channels), relu_mask, v, c, W, out, n, d,

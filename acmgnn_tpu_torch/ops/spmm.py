@@ -112,9 +112,11 @@ class _FusedGather(torch.autograd.Function):
             out = _dense_epilogue(az, residual, alpha, beta)
         else:
             # K1 gathers a bf16 operand as it is (its values are exact in
-            # f32), so bf16-stored features get no f32 copy
-            x = (z_cat if z_cat.dtype == torch.bfloat16
-                 else k1_operand(z_cat, op.gather_dtype))
+            # f32), so bf16-stored features get no f32 copy (only a
+            # row-padded one where K1's layout pads their rows)
+            x = k1_operand(z_cat, torch.bfloat16
+                           if z_cat.dtype == torch.bfloat16
+                           else op.gather_dtype)
             out = row_gather_spmm(op.fwd, x, z=residual, alpha=alpha,
                                   beta=beta)
         ctx.op = op

@@ -156,10 +156,21 @@ Phases (any failure exits non-zero and prints no result):
       in symmetric normalization at widths 7, 8 and 4, bit for bit
       against ``k1_order_replay``; K1 on penn94_pp's structure operator
       at w64 and w2 (its own transpose), and on its row-normalized
-      operator at w128 (layer 1's train gather and its transpose); K5 on
-      the symmetric-normalized
-      COO operator; each timed beside its plain version, its bound and
-      ``torch.sparse.mm`` where one computes the same product;
+      operator at w128 (layer 1's train gather and its transpose) and at
+      w4814 (the eval branch's set-up gather of the features, per element
+      against the plain version in row chunks), each bit for bit against
+      ``k1_order_replay``, and at wiki's w600 bit for bit against it;
+      K5 on the symmetric-normalized COO operator; each timed beside its
+      plain version, its bound and ``torch.sparse.mm`` where one computes
+      the same product.  Every K1 row names its form (``ops/ell.py``
+      ``k1_form``: narrow below ``K1_WIDE_BYTES`` a row, else wide); a
+      wide row also prints an HBM-only estimate of its gathered bytes
+      (entries x row bytes / 3.35 TB/s; not a floor, L2 reuse beats it)
+      and the narrow form's device ms on the same operand.  Then the
+      crossover of the two forms: both on the headline's
+      and penn94_pp's operators at w16, w32 and w64, bf16 and f32, each
+      bit for bit against its replay, timed in turns, and the
+      ``K1_WIDE_BYTES`` the times support;
    b. penn94_pp at full width (bench.py's row: ACM-GCN++ with the
       structure channel, N=41,554, F=4,814, bf16 gathers and GEMMs, joint
       loop, hoist), 20 captured epochs: ms/epoch over the run and the
@@ -271,7 +282,8 @@ Phases (any failure exits non-zero and prints no result):
    beside a replay a body with the host reading the condition.
 
 The line before the last is the kernel table as JSON (every row with
-``ms`` and ``device_ms``, ``library_ms`` and ``library_device_ms``); the
+``ms`` and ``device_ms``, ``library_ms`` and ``library_device_ms``; K1's
+rows also with ``form``); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -492,6 +504,37 @@ def _coo_row_terms(half):
     return torch.bincount(half.row.long(), minlength=half.num_rows)
 
 
+def _k1_form_note(half, xg):
+    """K1's form for the operand ``xg`` (``ops/ell.py`` ``k1_form``) and a
+    note for the printed row: for a wide row, an HBM-only estimate of its
+    gathered bytes, every entry's row once from HBM, ``entries × row bytes
+    / 3.35 TB/s`` (ms).  It is not a floor: hub columns reused from L2
+    beat it.  Returns (form, text)."""
+    from acmgnn_tpu_torch.ops.ell import k1_form
+
+    d = xg.shape[1]
+    form = k1_form(d, xg.dtype)
+    if form != "wide":
+        return form, f"{form} form"
+    est = (1e3 * int(half.indices.numel()) * d * xg.element_size()
+           / HBM_BYTES_PER_S)
+    return form, (f"wide form, gathered bytes at HBM rate alone "
+                  f"{est:.4f} ms ({int(half.indices.numel())} entries x "
+                  f"{d * xg.element_size()} B)")
+
+
+def _k1_narrow_ms(half, xg, z, alpha, beta, reps=20):
+    """The narrow form (the design before the wide one) on a wide row's
+    operand: device ms, to set beside the wide form's."""
+    from acmgnn_tpu_torch.ops.ell import _columns, _row_gather_spmm_cuda
+
+    d = xg.shape[1]
+    a, b = _columns(alpha, d, 0.0), _columns(beta, d, 1.0)
+    zz = z if any(a) else None
+    return _ms(device_ms(
+        lambda: _row_gather_spmm_cuda(half, xg, zz, a, b, "narrow"), reps))
+
+
 K1_REPLACES = ("acmgnn_tpu/ops/ell.py:693", "acmgnn_tpu/ops/spmm.py:153",
                "acmgnn_tpu/ops/spmm.py:143")
 K5_REPLACES = ("acmgnn_tpu/ops/spmm.py:45", "acmgnn_tpu/ops/spmm.py:34",
@@ -624,15 +667,17 @@ def phase_kernels(adj, feats, tag="[2]", suffix="", use_ln=True,
                   + (4 * n * d if z is not None else 0)
                   + (4 * n if half.row_scale is not None else 0))
         b_ms, b_by = bound(nbytes, nnz * d + 2 * n * d)
+        form, note = _k1_form_note(half, xg)
         rows.append(dict(name=name + suffix, counter=name, route="cuda",
                          source="acmgnn_tpu_torch/csrc/spmm.cu",
                          replaces=replaces, max_abs_err=err, ms=ms,
                          device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms,
-                         library_device_ms=lib_dev))
-        print(f"  {name + suffix}: {ms:.4f} ms, device {_ms(dev_ms)} "
-              f"(plain {plain_ms:.3f}, torch.sparse.mm f32 {lib_ms:.4f}, "
-              f"device {_ms(lib_dev)}; bound {b_ms:.4f} {b_by})")
+                         library_device_ms=lib_dev, form=form))
+        print(f"  {name + suffix} ({note}): {ms:.4f} ms, device "
+              f"{_ms(dev_ms)} (plain {plain_ms:.3f}, torch.sparse.mm f32 "
+              f"{lib_ms:.4f}, device {_ms(lib_dev)}; bound {b_ms:.4f} "
+              f"{b_by})")
 
     if with_coo:
         t0 = time.perf_counter()
@@ -2083,6 +2128,7 @@ def phase_sharded_kernels(adj, feats):
     from acmgnn_tpu_torch.data.registry import row_normalize_features
     from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain
     from acmgnn_tpu_torch.ops.ell import (
+        k1_form,
         k1_order_replay,
         row_gather_spmm,
         row_gather_spmm_plain,
@@ -2218,7 +2264,9 @@ def phase_sharded_kernels(adj, feats):
                     max_abs_err=worst, ms=ms, device_ms=dev_ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms, library_device_ms=lib_dev,
-                    run=(exchange, fmt)))
+                    run=(exchange, fmt),
+                    **({"form": k1_form(d, recv.dtype)} if fmt == "ell"
+                       else {})))
                 got_rows = ops[0].rows_received
                 print(f"  {name}{tag} (rank 0, {rpp} x {ncols} local half, "
                       f"row stride {ld}): {ms:.4f} ms, device {_ms(dev_ms)} "
@@ -3634,6 +3682,7 @@ WITNESS_SHARE, WITNESS_DRAWS = 0.1, 4
 ZOO_CPU_EPOCHS = 5
 # the structure operator's K1 widths on penn94_pp: hidden 64, 2 classes
 PP_STRUCT_WIDTHS = (64, 2)
+PP_FEATURES = 4814        # penn94's feature width (LINKX_SCALE)
 # a chameleon-shaped graph (the small heterophily benchmark of the paper's
 # ACM-Pytorch pipeline: 2,277 nodes, 36,101 edges, 2,325 bag-of-words
 # features, 5 classes): Chung-Lu pairs with a top degree of 700, binary
@@ -3733,6 +3782,10 @@ def _k1_rows(op_half, xs, tag, counter_of, lib, replaces):
         def run():
             return row_gather_spmm(op_half, xg, z=z, alpha=alpha, beta=beta)
 
+        form, note = _k1_form_note(op_half, xg)
+        if form == "wide":
+            print(f"  {name + tag} the narrow form on the same operand: "
+                  f"device {_k1_narrow_ms(op_half, xg, z, alpha, beta)}")
         ms, dev_ms = time_ms(run, 50), device_ms(run)
         plain_ms = time_ms(lambda: row_gather_spmm_plain(op_half, xg, z, a,
                                                          b), 5)
@@ -3752,10 +3805,10 @@ def _k1_rows(op_half, xs, tag, counter_of, lib, replaces):
                          replaces=replaces, max_abs_err=err, ms=ms,
                          device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms,
-                         library_device_ms=lib_dev))
-        print(f"  {name + tag}: {ms:.4f} ms, device {_ms(dev_ms)} (plain "
-              f"{plain_ms:.3f}, torch.sparse.mm f32 {lib_ms:.4f}, device "
-              f"{_ms(lib_dev)}; bound {b_ms:.4f} {b_by})")
+                         library_device_ms=lib_dev, form=form))
+        print(f"  {name + tag} ({note}): {ms:.4f} ms, device {_ms(dev_ms)} "
+              f"(plain {plain_ms:.3f}, torch.sparse.mm f32 {lib_ms:.4f}, "
+              f"device {_ms(lib_dev)}; bound {b_ms:.4f} {b_by}; {CARD_LINE})")
     return rows
 
 
@@ -3831,7 +3884,11 @@ def phase_instances(adj, feats, p_adj):
 
     from acmgnn_tpu_torch.data.registry import row_normalize_features
     from acmgnn_tpu_torch.ops.coo import coo_spmm, coo_spmm_plain
-    from acmgnn_tpu_torch.ops.ell import k1_operand
+    from acmgnn_tpu_torch.ops.ell import (
+        k1_operand,
+        k1_order_replay,
+        row_gather_spmm,
+    )
     from acmgnn_tpu_torch.ops.graph import (
         make_coo_op,
         precompute_operators,
@@ -3911,6 +3968,30 @@ def phase_instances(adj, feats, p_adj):
                                 "k1_spmm_w128_transpose")],
                      "@penn94", lambda d: "k1_spmm_w128",
                      _csr_on_card(a_pp.T), "acmgnn_tpu/ops/spmm.py:143")
+    del z, g, xg
+    # the eval branch's set-up gather of the features (x_agg, w4814): per
+    # element against the plain version in row chunks, bit for bit
+    # against the replay; and wiki's w600 width bit for bit on this graph
+    # (41,554 rows), where the replay fits
+    a_lib = _csr_on_card(a_pp)
+    x = k1_operand(torch.randn(n_pp, PP_FEATURES, generator=gen, device=dev),
+                   torch.bfloat16)
+    rows.append(_k1_wide_row(low.fwd, x, f"k1_spmm_w{PP_FEATURES}",
+                             "@penn94", a_lib, "acmgnn_tpu/ops/ell.py:693",
+                             replay=True))
+    del x
+    x = k1_operand(torch.randn(n_pp, 600, generator=gen, device=dev),
+                   torch.bfloat16)
+    if not torch.equal(row_gather_spmm(low.fwd, x),
+                       k1_order_replay(low.fwd, x, None, (0.0,) * 600,
+                                       (1.0,) * 600)):
+        fail("k1_spmm_w600@penn94: K1 differs from its summation order "
+             "replayed")
+    print(f"  k1_spmm_w600@penn94 ({_k1_form_note(low.fwd, x)[1]}): equal "
+          f"bit for bit to k1_order_replay (row stride {x.stride(0)}; "
+          f"wiki's hoist width on penn94_pp's graph)")
+    del x, a_lib
+    torch.cuda.empty_cache()
     # K5 on the symmetric-normalized COO operator
     coo = make_coo_op(a_sym).to(dev)
     for (x, z, alpha, beta, tr), nm in zip(_spmm_cases(n, gen, x_in),
@@ -3954,6 +4035,72 @@ def phase_instances(adj, feats, p_adj):
               f"device {_ms(lib_dev)}; bound {b_ms:.4f} {b_by}); "
               f"bit-identical reruns")
     return rows
+
+
+K1_CROSSOVER_WIDTHS = (16, 32, 64)
+
+
+def phase_k1_crossover(adj, p_adj):
+    """[9a] Where K1's wide form starts to win: both forms on the
+    headline's and penn94_pp's row-normalized operators at
+    ``K1_CROSSOVER_WIDTHS``, bf16 and f32 operands, each bit for bit
+    against its own order replayed, timed in turns (narrow, wide, wide,
+    narrow; device ms); prints the ``K1_WIDE_BYTES`` the times support
+    beside the one ``ops/ell.py`` uses."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.ell import (
+        K1_FORMS,
+        K1_WIDE_BYTES,
+        _row_gather_spmm_cuda,
+        k1_operand,
+        k1_order_replay,
+    )
+    from acmgnn_tpu_torch.ops.graph import precompute_operators
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    wins = []      # (row bytes, graph, dtype, narrow ms, wide ms)
+    for graph, a in (("twitch", adj), ("penn94", p_adj)):
+        half = precompute_operators(a, fmt="ell",
+                                    spmm_dtype=torch.bfloat16).adj_low.fwd
+        half = half.to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in K1_CROSSOVER_WIDTHS:
+                x = k1_operand(torch.randn(half.num_cols, d, generator=gen,
+                                           device=dev), dtype)
+                ones, zeros = (1.0,) * d, (0.0,) * d
+                def run(form):
+                    return _row_gather_spmm_cuda(half, x, None, zeros, ones,
+                                                 form)
+
+                for form in K1_FORMS:
+                    if not torch.equal(run(form), k1_order_replay(
+                            half, x, None, zeros, ones, form=form)):
+                        fail(f"[9a] K1's {form} form at w{d} {dtype} on "
+                             f"{graph} differs from its order replayed")
+                ms = {f: [] for f in K1_FORMS}
+                for form in ("narrow", "wide", "wide", "narrow"):
+                    ms[form].append(device_ms(lambda: run(form)))
+                nar, wid = (float(np.mean(ms[f])) for f in K1_FORMS)
+                nbytes = d * x.element_size()
+                wins.append((nbytes, graph, dtype, nar, wid))
+                print(f"  k1 crossover {graph} w{d} {dtype} ({nbytes} B "
+                      f"rows): narrow {nar:.4f}, wide {wid:.4f} device ms "
+                      f"({'wide' if wid < nar else 'narrow'} faster; both "
+                      f"bit for bit against their replays)")
+                del x
+    sizes = sorted({w[0] for w in wins})
+    misses = {c: sum((b >= c) != (wid < nar) for b, _, _, nar, wid in wins)
+              for c in sizes + [2 * sizes[-1]]}
+    best = min(misses.values())
+    supported = [c for c, m in misses.items() if m == best]
+    print(f"[9a] K1 crossover: the times support K1_WIDE_BYTES in "
+          f"{supported} ({best} of {len(wins)} points disagree; a value "
+          f"above {sizes[-1]} means the narrow form everywhere measured); "
+          f"ops/ell.py uses {K1_WIDE_BYTES}: "
+          f"{'supported' if K1_WIDE_BYTES in supported else 'NOT supported'}"
+          f" ({CARD_LINE})")
 
 
 def phase_penn94_pp(p_adj, p_feats, p_labels):
@@ -4907,19 +5054,31 @@ def _k1_plain_chunked(half, x, max_bytes=2**32):
     return acc
 
 
-def _k1_wide_row(half, xg, name, tag, lib):
+def _k1_wide_row(half, xg, name, tag, lib, replaces=None, replay=False):
     """K1 at a width whose gather the plain version cannot hold whole:
-    per element against ``_k1_plain_chunked``, timed beside it (one call)
-    and ``torch.sparse.mm``."""
+    per element against ``_k1_plain_chunked``, with ``replay`` also bit
+    for bit against ``k1_order_replay``, timed beside it (one call) and
+    ``torch.sparse.mm``."""
     import torch
 
-    from acmgnn_tpu_torch.ops.ell import row_gather_spmm
+    from acmgnn_tpu_torch.ops.ell import k1_order_replay, row_gather_spmm
 
     n, nnz, d = half.num_rows, int(half.indices.numel()), xg.shape[1]
     got = row_gather_spmm(half, xg)
     err = spmm_err(got, _k1_plain_chunked(half, xg),
                    _k1_plain_chunked(half, xg.abs()), _ell_row_terms(half),
                    name + tag)
+    form, note = _k1_form_note(half, xg)
+    if replay:
+        if not torch.equal(got, k1_order_replay(half, xg, None, (0.0,) * d,
+                                                (1.0,) * d)):
+            fail(f"{name + tag}: K1 differs from its summation order "
+                 f"replayed")
+        print(f"  {name + tag}: equal bit for bit to k1_order_replay "
+              f"({form} form, row stride {xg.stride(0)})")
+    if form == "wide":
+        print(f"  {name + tag} the narrow form on the same operand: device "
+              f"{_k1_narrow_ms(half, xg, None, None, None, 3)}")
     del got
 
     def run():
@@ -4935,18 +5094,20 @@ def _k1_wide_row(half, xg, name, tag, lib):
     lib_ms = time_ms(lambda: torch.sparse.mm(lib, xf), 3)
     lib_dev = device_ms(lambda: torch.sparse.mm(lib, xf), reps=3)
     del xf
-    nbytes = (8 * (n + 1) + 4 * nnz + 4 * n + xg.element_size() * n * d
-              + 4 * n * d + 4 * n)
+    nbytes = (8 * (n + 1) + 4 * nnz + 4 * n
+              + xg.element_size() * half.num_cols * d + 4 * n * d
+              + (4 * n if half.row_scale is not None else 0))
     b_ms, b_by = bound(nbytes, nnz * d + 2 * n * d)
-    print(f"  {name + tag}: {ms:.4f} ms, device {_ms(dev_ms)} (plain, in "
-          f"row chunks of <= 4 GiB of terms, {plain_ms:.3f}; "
+    print(f"  {name + tag} ({note}): {ms:.4f} ms, device {_ms(dev_ms)} "
+          f"(plain, in row chunks of <= 4 GiB of terms, {plain_ms:.3f}; "
           f"torch.sparse.mm f32 {lib_ms:.4f}, device {_ms(lib_dev)}; bound "
-          f"{b_ms:.4f} {b_by})")
+          f"{b_ms:.4f} {b_by}; {CARD_LINE})")
     return dict(name=name + tag, counter=f"k1_spmm_w{d}", route="cuda",
                 source="acmgnn_tpu_torch/csrc/spmm.cu",
-                replaces=K1_LOCAL_REPLACES, max_abs_err=err, ms=ms,
-                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev)
+                replaces=replaces or K1_LOCAL_REPLACES, max_abs_err=err,
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev,
+                form=form)
 
 
 def phase_wiki_sharded():
@@ -6040,6 +6201,7 @@ def main() -> int:
           f"{p_adj.nnz} F={p_feats.shape[1]} "
           f"({time.perf_counter() - t0:.1f} s)")
     i_rows = phase_instances(adj, feats, p_adj)
+    phase_k1_crossover(adj, p_adj)
     pp = phase_penn94_pp(p_adj, p_feats, p_labels)
     del p_feats
     sym = phase_symmetric_paths(adj, feats, labels)
@@ -6089,9 +6251,10 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "path")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in rows + l_rows + g_rows + s_rows
-                                  + p_rows + i_rows + w_rows]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + (("form",) if "form" in r else ())}
+        for r in rows + l_rows + g_rows + s_rows + p_rows + i_rows
+        + w_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

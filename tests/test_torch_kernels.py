@@ -63,8 +63,12 @@ from acmgnn_tpu_torch.ops.coo import (
     make_coo_half,
 )
 from acmgnn_tpu_torch.ops.ell import (
+    K1_FORMS,
     K1_LANES,
+    K1_WIDE_BYTES,
     _build_half,
+    _row_gather_spmm_cuda,
+    k1_form,
     k1_lanes,
     k1_operand,
     k1_operand_ld,
@@ -287,7 +291,8 @@ K1_KINDS = ("lowpass_sym", "binary_sym", "lowpass_directed", "weighted",
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
 @pytest.mark.parametrize("width,hp", [(7, None), (8, (0, 0, 1, 1, 0, 0, 1, 1)),
                                       (4, (0, 0, 1, 1)), (12, None),
-                                      (20, None)])
+                                      (20, None), (128, (0,) * 64 + (1,) * 64),
+                                      (600, None)])
 def test_k1_matches_plain(cuda, kind, dtype, width, hp):
     mat = _k1_matrix(kind)
     op = make_ell_op(mat, gather_dtype=dtype).to(cuda)
@@ -311,16 +316,24 @@ def test_k1_matches_plain(cuda, kind, dtype, width, hp):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", K1_KINDS)
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
-@pytest.mark.parametrize("width", (4, 7, 8, 12, 20))
+@pytest.mark.parametrize("width", (4, 7, 8, 12, 20, 32, 64, 128, 600))
 @pytest.mark.parametrize("padded", (False, True))
 def test_k1_equals_its_order_replay(cuda, kind, dtype, width, padded):
     """K1 bit for bit against ``k1_order_replay``, on both halves, with a
     high-pass epilogue, on a contiguous operand and on K1's row-padded
-    layout (the same values, so the same bits)."""
+    layout (the same values, so the same bits); in the narrow form at the
+    narrow widths and in the wide form at the wide ones (``k1_form``;
+    "padded" there is a row stride of 16 more bytes than the row's)."""
     op = make_ell_op(_k1_matrix(kind), gather_dtype=dtype).to(cuda)
     gen = torch.Generator(device=cuda).manual_seed(width)
     z = torch.randn(op.num_nodes, width, generator=gen, device=cuda)
-    x = k1_operand(z, dtype) if padded else z.to(dtype)
+    if k1_form(width, dtype) == "wide" and padded:
+        ld = k1_operand_ld(width, dtype) + 128 // torch.finfo(dtype).bits
+        x = torch.full((op.num_nodes, ld), float("nan"), dtype=dtype,
+                       device=cuda)[:, :width]
+        x.copy_(z)
+    else:
+        x = k1_operand(z, dtype) if padded else z.to(dtype)
     alpha = tuple(float(j % 2) for j in range(width))
     beta = tuple(-1.0 if j % 2 else 1.0 for j in range(width))
     for half in (op.fwd, op.bwd):
@@ -328,6 +341,52 @@ def test_k1_equals_its_order_replay(cuda, kind, dtype, width, padded):
         want = k1_order_replay(half, x, z, alpha, beta)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("lowpass_sym", "weighted", "hub",
+                                  "symnorm"))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+@pytest.mark.parametrize("width", (16, 32, 64))
+@pytest.mark.parametrize("form", K1_FORMS)
+def test_k1_each_form_equals_its_replay_at_the_crossover(cuda, kind, dtype,
+                                                         width, form):
+    """At the widths where chip_smoke.py times the two forms against each
+    other, K1 run in either form equals that form's replay bit for bit."""
+    op = make_ell_op(_k1_matrix(kind), gather_dtype=dtype).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    z = torch.randn(op.num_nodes, width, generator=gen, device=cuda)
+    x = k1_operand(z, dtype)
+    alpha = tuple(float(j % 2) for j in range(width))
+    beta = tuple(-1.0 if j % 2 else 1.0 for j in range(width))
+    for half in (op.fwd, op.bwd):
+        want = k1_order_replay(half, x, z, alpha, beta, form=form)
+        got = _row_gather_spmm_cuda(half, x, z, alpha, beta, form)
+        assert torch.equal(got, want)
+        if form == k1_form(width, dtype):
+            assert torch.equal(row_gather_spmm(half, x, z=z, alpha=alpha,
+                                               beta=beta), want)
+
+
+@pytest.mark.gpu
+def test_k1_wide_form_refuses_a_misaligned_operand(cuda):
+    """The wide form reads 16-byte vectors: an operand whose rows or base
+    are not 16-byte aligned raises, and K1 does not run it in the narrow
+    form instead."""
+    op = make_ell_op(_k1_matrix("hub"), gather_dtype=torch.bfloat16).to(cuda)
+    n = op.num_nodes
+    assert k1_form(600, torch.bfloat16) == "wide"
+    before = kernels.launches.copy()
+    odd_rows = torch.zeros(n, 601, dtype=torch.bfloat16, device=cuda)[:, :600]
+    odd_base = torch.zeros(n, 608, dtype=torch.bfloat16, device=cuda)[:, 1:601]
+    flat = torch.zeros(n, 4814, dtype=torch.bfloat16, device=cuda)
+    for x in (odd_rows, odd_base, flat):
+        with pytest.raises(ValueError, match="16-byte"):
+            row_gather_spmm(op.fwd, x)
+    assert kernels.launches == before
+    # the padded operand of the same values runs
+    assert torch.equal(row_gather_spmm(op.fwd, k1_operand(flat, torch.bfloat16)),
+                       torch.zeros(n, 4814, device=cuda))
 
 
 @pytest.mark.gpu
@@ -1075,7 +1134,7 @@ def _halo_inputs(width, with_scale, with_sign, device, rows=1000, n_dest=4,
 @pytest.mark.gpu
 @pytest.mark.parametrize("padded", (False, True))
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
-@pytest.mark.parametrize("width", (4, 7, 8, 12, 64))
+@pytest.mark.parametrize("width", (4, 7, 8, 12, 64, 300))
 @pytest.mark.parametrize("with_scale,with_sign", [(False, False), (True, False),
                                                   (False, True), (True, True)])
 def test_k6_matches_plain(cuda, dtype, width, with_scale, with_sign, padded):
@@ -1110,11 +1169,13 @@ def test_k6_matches_plain(cuda, dtype, width, with_scale, with_sign, padded):
 
 
 @pytest.mark.parametrize("kind", K1_KINDS)
-@pytest.mark.parametrize("width", (4, 7, 8, 12, 20))
-def test_k1_replay_matches_plain(kind, width):
-    """K1's summation order replayed (lane groups, butterflies, the hub
-    rows' warp partials) sums the same terms as the plain version, on
-    both halves, with a per-column epilogue."""
+@pytest.mark.parametrize("width", (4, 7, 8, 12, 20, 32, 64, 128, 600))
+@pytest.mark.parametrize("form", K1_FORMS)
+def test_k1_replay_matches_plain(kind, width, form):
+    """K1's summation order replayed in either form (narrow: lane groups,
+    butterflies, the hub rows' warp partials; wide: each column's entries
+    in order, the hub rows' warp partials) sums the same terms as the
+    plain version, on both halves, with a per-column epilogue."""
     mat = _k1_matrix(kind)
     op = make_ell_op(mat)
     rng = np.random.default_rng(width)
@@ -1128,18 +1189,72 @@ def test_k1_replay_matches_plain(kind, width):
     n_terms = int(max(np.diff(csr.indptr).max(),
                       np.diff(csr.T.tocsr().indptr).max())) + 1
     for half in (op.fwd, op.bwd):
-        assert_close(k1_order_replay(half, x, z, alpha, beta),
+        assert_close(k1_order_replay(half, x, z, alpha, beta, form=form),
                      row_gather_spmm_plain(half, x, z, alpha, beta),
-                     n_terms, f"{kind} w{width}")
+                     n_terms, f"{kind} w{width} {form}")
+
+
+@pytest.mark.parametrize("kind", ("weighted", "symnorm", "hub"))
+def test_k1_wide_replay_sums_each_column_in_entry_order(kind):
+    """The wide form's replay, written out for one column: a non-hub
+    row's entries added in order from 0, a hub row's warp w adding
+    entries w, w+8, ... and the 8 partials added in warp order; equal bit
+    for bit (f32 values and operand)."""
+    op = make_ell_op(_k1_matrix(kind))
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(op.num_nodes, 1))
+                         .astype(np.float32))
+    for half in (op.fwd, op.bwd):
+        got = k1_order_replay(half, x, None, (0.0,), (1.0,), form="wide")
+        indptr, idx = half.indptr.numpy(), half.indices.numpy()
+        vals = None if half.vals is None else half.vals.numpy()
+        want = np.zeros(half.num_rows, np.float32)
+        for i in range(half.num_rows):
+            e = np.arange(indptr[i], indptr[i + 1])
+            t = x.numpy()[idx[e], 0]
+            if vals is not None:
+                t = (t * vals[e]).astype(np.float32)
+            if i < half.lane_classes[0]:
+                parts = [np.float32(0)] * 8
+                for j, tj in enumerate(t):
+                    parts[j % 8] = np.float32(parts[j % 8] + tj)
+                s = parts[0]
+                for p in parts[1:]:
+                    s = np.float32(s + p)
+            else:
+                s = np.float32(0)
+                for tj in t:
+                    s = np.float32(s + tj)
+            want[half.row_ids[i]] = s
+        if half.row_scale is not None:
+            want = (want * half.row_scale.numpy()).astype(np.float32)
+        np.testing.assert_array_equal(got[:, 0].numpy(), want)
+    if kind == "hub":
+        assert op.fwd.lane_classes[0] > 0
+
+
+def test_k1_form_keeps_the_headline_and_genius_widths_narrow():
+    """Every width K1 runs on the headline and genius paths (w4, w7, w8,
+    w12; bf16 and f32) takes the narrow form, and the wide rows of
+    penn94_pp and wiki (bf16 w64, w128, w600, w4814) the wide one, with
+    the crossover ``K1_WIDE_BYTES`` between them."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for width in (4, 7, 8, 12):
+            assert k1_form(width, dtype) == "narrow"
+    for width in (64, 128, 600, 4814):
+        assert k1_form(width, torch.bfloat16) == "wide"
+    assert 48 < K1_WIDE_BYTES <= 128
 
 
 @pytest.mark.parametrize("kind", ("weighted", "symnorm"))
-@pytest.mark.parametrize("width", (4, 7, 8))
-def test_k1_replay_matches_plain_with_bf16_values(kind, width):
-    """On valued halves in bf16 (the gather dtype) the replay and the
-    plain version round each term ``v·x`` to bf16 before the f32 sum, as
-    K1 does: they agree to the tolerance, and both part from the sum of
-    unrounded products by more than their own difference."""
+@pytest.mark.parametrize("width", (4, 7, 8, 32, 64, 128, 600))
+@pytest.mark.parametrize("form", K1_FORMS)
+def test_k1_replay_matches_plain_with_bf16_values(kind, width, form):
+    """On valued halves in bf16 (the gather dtype) the replay (either
+    form) and the plain version round each term ``v·x`` to bf16 before
+    the f32 sum, as K1 does: they agree to the tolerance, and both part
+    from the sum of unrounded products by more than their own
+    difference."""
     op = make_ell_op(_k1_matrix(kind), gather_dtype=torch.bfloat16)
     assert op.fwd.vals.dtype == torch.bfloat16
     rng = np.random.default_rng(width)
@@ -1147,7 +1262,7 @@ def test_k1_replay_matches_plain_with_bf16_values(kind, width):
                          .astype(np.float32)).to(torch.bfloat16)
     ones, zeros = (1.0,) * width, (0.0,) * width
     for half in (op.fwd, op.bwd):
-        replay = k1_order_replay(half, x, None, zeros, ones)
+        replay = k1_order_replay(half, x, None, zeros, ones, form=form)
         plain = row_gather_spmm_plain(half, x, None, zeros, ones)
         exact = row_gather_spmm_plain(
             dataclasses.replace(half, vals=half.vals.float()), x, None,
@@ -1220,13 +1335,14 @@ def test_k1_lane_groups_follow_the_degree_on_local_halves(kind, exchange):
 
 
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
-@pytest.mark.parametrize("width", (4, 7, 8, 12, 20))
+@pytest.mark.parametrize("width", (4, 7, 8, 12, 20, 4814))
 def test_k1_operand_layout(dtype, width):
     """K1's operand: the values of ``x.to(dtype)`` (pre-scaled in f32 and
     rounded once where a pre-scale is given) at row stride
     ``k1_operand_ld`` (rows of < 32 bytes padded to a power of two of
-    bytes); K1 on the padded view sums what it sums on the contiguous
-    operand."""
+    bytes, rows of the wide form to a multiple of 16 bytes: bf16 w4814
+    takes 9,632 bytes); K1 on the padded view sums what it sums on the
+    contiguous operand."""
     rng = np.random.default_rng(width)
     x = torch.from_numpy(rng.normal(size=(700, width)).astype(np.float32))
     pre = torch.from_numpy(rng.random(700).astype(np.float32))
@@ -1238,7 +1354,14 @@ def test_k1_operand_layout(dtype, width):
         assert got.stride() == (ld, 1)
         assert torch.equal(got, want)
         row_bytes = ld * got.element_size()
-        assert row_bytes >= 32 or row_bytes & (row_bytes - 1) == 0
+        if k1_form(width, dtype) == "wide":
+            assert row_bytes % 16 == 0
+            assert row_bytes - width * got.element_size() < 16
+            assert got.data_ptr() % 16 == 0
+        else:
+            assert row_bytes >= 32 or row_bytes & (row_bytes - 1) == 0
+    if width == 4814:
+        assert k1_operand_ld(width, torch.bfloat16) * 2 == 9632
     half = make_ell_op(_matrices()["lowpass_sym"]).fwd
     xg = k1_operand(x, dtype)
     assert torch.equal(row_gather_spmm(half, xg),

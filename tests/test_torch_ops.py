@@ -127,16 +127,20 @@ def test_half_layouts(small_graph):
 
 @pytest.mark.parametrize("gather_dtype", ("float32", "bfloat16"))
 @pytest.mark.parametrize("kind", ("lowpass_sym", "lowpass_directed"))
+@pytest.mark.parametrize("width,flags", [(2, (False, True, False, True)),
+                                         (64, (False, True))])
 def test_spmm_multi_prefix_gradient_matches_jax(kind, gather_dtype,
-                                                small_graph):
+                                                small_graph, width, flags):
     """The paired layer-2 gather: [zL_tr, zH_tr, zL_ev, zH_ev] with flags
-    [F, T, F, T] and grad_prefix 2, forward and vjp."""
+    [F, T, F, T] and grad_prefix 2, forward and vjp; and layer 1's
+    [z_low | z_high] gather at w128 (two operands of 64 columns, the
+    second through the high-pass epilogue: K1's wide form on the card),
+    forward and vjp."""
     mat = _graph(kind, small_graph)
     n = mat.shape[0]
     rng = np.random.default_rng(1)
-    zs = [rng.normal(size=(n, 2)).astype(np.float32) for _ in range(4)]
-    gs = [rng.normal(size=(n, 2)).astype(np.float32) for _ in range(4)]
-    flags = [False, True, False, True]
+    zs = [rng.normal(size=(n, width)).astype(np.float32) for _ in flags]
+    gs = [rng.normal(size=(n, width)).astype(np.float32) for _ in flags]
     op = make_ell_op(mat, gather_dtype=getattr(torch, gather_dtype))
     jop = jax_make_ell_op(mat, gather_dtype=getattr(jnp, gather_dtype))
 
@@ -150,10 +154,10 @@ def test_spmm_multi_prefix_gradient_matches_jax(kind, gather_dtype,
     outs = spmm_multi(op, tz, flags, grad_prefix=2)
     torch.autograd.backward(outs, [torch.from_numpy(g) for g in gs])
     k = _max_deg(mat)
-    for i in range(4):
+    for i in range(len(flags)):
         assert_close(outs[i], jouts[i], k, f"out {i}")
         assert_close(tz[i].grad if tz[i].grad is not None
-                     else torch.zeros(n, 2), jgrads[i], k, f"grad {i}")
+                     else torch.zeros(n, width), jgrads[i], k, f"grad {i}")
 
 
 def test_spmm_gradient_matches_jax(small_graph):
