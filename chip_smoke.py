@@ -220,7 +220,8 @@ Phases (any failure exits non-zero and prints no result):
    at world size 1 over NCCL a run makes one capture, which its later
    splits and segments replay, and fails if a split ran eagerly):
    a. wiki at full width (bench.py:942-1045's ``bench_wiki_sharded``:
-      N=1,925,342 Chung-Lu, F=600, C=5; acmgcnp hidden 64, dropout 0.5,
+      ``wiki_scale_graph``, N=1,925,342 Chung-Lu, F=600, C=5; acmgcnp
+      hidden 64, dropout 0.5,
       ELL, bf16 gathers, with the hoist) at world size 1 over NCCL
       through per-rank slab loading, 2 splits: the features' loader
       called once with (0, N), its slab the loaded rows, zero padded;
@@ -280,6 +281,37 @@ Phases (any failure exits non-zero and prints no result):
    loop against its plain condition (limit, stop flag, a limit already
    reached) and its cost an iteration over 10,000 one-kernel bodies
    beside a replay a body with the host reading the condition.
+
+13. The JAX package's single-card scenarios the card had not run, and its
+   driver entry points (each path through ``drive_path``: one capture a
+   run, a call one device-loop launch; ms/epoch over the run and over the
+   looped bodies, set-up and capture, finite losses, peak memory, the
+   allocator cache releases before a capture, launch counts as the path
+   implies, and busy share and groups from a profile of replays of the
+   captured body, not of the device loop; then every K1 width the path
+   launches per element against the plain version and bit for bit
+   against ``k1_order_replay``, with the hub class's and the deepest
+   row's share of the call, and every K2/K3 instance new in size, each
+   timed beside its bound and ``torch.sparse.mm``):
+   a. wiki on one card (bench.py:773-824: sequential, no hoist, remat,
+      bf16 features) on 11a's graph: K1 w128 and w10 and their
+      transposes, K2/K3 with LayerNorm at d64/d5 on 1,925,342 rows;
+   b. penn94 (acmgcn, joint, hoist, bf16 GEMMs) on 9b's graph: K1 w4814
+      (set-up), w128 and its transpose, w8, w4; K2/K3 without LayerNorm;
+   c. arxiv_year (F = 128, C = 5): K1 w128 (the input gather and the
+      hoist aggregate), w20, w10; K2/K3 without LayerNorm at d64/d5;
+   d. the headline on bench.py's powerlaw graph (rows of ~33,000
+      entries) and e. on its banded graph (±64 ids): K1 w7, w8, w4 beside
+      phase 2's uniform rows;
+   f. card against CPU: phase 4's configuration on a small powerlaw graph
+      with rows above ``K1_HUB_DEGREE`` (1e-4), and the single-card wiki
+      configuration on a small wiki-shaped graph (f32 gathers 1e-4, bf16
+      gathers 1e-2);
+   g. ``acmgnn_tpu_torch.entry``: ``entry()``'s forward on the card
+      against the CPU (2^-8 of the logits' scale) with its launches,
+      ``dryrun(1)`` over NCCL (the mini-split captured once), and
+      ``dryrun(1)``/``dryrun(4)`` (four gloo ranks on the one card) at
+      dropout 0 against the single card's step (1e-5).
 
 The line before the last is the kernel table as JSON (every row with
 ``ms`` and ``device_ms``, ``library_ms`` and ``library_device_ms``; K1's
@@ -1148,30 +1180,57 @@ def genius_config(**over):
         joint=True, hoist_first=True), **over))
 
 
-def joint_counts(bodies, gather, input_width, k4=False):
-    """Launches a joint run of ``bodies`` iterations implies: one input
-    gather (train branch; the eval branch reads x_agg, +1 at set-up), the
-    paired layer-2 gather and its prefix transpose, K2 per branch and
+def joint_counts(bodies, gather, input_width, k4=False, nclass=2,
+                 hidden=64):
+    """Launches a joint run of ``bodies`` iterations implies: layer 1's
+    train branch gathers its input (F = ``input_width`` <= HOIST_MAX_COLS;
+    the eval branch reads x_agg, +1 at set-up) or, above HOIST_MAX_COLS,
+    projects first and gathers [z_low | z_high] (2·hidden wide) and its
+    transpose (x_agg's F-wide gather once at set-up); layer 2's paired
+    gather (4·C wide) and its prefix transpose (2·C); K2 per branch and
     layer, K3 for the train branch, K4 once per iteration."""
-    out = {f"{gather}_w{input_width}": bodies + 1, f"{gather}_w8": bodies,
-           f"{gather}_w4": bodies,
-           "k2_attn_fwd_d64": 2 * bodies, "k2_attn_fwd_d2": 2 * bodies,
-           "k3_attn_bwd_d64": bodies, "k3_attn_bwd_d2": bodies}
+    from acmgnn_tpu_torch.models.layers import HOIST_MAX_COLS
+
+    b, c = bodies, nclass
+    if input_width <= HOIST_MAX_COLS:
+        out = {f"{gather}_w{input_width}": b + 1}
+    else:
+        out = {f"{gather}_w{input_width}": 1, f"{gather}_w{2 * hidden}": 2 * b}
+    out.update({f"{gather}_w{4 * c}": b, f"{gather}_w{2 * c}": b,
+                "k2_attn_fwd_d64": 2 * b, f"k2_attn_fwd_d{c}": 2 * b,
+                "k3_attn_bwd_d64": b, f"k3_attn_bwd_d{c}": b})
     if k4:
-        out["k4_auc_m2"] = bodies
+        out["k4_auc_m2"] = b
     return out
 
 
-def sequential_counts(bodies, gather, input_width, k4=True):
+def sequential_counts(bodies, gather, input_width, k4=True, nclass=2,
+                      hidden=64, remat=False):
     """Launches a sequential run implies: per epoch the train forward's
-    input gather and layer-2 gather, the layer-2 transpose, the eval
-    forward's layer-2 gather (its layer 1 reads x_agg), K2 per forward
-    and layer, K3 once per layer, K4 once (ROC-AUC runs)."""
-    out = {f"{gather}_w{input_width}": bodies + 1, f"{gather}_w4": 3 * bodies,
-           "k2_attn_fwd_d64": 2 * bodies, "k2_attn_fwd_d2": 2 * bodies,
-           "k3_attn_bwd_d64": bodies, "k3_attn_bwd_d2": bodies}
+    layer-1 and layer-2 gathers, the layer-2 transpose, the eval forward's
+    layer-2 gather, K2 per forward and layer, K3 once per layer, K4 once
+    (ROC-AUC runs).  Layer 1 with the hoist (``input_width``, F): the
+    train forward gathers its input and the eval forward reads x_agg
+    (+1 at set-up); without it (``input_width`` None), each forward
+    gathers [z_low | z_high] (2·hidden wide) and the backward transposes
+    it.  ``remat`` (without the hoist): the backward re-runs every K1 and
+    K2 launch of the train forward once, layer 2's K2 included (it saves
+    its inputs; the joint loop's last launch, the eval branch's K2, saves
+    nothing: ``remat_counts``); tests/test_torch_scenarios.py pins it."""
+    b, c = bodies, nclass
+    again = b if remat else 0
+    if input_width is None:
+        out = {f"{gather}_w{2 * hidden}": 3 * b + again}
+    elif remat:
+        raise ValueError("no count rule for remat with the hoist")
+    else:
+        out = {f"{gather}_w{input_width}": b + 1}
+    out.update({f"{gather}_w{2 * c}": 3 * b + again,
+                "k2_attn_fwd_d64": 2 * b + again,
+                f"k2_attn_fwd_d{c}": 2 * b + again,
+                "k3_attn_bwd_d64": b, f"k3_attn_bwd_d{c}": b})
     if k4:
-        out["k4_auc_m2"] = bodies
+        out["k4_auc_m2"] = b
     return out
 
 
@@ -1179,10 +1238,11 @@ def remat_counts(bodies, setup=1):
     """``joint_counts`` of the headline with ``remat``: the backward
     re-runs the train forward once, up to its last launch whose inputs
     autograd saved (torch's non-reentrant checkpoint stops there), so
-    every K1 and K2 launch of the forward runs twice but the paired eval
-    branch's layer-2 K2, the last one, which feeds metrics only and saves
+    every K1 and K2 launch of the forward runs twice but the last, the
+    paired eval branch's layer-2 K2, which feeds metrics only and saves
     nothing; the transpose, K3 and ``setup`` set-up gathers run once
-    (tests/test_torch_experiment.py pins this rule on the CPU)."""
+    (tests/test_torch_experiment.py pins this rule on the CPU).  The
+    sequential loop's remat form is ``sequential_counts(remat=True)``."""
     out = joint_counts(bodies, "k1_spmm", 7)
     for name in ("k1_spmm_w8", "k2_attn_fwd_d64"):
         out[name] *= 2
@@ -1192,7 +1252,8 @@ def remat_counts(bodies, setup=1):
 
 
 def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
-               profile=True, group=None, profile_ops=None):
+               profile=True, group=None, profile_ops=None, replays=False,
+               keep=None):
     """One path through the user's entry points: ``prepare_data`` (with
     ``group``, a process group: ``prepare_sharded_data`` and this rank's
     slabs), ``build_model``, a warm-up run (``cfg.epochs``), then a timed
@@ -1202,9 +1263,13 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
     run and, when captured, over the replays (the run less its set-up:
     the eager first body and the capture), the capture's ms, finite
     losses, the best split result, every launch count against
-    ``expected(bodies)``, and a profiler window.  Returns (counts, ms per
-    body over the whole timed run, timed result, the profile's ms per
-    body by kernel group, ms per body over the replays or None)."""
+    ``expected(bodies)``, and a profiler window (``replays``: of a run
+    that replays the captured body once a body, not of a device loop);
+    the allocator cache releases before its captures
+    (``trainer._room_for_capture``).  ``keep``, a dict, receives the
+    prepared ``ops`` and ``x``.  Returns (counts, ms per body over the
+    whole timed run, timed result, the profile's ms per body by kernel
+    group, ms per body over the replays or None)."""
     import torch
 
     from acmgnn_tpu_torch.ops import kernels
@@ -1228,17 +1293,29 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
         masks = tuple(prep.place(m) for m in masks_np)
     torch.cuda.synchronize()
     t_prep = time.perf_counter() - t0
+    if keep is not None:
+        keep.update(ops=ops, x=x)
     model = build_model(cfg, x.shape[1], nclass, nnodes=x.shape[0])
+    releases = [0]
+
+    def counted(empty_cache):
+        def wrapper():
+            releases[0] += 1
+            return empty_cache()
+        return wrapper
+
     warm = make_split_runner(model, cfg, group=group)
-    _, warm_state = warm(ops, x, y, masks, seed=1, return_state=True,
-                         labels_onehot=y1h)
+    with _wrapped(torch.cuda, "empty_cache", counted):
+        _, warm_state = warm(ops, x, y, masks, seed=1, return_state=True,
+                             labels_onehot=y1h)
     warm.release()    # its graph: the timed run captures its own
     torch.cuda.synchronize()
     timed = make_split_runner(model, dataclasses.replace(
         cfg, epochs=timed_epochs), group=group)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with _loop_launches() as launched:
+    with _loop_launches() as launched, \
+            _wrapped(torch.cuda, "empty_cache", counted):
         res, state = timed(ops, x, y, masks, seed=2, return_state=True,
                            labels_onehot=y1h)
     torch.cuda.synchronize()
@@ -1259,7 +1336,9 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
           f"{ms_run:.3f} ms/epoch over {state.epoch} ({form}); epochs_run "
           f"{res.epochs_run} of {timed_epochs} (early_stopping "
           f"{cfg.early_stopping}); peak "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; allocator "
+          f"cache released before a capture {releases[0]} times (warm-up "
+          f"and timed run)")
     print(f"{tag} train loss first {float(losses[0]):.5f} last "
           f"{float(losses[-1]):.5f}; best val {cfg.metric} "
           f"{float(res.val_metric):.4f} test {cfg.metric} "
@@ -1282,7 +1361,8 @@ def drive_path(tag, data, cfg, masks_np, timed_epochs, expected,
             return _bodies(c, make_split_runner(model, c, group=group)(
                 ops, x, y, masks, seed=3, labels_onehot=y1h))
 
-        groups = phase_profile(tag, run_of, ops_out=profile_ops)
+        groups = phase_profile(tag, run_of, ops_out=profile_ops,
+                               replays=replays)
     return counts, ms_run, res, groups, ms_epoch
 
 
@@ -1629,7 +1709,7 @@ def phase_loop_kernels(counts):
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
-    if "spmm_rows_kernel" in name:
+    if "spmm_rows_kernel" in name or "spmm_wide_kernel" in name:
         return "K1 spmm"
     if "attn_fwd_kernel" in name:
         return "K2 attention fwd"
@@ -1802,7 +1882,8 @@ def body_node_types(runner):
         t for t in node_types(kept.loop.graph.graph) if t not in "[]"))
 
 
-def phase_profile(tag, run_of, epochs=PROFILE_EPOCHS, ops_out=None):
+def phase_profile(tag, run_of, epochs=PROFILE_EPOCHS, ops_out=None,
+                  replays=False):
     """Device time by kernel group, device operations, the device's busy
     share and the host's waits for the device, per steady loop body:
     ``run_of(epochs)`` runs one split (and returns its bodies) under
@@ -1813,7 +1894,10 @@ def phase_profile(tag, run_of, epochs=PROFILE_EPOCHS, ops_out=None):
     between them; eager, it is the whole run.  Returns the
     groups' ms per loop body ({} where nothing was recorded); ``ops_out``,
     a dict, receives each group's device operations per body and, under
-    "wall"/"busy", the window's ms per body."""
+    "wall"/"busy", the window's ms per body.  ``replays``: the run replays
+    its captured body once a body (``Replay.run`` without its device
+    loop), so the window holds replays: inside a device loop the profiler
+    has misfiled wiki's groups (ROADMAP.md A5)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1839,9 +1923,16 @@ def phase_profile(tag, run_of, epochs=PROFILE_EPOCHS, ops_out=None):
                 return launch(self)
         return wrapper
 
+    def replayed(run):
+        def wrapper(self, *a, device_loop=None, **k):
+            return run(self, *a, **k)
+        return wrapper
+
     torch.cuda.synchronize()
     with _wrapped(trainer, "_capture", settled), \
             _wrapped(DeviceLoop, "launch", marked), \
+            (_wrapped(trainer.Replay, "run", replayed) if replays
+             else contextlib.nullcontext()), \
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4951,35 +5042,6 @@ TRAJECTORY_ORDERS = 2.0
 RESUME_EVERY, RESUME_EPOCHS = 3, 12
 
 
-def wiki_graph():
-    """bench.py:965-975's graph: N=1,925,342 nodes, 6,500,000 Chung-Lu
-    endpoint pairs with a top expected degree of 30,000, symmetrized
-    without self-loops; 600 normal features and 5 uniform classes.  The
-    features are drawn on the card (``torch.randn``, seed 0) and copied
-    to the host, not by numpy as bench.py draws them (the same law; 1.2e9
-    numpy draws take the host tens of seconds); the labels come from
-    ``numpy.random.default_rng(1)``.  Returns (GraphData, host seconds of
-    the graph, of the features)."""
-    import torch
-
-    from acmgnn_tpu_torch.data.synthetic_scale import chung_lu_edges
-    from acmgnn_tpu_torch.ops.graph import GraphData
-    from acmgnn_tpu_torch.ops.native import build_sym_adjacency
-
-    t0 = time.perf_counter()
-    src, dst = chung_lu_edges(WIKI["n"], WIKI["e"], WIKI["max_deg"], seed=0)
-    adj = build_sym_adjacency(src, dst, WIKI["n"], drop_self_loops=True)
-    t_graph = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=CARD).manual_seed(0)
-    feats = torch.randn(WIKI["n"], WIKI["f"], generator=gen,
-                        device=CARD).cpu().numpy()
-    labels = np.random.default_rng(1).integers(
-        0, WIKI["c"], size=WIKI["n"]).astype(np.int32)
-    return (GraphData("wiki-scale", adj, feats, labels), t_graph,
-            time.perf_counter() - t0)
-
-
 def wiki_config(**over):
     """bench.py:978-982's ``TrainConfig`` (acmgcnp, hidden 64, dropout 0.5,
     ELL, bf16 gathers, the sequential loop) with the first-layer hoist on:
@@ -5110,8 +5172,8 @@ def _k1_wide_row(half, xg, name, tag, lib, replaces=None, replay=False):
                 form=form)
 
 
-def phase_wiki_sharded():
-    """[11a] wiki at full width on the sharded path, world size 1 over
+def phase_wiki_sharded(data):
+    """[11a] wiki at full width (``data``, ``wiki_graph``'s) on the sharded path, world size 1 over
     NCCL: ``run_experiment_sharded(..., per_host_loading=True)`` (2 splits
     x ``WIKI_EPOCHS``), each split captured, the features' loader called
     once with (0, N) and its slab the loaded rows, zero padded; host
@@ -5129,10 +5191,6 @@ def phase_wiki_sharded():
     from acmgnn_tpu_torch.parallel import sharded
     from acmgnn_tpu_torch.train import trainer
 
-    data, t_graph, t_feats = wiki_graph()
-    print(f"[11a] wiki-shaped graph N={data.num_nodes} nnz(A)={data.adj.nnz} "
-          f"F={WIKI['f']}: edges and adjacency {t_graph:.1f} s on the host, "
-          f"features {t_feats:.1f} s (drawn on the card)")
     print(f"[11a] memory reckoned beforehand: features {4 * WIKI['n'] * 600 / 1e9:.2f} "
           f"GB f32 (host and card), the hoist aggregate "
           f"{2 * WIKI['n'] * 600 / 1e9:.2f} GB bf16, its receive buffer as "
@@ -6060,12 +6118,13 @@ def phase_segments_nccl(adj, feats, labels):
           f"equal their eager form (graph=False) bit for bit")
 
 
-def phase_sharded_zoo(g_adj, g_feats, g_labels, adj, feats, labels):
-    """Phase 11; returns (kernel rows, seconds, wiki launch counts)."""
+def phase_sharded_zoo(wiki, g_adj, g_feats, g_labels, adj, feats, labels):
+    """Phase 11 (``wiki``: ``wiki_graph``'s); returns (kernel rows,
+    seconds)."""
     import torch
 
     t0 = time.perf_counter()
-    rows, wiki = phase_wiki_sharded()
+    rows, _ = phase_wiki_sharded(wiki)
     torch.cuda.empty_cache()
     rows.append(phase_genius_sharded_rocauc(g_adj, g_feats, g_labels))
     torch.cuda.empty_cache()
@@ -6082,6 +6141,500 @@ def phase_sharded_zoo(g_adj, g_feats, g_labels, adj, feats, labels):
     secs = time.perf_counter() - t0
     print(f"[11] phase 11: {secs:.1f} s")
     return rows, secs
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the JAX package's single-card scenarios the card had not run,
+# and its driver entry points
+# ---------------------------------------------------------------------------
+
+SCENARIO_EPOCHS = TIMED_EPOCHS   # 13a-e's timed runs (bench.py times 30)
+# 13f: a few thousand nodes with rows above K1_HUB_DEGREE (top row 700,
+# 8 hub rows); a wiki-shaped graph with a hub class (top row ~500)
+SMALL_POWERLAW = dict(n=3000, pairs=30_000)
+SMALL_WIKI = dict(n=3000, e=15_000, f=600, c=5, max_deg=600)
+# 13g: entry()'s forward on the card against the CPU's, bf16 gathers: a
+# gathered f32 projection an ulp apart can round to the neighbouring bf16
+# value (tests/test_torch_entry.py BF16_TOL); dryrun at dropout 0 against
+# the single card's step (f32 gathers, another summation order)
+ENTRY_TOL = 2.0 ** -8
+DRYRUN_TOL = 1e-5
+
+
+def wiki_single_config(**over):
+    """bench.py:773-824's ``bench_epoch_wiki``: acmgcnp, hidden 64,
+    dropout 0.5, lr 0.01, weight decay 1e-3, ELL, bf16 gathers, f32 GEMMs,
+    and the JAX package's single-chip memory ladder: the sequential loop,
+    no hoist, remat, bf16 feature storage."""
+    from acmgnn_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(**dict(dict(
+        model_type="acmgcnp", hidden=64, dropout=0.5, lr=0.01,
+        weight_decay=1e-3, epochs=WARM_EPOCHS, early_stopping=0,
+        selection="val_metric", operator_format="ell",
+        spmm_dtype="bfloat16", gemm_dtype="float32", joint=False,
+        hoist_first=False, remat=True, feature_dtype="bfloat16"), **over))
+
+
+def linkx_config(name, **over):
+    """bench.py:633-657's configuration of a LINKX-scale row
+    (``bench.py:551-556``): acmgcn, hidden 64, dropout 0.5, lr 0.01,
+    weight decay 1e-3, ELL, bf16 gathers, the joint loop, the hoist;
+    penn94's GEMMs in bf16 (its row's ``gemm``), arxiv_year's in f32."""
+    from acmgnn_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(**dict(dict(
+        model_type="acmgcn", hidden=64, dropout=0.5, lr=0.01,
+        weight_decay=1e-3, epochs=WARM_EPOCHS, early_stopping=0,
+        selection="val_metric", operator_format="ell",
+        spmm_dtype="bfloat16",
+        gemm_dtype="bfloat16" if name == "penn94" else "float32",
+        joint=True, hoist_first=True), **over))
+
+
+def _hp(c):
+    """The [low | high] epilogue of a C-wide channel pair: the high half
+    is z - Â z."""
+    return [0.0] * c + [1.0] * c, [1.0] * c + [-1.0] * c
+
+
+def _k1_cases(op, n, gen, widths):
+    """K1's products on ``op`` for ``_k1_rows``, by kind: ("input", x)
+    the gather of x, no epilogue; ("fwd", c) a [low | high] gather 2c wide;
+    ("paired", c) the joint loop's [train | eval] pair of them, 4c wide;
+    ("transpose", c) the prefix transpose of a 2c-wide pair (the signed
+    operand pre-scaled, the identity path).  Returns a (half, case) pair
+    for each, a case being ``_k1_rows``'s (operand, z, alpha, beta,
+    name)."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.ell import k1_operand
+
+    out = []
+    for kind, arg in widths:
+        if kind == "input":
+            out.append((op.fwd, (k1_operand(arg, torch.bfloat16), None, None,
+                                 None, f"k1_spmm_w{arg.shape[1]}")))
+            continue
+        alpha, beta = _hp(arg)
+        if kind == "paired":
+            alpha, beta = alpha * 2, beta * 2
+        d = len(alpha)
+        z = torch.randn(n, d, generator=gen, device="cuda")
+        if kind == "transpose":
+            signed = (z * torch.tensor(beta, device="cuda")).to(
+                torch.bfloat16)
+            out.append((op.bwd, (k1_operand(signed, torch.bfloat16,
+                                            op.bwd.pre_scale), z, alpha,
+                                 [1.0] * d, f"k1_spmm_w{d}_transpose")))
+        else:
+            out.append((op.fwd, (k1_operand(z, torch.bfloat16), z, alpha,
+                                 beta, f"k1_spmm_w{d}")))
+    return out
+
+
+def _k1_hub_share(half, xg, z, alpha, beta, name):
+    """What a K1 call's hub class (its first lane class: rows above
+    ``K1_HUB_DEGREE``, a block or 8 warps a row) costs alone, and its
+    deepest row alone, each run as a half of its own (those rows'
+    entries, writing rows 0..h-1), against the whole call: device ms and
+    shares, printed."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.ell import EllHalf, row_gather_spmm
+
+    h = half.lane_classes[0]
+    whole = device_ms(lambda: row_gather_spmm(half, xg, z=z, alpha=alpha,
+                                              beta=beta), reps=5)
+    if not h:
+        print(f"  {name}: no hub rows (K1's hub class is empty); whole call "
+              f"device {_ms(whole)}")
+        return
+
+    def alone(rows):
+        end = int(half.indptr[rows])
+        ids = half.row_ids[:rows].long()
+        sub = EllHalf(
+            indptr=half.indptr[:rows + 1], indices=half.indices[:end],
+            row_ids=torch.arange(rows, dtype=torch.int32,
+                                 device=half.indptr.device),
+            vals=None if half.vals is None else half.vals[:end],
+            row_scale=(None if half.row_scale is None
+                       else half.row_scale[ids]),
+            pre_scale=half.pre_scale, num_cols=half.num_cols)
+        zz = None if z is None else z[ids]
+        return device_ms(lambda: row_gather_spmm(sub, xg, z=zz, alpha=alpha,
+                                                 beta=beta), reps=5)
+
+    hub, top = alone(h), alone(1)
+    nnz = int(half.indices.numel())
+    hub_nnz = int(half.indptr[h])
+    top_nnz = int(half.indptr[1])
+    print(f"  {name}: hub class {h} rows, {hub_nnz} of {nnz} entries "
+          f"({hub_nnz / nnz:.3f}), alone device {_ms(hub)} = "
+          f"{(hub or 0) / (whole or 1):.3f} of the whole call's "
+          f"{_ms(whole)}; its deepest row ({top_nnz} entries) alone "
+          f"{_ms(top)} = {(top or 0) / (whole or 1):.3f} of the call "
+          f"({CARD_LINE})")
+
+
+def _path_kernel_rows(tag, suffix, op, lib, lib_t, cases, counts, path):
+    """``_k1_rows`` for each of ``_k1_cases``'s products (K1 per element
+    against the plain version, bit for bit against ``k1_order_replay``,
+    timed beside its bound and ``torch.sparse.mm``), the hub class's
+    share of each call, launches from the path's ``counts``."""
+    rows = []
+    for half, case in cases:
+        xg, z, alpha, beta, name = case
+        rows += _k1_rows(half, [case], suffix, lambda d: f"k1_spmm_w{d}",
+                         lib_t if half is op.bwd else lib,
+                         K1_REPLACES[2 if half is op.bwd
+                                     else 0 if z is None else 1])
+        _k1_hub_share(half, xg, z, alpha, beta, name + suffix)
+    for r in rows:
+        r.update(path=path, launches=counts.get(r["counter"], 0))
+    print(f"{tag} K1 rows on the path's operator: "
+          + "; ".join(f"{r['name']} device {_ms(r['device_ms'])}, launches "
+                      f"{r['launches']}" for r in rows))
+    return rows
+
+
+def _operator_note(tag, op):
+    from acmgnn_tpu_torch.ops.ell import K1_HUB_DEGREE
+
+    deg = (op.fwd.indptr[1:] - op.fwd.indptr[:-1]).cpu()
+    print(f"{tag} operator N={op.num_nodes} nnz={op.nnz}: max row "
+          f"{int(deg.max())}, median {int(deg.median())}, "
+          f"{int((deg > K1_HUB_DEGREE).sum())} rows above K1_HUB_DEGREE "
+          f"{K1_HUB_DEGREE} holding "
+          f"{float(deg[deg > K1_HUB_DEGREE].sum()) / float(deg.sum()):.3f} "
+          f"of the entries; K1 lane classes fwd {op.fwd.lane_classes}")
+
+
+def _libs(adj):
+    """``torch.sparse.mm``'s operands (f32 CSR on the card): Â and Âᵀ."""
+    from acmgnn_tpu_torch.ops.graph import row_normalized_adjacency
+
+    a_hat = row_normalized_adjacency(adj)
+    return _csr_on_card(a_hat), _csr_on_card(a_hat.T)
+
+
+def _scenario(tag, data, cfg, masks_np, expected, path):
+    """One scenario through ``drive_path`` (replays profiled); returns
+    (counts, ms over the run, ms over the looped bodies, the prepared ops
+    and x, the profile's {"wall", "busy", ...})."""
+    keep, prof = {}, {}
+    counts, ms_run, _, _, ms_loop = drive_path(
+        tag, data, cfg, masks_np, SCENARIO_EPOCHS, expected,
+        profile_ops=prof, replays=True, keep=keep)
+    print(f"{tag} {path}: {ms_run:.3f} ms/epoch over the run, "
+          f"{_ms(ms_loop)} over the looped bodies; replays profiled "
+          f"{_ms(prof.get('wall'))} ms/epoch, device busy "
+          f"{_ms(prof.get('busy'))} ({CARD_LINE})")
+    return counts, ms_run, ms_loop, keep, prof
+
+
+def phase_wiki_single(wiki):
+    """[13a] wiki on one card as the JAX package runs it
+    (``wiki_single_config``: sequential, no hoist, remat, bf16 features)
+    on 11a's graph: the path's run, then K1 at its widths (w128 and its
+    transpose, w10 and its transpose) and K2/K3 with LayerNorm at d64 and
+    d5 on its 1,925,342 rows."""
+    import torch
+
+    cfg = wiki_single_config()
+    path = ("13a: wiki on one card (sequential, remat, bf16 features), "
+            f"{SCENARIO_EPOCHS} timed epochs")
+    print(f"[13a] memory reckoned beforehand: features "
+          f"{2 * wiki.num_nodes * 600 / 1e9:.2f} GB bf16 on the card, their "
+          f"f32 copy for the projection {4 * wiki.num_nodes * 600 / 1e9:.2f}"
+          f" GB while it runs; the sharded hoisted form (11a) peaked at "
+          f"16.76 GiB (PERF.md)")
+    counts, ms_run, ms_loop, keep, prof = _scenario(
+        "[13a]", wiki, cfg, _masks(wiki.num_nodes), lambda b:
+        sequential_counts(b, "k1_spmm", None, k4=False, nclass=5,
+                          remat=True), path)
+    op, n = keep["ops"].adj_low, wiki.num_nodes
+    del keep
+    torch.cuda.empty_cache()
+    _operator_note("[13a]", op)
+    lib, lib_t = _libs(wiki.adj)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = _path_kernel_rows(
+        "[13a]", "@wiki1", op, lib, lib_t,
+        _k1_cases(op, n, gen, [("fwd", 64), ("transpose", 64), ("fwd", 5),
+                               ("transpose", 5)]), counts, path)
+    del lib, lib_t, op
+    torch.cuda.empty_cache()
+    a_rows = _attention_instance_rows(n, gen, (True,) * 3, True, (64, 5),
+                                      "@wiki1")
+    for r in a_rows:
+        r.update(path=path, launches=counts.get(r["counter"], 0))
+    return rows + a_rows, (ms_run, ms_loop, prof)
+
+
+def phase_linkx_scenario(name, adj, feats, labels):
+    """[13b] penn94 / [13c] arxiv_year (``linkx_config``): the path's run
+    on bench.py's stand-in, then K1 at every width it launches and K2/K3
+    without LayerNorm at d64 and d=C on its rows."""
+    import torch
+
+    from acmgnn_tpu_torch.ops.ell import k1_operand
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    tag = "[13b]" if name == "penn94" else "[13c]"
+    cfg = linkx_config(name)
+    f, c = feats.shape[1], int(labels.max()) + 1
+    data = GraphData(f"{name}-scale", adj, feats, labels)
+    path = (f"{tag[1:-1]}: {name} (acmgcn, joint, hoist, bf16 gathers, "
+            f"{cfg.gemm_dtype} GEMMs), {SCENARIO_EPOCHS} timed epochs")
+    counts, ms_run, ms_loop, keep, prof = _scenario(
+        tag, data, cfg, _masks(adj.shape[0], seed=1),
+        lambda b: joint_counts(b, "k1_spmm", f, nclass=c), path)
+    op, x, n = keep["ops"].adj_low, keep["x"], adj.shape[0]
+    del keep
+    _operator_note(tag, op)
+    lib, lib_t = _libs(adj)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    suffix = f"@{name}"
+    rows = []
+    if f > 128:
+        # the eval branch's set-up gather of the features (x_agg): the
+        # plain version in row chunks, as 9a
+        row = _k1_wide_row(op.fwd, k1_operand(x, torch.bfloat16),
+                           f"k1_spmm_w{f}", suffix, lib, replay=True)
+        row.update(path=path, launches=counts.get(row["counter"], 0))
+        rows.append(row)
+        widths = [("fwd", 64), ("transpose", 64)]
+    else:
+        widths = [("input", x)]
+    rows += _path_kernel_rows(tag, suffix, op, lib, lib_t,
+                              _k1_cases(op, n, gen, widths
+                                        + [("paired", c), ("transpose", c)]),
+                              counts, path)
+    del lib, lib_t, op, x
+    torch.cuda.empty_cache()
+    a_rows = _attention_instance_rows(n, gen, (True,) * 3, False, (64, c),
+                                      suffix)
+    for r in a_rows:
+        r.update(path=path, launches=counts.get(r["counter"], 0))
+    return rows + a_rows, (ms_run, ms_loop, prof)
+
+
+def phase_twitch_scenario(graph, headline_rows):
+    """[13d] powerlaw / [13e] banded: the headline configuration on
+    bench.py's twitch-shaped graph (``twitch_gamers_scale_graph(graph=)``),
+    then K1 at w7, w8 and w4 on its operator beside the uniform
+    headline's phase-2 rows (K2/K3 are phase 2's: the same rows and
+    widths)."""
+    import torch
+
+    from acmgnn_tpu_torch.data.registry import row_normalize_features
+    from acmgnn_tpu_torch.data.synthetic_scale import \
+        twitch_gamers_scale_graph
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    tag = "[13d]" if graph == "powerlaw" else "[13e]"
+    t0 = time.perf_counter()
+    adj, feats, labels = twitch_gamers_scale_graph(0, graph=graph)
+    print(f"{tag} {graph} twitch-shaped graph N={adj.shape[0]} "
+          f"edges={adj.nnz} ({time.perf_counter() - t0:.1f} s on the host)")
+    data = GraphData(f"twitch-gamers-scale-{graph}", adj, feats, labels)
+    path = (f"{tag[1:-1]}: the headline on the {graph} graph, "
+            f"{SCENARIO_EPOCHS} timed epochs")
+    counts, ms_run, ms_loop, keep, prof = _scenario(
+        tag, data, headline_config(), _masks(adj.shape[0]),
+        lambda b: joint_counts(b, "k1_spmm", 7), path)
+    op, n = keep["ops"].adj_low, adj.shape[0]
+    del keep
+    _operator_note(tag, op)
+    lib, lib_t = _libs(adj)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x_in = torch.from_numpy(row_normalize_features(feats)).cuda()
+    rows = _path_kernel_rows(
+        tag, f"@{graph}", op, lib, lib_t,
+        _k1_cases(op, n, gen, [("input", x_in), ("paired", 2),
+                               ("transpose", 2)]), counts, path)
+    uniform = {r["name"]: r["device_ms"] for r in headline_rows}
+    print(f"{tag} K1 on the {graph} graph against the uniform headline "
+          f"(phase 2, same widths, device ms): " + "; ".join(
+              f"{r['name']} {_ms(r['device_ms'])} / "
+              f"{_ms(uniform.get(r['counter']))} = "
+              f"{(r['device_ms'] or 0) / (uniform.get(r['counter']) or 1):.3f}"
+              for r in rows) + f" ({CARD_LINE})")
+    return rows, (ms_run, ms_loop, prof)
+
+
+def phase_scenarios_card_vs_cpu():
+    """[13f] Card against CPU, dropout 0: phase 4's configuration on a
+    small powerlaw graph with rows above ``K1_HUB_DEGREE`` (f32 gathers,
+    20 epochs, 1e-4); the single-card wiki configuration on a small
+    wiki-shaped graph (sequential, remat, bf16 features; hidden 16, lr
+    1e-3 without decay on labels from the features, as 6c), with f32
+    gathers within 1e-4 and with its bf16 gathers within 1e-2 (a bf16
+    rounding that a last-bit f32 difference flips moves a value by 2^-8:
+    7c's bf16 bound)."""
+    from acmgnn_tpu_torch.data.synthetic_scale import (
+        twitch_gamers_scale_graph,
+        wiki_scale_graph,
+    )
+    from acmgnn_tpu_torch.ops.ell import K1_HUB_DEGREE
+    from acmgnn_tpu_torch.ops.graph import GraphData
+
+    for name, (adj, feats, labels) in (
+            ("powerlaw", twitch_gamers_scale_graph(0, graph="powerlaw",
+                                                   **SMALL_POWERLAW)),
+            ("wiki", wiki_scale_graph(**SMALL_WIKI, device=CARD))):
+        deg = np.diff(adj.indptr)
+        print(f"[13f {name}] N={adj.shape[0]} nnz(A)={adj.nnz}: max row "
+              f"{int(deg.max())}, {int((deg > K1_HUB_DEGREE).sum())} rows "
+              f"above K1_HUB_DEGREE")
+        if not (deg > K1_HUB_DEGREE).any():
+            fail(f"[13f {name}] no row above K1_HUB_DEGREE")
+        feats = np.abs(feats)
+        n = adj.shape[0]
+        if name == "powerlaw":
+            card_vs_cpu("[13f powerlaw]", GraphData(name, adj, feats, labels),
+                        knob_check_config(), _masks(n))
+            continue
+        labels = np.searchsorted(np.quantile(feats[:, 0], [0.2, 0.4, 0.6,
+                                                           0.8]),
+                                 feats[:, 0]).astype(np.int32)
+        data = GraphData(name, adj, feats, labels)
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 1e-2)):
+            card_vs_cpu(f"[13f wiki, {dtype} gathers]", data,
+                        wiki_single_config(hidden=16, dropout=0.0, lr=1e-3,
+                                           weight_decay=0.0, epochs=20,
+                                           spmm_dtype=dtype), _masks(n),
+                        tol=tol)
+
+
+def _dryrun_reference(n):
+    """The dryrun's step on one card (``dryrun_step`` on the whole graph,
+    dropout 0): (loss, state_dict on the host)."""
+    import torch
+
+    from acmgnn_tpu_torch import entry as port_entry
+    from acmgnn_tpu_torch.ops.graph import precompute_operators
+
+    adj, feats, labels = port_entry.dryrun_graph(n)
+    ops = precompute_operators(adj, structure_info=True, fmt="ell").to(CARD)
+    model = port_entry.dryrun_model(adj.shape[0], 0.0, CARD)
+    loss = port_entry.dryrun_step(
+        model, ops, torch.from_numpy(feats).to(CARD),
+        torch.from_numpy(labels.astype(np.int64)).to(CARD),
+        torch.ones(adj.shape[0], dtype=torch.bool, device=CARD))
+    return loss, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def phase_entry_driver():
+    """[13g] The port's driver entry points (``acmgnn_tpu_torch/entry.py``):
+    ``entry()``'s forward on the card (its default) against the CPU's
+    within ``ENTRY_TOL`` of the logits' scale, with K1 and K2 launched;
+    ``dryrun(1)`` over NCCL in this process (its mini-split captured
+    once) at its dropout 0.1, then ``dryrun(1)`` and ``dryrun(4)`` (four
+    gloo ranks on the one card) at dropout 0, each step's loss finite and
+    its loss and parameters within ``DRYRUN_TOL`` of the single card's
+    step; the mini-splits' results finite."""
+    import torch
+
+    from acmgnn_tpu_torch import entry as port_entry
+    from acmgnn_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    fn, args = port_entry.entry()
+    if args[1].device.type != "cuda":
+        fail("[13g] entry() did not place its tensors on the card")
+    with torch.no_grad():
+        got = fn(*args).cpu()
+    counts = without_loop_kernels(dict(kernels.launches))
+    fn, args = port_entry.entry("cpu")
+    with torch.no_grad():
+        want = fn(*args)
+    err = float((got - want).abs().max())
+    tol = ENTRY_TOL * max(1.0, float(want.abs().max()))
+    print(f"[13g] entry() forward {tuple(got.shape)} on the card against "
+          f"the CPU: max_abs_err {err:.3e} (tolerance {tol:.3e}); launches "
+          f"{json.dumps(counts, sort_keys=True)}")
+    # the graph keeps its self-pairs, so A + I is not row-uniform: valued
+    # halves (JAX's entry builds the same operator)
+    want_counts = {"k1_spmm_w128_valued": 1, "k1_spmm_w16_valued": 1,
+                   "k2_attn_fwd_d64": 1, "k2_attn_fwd_d8": 1}
+    if not (err <= tol and torch.isfinite(got).all()):
+        fail("[13g] entry() on the card disagrees with the CPU")
+    if counts != want_counts:
+        fail(f"[13g] entry() launches {counts} != expected {want_counts}")
+    t0 = time.perf_counter()
+    with _captured_runs("[13g dryrun(1)]") as calls:
+        out = port_entry.dryrun(1)
+    print(f"[13g] dryrun(1) over {out['backend']}: loss {out['loss']:.6f}, "
+          f"mini-split test {out['mini_split']['test_mean']:.4f}, runner "
+          f"calls (bodies, replays, capture ms) {calls} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not math.isfinite(out["loss"]):
+        fail("[13g] dryrun(1): non-finite loss")
+    for n in (1, 4):
+        t0 = time.perf_counter()
+        out = port_entry.dryrun(n, dropout=0.0)
+        secs = time.perf_counter() - t0
+        loss, params = _dryrun_reference(n)
+        worst = max(float((out["params"][k] - v).abs().max())
+                    for k, v in params.items())
+        d_loss = abs(out["loss"] - loss)
+        print(f"[13g] dryrun({n}) over {out['backend']} at dropout 0 "
+              f"({secs:.1f} s with start-up): loss {out['loss']:.6f}, the "
+              f"single card {loss:.6f}; max |Δparam| {worst:.3e}, |Δloss| "
+              f"{d_loss:.3e} (tolerance {DRYRUN_TOL:g}); mini-split test "
+              f"{out['mini_split']['test_mean']:.4f}")
+        if not (math.isfinite(out["loss"]) and worst <= DRYRUN_TOL
+                and d_loss <= DRYRUN_TOL * max(1.0, abs(loss))):
+            fail(f"[13g] dryrun({n}) disagrees with the single card")
+
+
+def phase_scenarios(wiki, p_adj, p_feats, p_labels, headline_rows):
+    """Phase 13; returns (kernel rows, {path: (ms over the run, over the
+    looped bodies, profile)}, seconds)."""
+    import torch
+
+    from acmgnn_tpu_torch.data.synthetic_scale import linkx_scale_graph
+
+    t0 = time.perf_counter()
+    rows, ms = [], {}
+
+    def lap(tag):
+        torch.cuda.empty_cache()
+        print(f"[t] {tag} done at {time.perf_counter() - t0:.1f} s of "
+              f"phase 13")
+
+    got, ms["wiki1"] = phase_wiki_single(wiki)
+    rows += got
+    lap("13a")
+    got, ms["penn94"] = phase_linkx_scenario("penn94", p_adj, p_feats,
+                                             p_labels)
+    rows += got
+    lap("13b")
+    t1 = time.perf_counter()
+    a_adj, a_feats, a_labels = linkx_scale_graph("arxiv_year")
+    print(f"[13c] arxiv_year-shaped graph N={a_adj.shape[0]} edges="
+          f"{a_adj.nnz} F={a_feats.shape[1]} ({time.perf_counter() - t1:.1f}"
+          f" s)")
+    got, ms["arxiv_year"] = phase_linkx_scenario("arxiv_year", a_adj,
+                                                 a_feats, a_labels)
+    rows += got
+    lap("13c")
+    for graph in ("powerlaw", "banded"):
+        got, ms[graph] = phase_twitch_scenario(graph, headline_rows)
+        rows += got
+        lap("13d" if graph == "powerlaw" else "13e")
+    phase_scenarios_card_vs_cpu()
+    lap("13f")
+    phase_entry_driver()
+    for row in rows:
+        if row["launches"] == 0:
+            fail(f"{row['name']} was not launched on its path")
+    secs = time.perf_counter() - t0
+    print(f"[13] phase 13: {secs:.1f} s")
+    return rows, ms, secs
 
 
 def _instance_launches(row, pp, sym, dense, zoo):
@@ -6120,7 +6673,9 @@ def main() -> int:
     from acmgnn_tpu_torch.data.synthetic_scale import (
         linkx_scale_graph,
         twitch_gamers_scale_graph,
+        wiki_scale_graph,
     )
+    from acmgnn_tpu_torch.ops.graph import GraphData
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6203,7 +6758,6 @@ def main() -> int:
     i_rows = phase_instances(adj, feats, p_adj)
     phase_k1_crossover(adj, p_adj)
     pp = phase_penn94_pp(p_adj, p_feats, p_labels)
-    del p_feats
     sym = phase_symmetric_paths(adj, feats, labels)
     dense = phase_dense_paths()
     zoo = phase_zoo()
@@ -6215,8 +6769,18 @@ def main() -> int:
     lap(9)
     cli_out = phase_cli(paths["ell"][4])
     lap(10)
-    w_rows, w_secs = phase_sharded_zoo(g_adj, g_feats, g_labels, adj, feats,
-                                       labels)
+    t0 = time.perf_counter()
+    wiki = GraphData("wiki-scale", *wiki_scale_graph(**WIKI, device=CARD))
+    print(f"[11a] wiki-shaped graph N={wiki.num_nodes} nnz(A)="
+          f"{wiki.adj.nnz} F={WIKI['f']}: {time.perf_counter() - t0:.1f} s "
+          f"on the host (the features drawn on the card)")
+    w_rows, w_secs = phase_sharded_zoo(wiki, g_adj, g_feats, g_labels, adj,
+                                       feats, labels)
+    lap(11)
+    sc_rows, sc_ms, sc_secs = phase_scenarios(wiki, p_adj, p_feats,
+                                              p_labels, rows)
+    del wiki, p_feats
+    lap(13)
     steady = {k: entry[k][0]["epoch_ms_steady"]
               for k in ("experiment", "plain", "remat", "adamw", "bf16",
                         "rcm")}
@@ -6247,14 +6811,19 @@ def main() -> int:
                                    for k, v in dense.items())
           + f"; cli train genius {cli_out['whole'][-1]:.3f} "
           f"({cli_out['replays'][-1]:.3f}), load {cli_out['load_s']:.2f} s, "
-          f"phase 10 {cli_out['seconds']:.1f} s; phase 11 {w_secs:.1f} s")
+          f"phase 10 {cli_out['seconds']:.1f} s; phase 11 {w_secs:.1f} s; "
+          + "phase 13 ms/epoch over the run (over the looped bodies; "
+          "profiled replays, device busy) " + ", ".join(
+              f"{k} {r:.3f} ({_ms(b)}; {_ms(p.get('wall'))}, "
+              f"{_ms(p.get('busy'))})" for k, (r, b, p) in sc_ms.items())
+          + f", phase 13 {sc_secs:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "path")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + (("form",) if "form" in r else ())}
         for r in rows + l_rows + g_rows + s_rows + p_rows + i_rows
-        + w_rows]}))
+        + w_rows + sc_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

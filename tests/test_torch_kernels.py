@@ -245,6 +245,8 @@ print(" ".join(sorted(sys.modules)))
             "acmgnn_tpu_torch.data.linkx",
             "acmgnn_tpu_torch.data.homophily",
             "acmgnn_tpu_torch.data.synthetic",
+            "acmgnn_tpu_torch.data.synthetic_scale",
+            "acmgnn_tpu_torch.entry",
             "acmgnn_tpu_torch.ops.native",
             "acmgnn_tpu_torch.utils.checkpoint",
             "acmgnn_tpu_torch.utils.profiling",
