@@ -133,7 +133,9 @@ def _add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--results_csv", default="")
     p.add_argument("--profile_dir", default="",
                    help="capture a torch.profiler trace of the whole run "
-                        "into this directory (trace.json, a Chrome trace)")
+                        "into this directory (trace.json, a Chrome trace), "
+                        "with the program's spans (split, runner.*, "
+                        "body.*, prepare.*) as ranges over the kernels")
     p.add_argument("--device", default="cuda",
                    help="device to run on: cuda (default; raises without a "
                         "card) or cpu")
@@ -199,8 +201,8 @@ def _build_config(args, use_rocauc, selection) -> TrainConfig:
 
 
 def cmd_train(args):
+    from acmgnn_tpu_torch.utils import profiling
     from acmgnn_tpu_torch.utils.logging import ExperimentLogger
-    from acmgnn_tpu_torch.utils.profiling import profile_trace
 
     cfg = config_from_args(args)
     name = f"{args.dataset}_{args.model}"
@@ -208,13 +210,14 @@ def cmd_train(args):
         name += f"_rank{os.environ['RANK']}"   # one log file per rank
     logger = ExperimentLogger(name=name, log_dir=args.log_dir)
     logger.info("config: %s", dataclasses.asdict(cfg))
-    trace = (profile_trace(args.profile_dir) if args.profile_dir
+    trace = (profiling.profile_trace(args.profile_dir) if args.profile_dir
              else contextlib.nullcontext())
     with trace:
         out = _run_train(args, cfg, logger)
     if args.profile_dir:
-        logger.info("profiler trace written to %s (a Chrome trace)",
-                    args.profile_dir)
+        logger.info("profiler trace written to %s (a Chrome trace); the "
+                    "program's spans:\n%s", args.profile_dir,
+                    profiling.table())
     if args.results_csv:
         logger.append_csv(args.results_csv, {
             "dataset": out["dataset"],

@@ -75,7 +75,7 @@ from acmgnn_tpu_torch.ops.graph import (
     permute_graph,
     precompute_operators,
 )
-from acmgnn_tpu_torch.ops.loop import DeviceLoop, count_bodies
+from acmgnn_tpu_torch.ops.loop import DeviceLoop, count_bodies, node_types
 from acmgnn_tpu_torch.ops.spmm import spmm
 from acmgnn_tpu_torch.parallel.multihost import (
     all_reduce_sum,
@@ -101,11 +101,13 @@ from acmgnn_tpu_torch.train.metrics import (
     masked_rocauc_multi,
     pack_labels_and_masks,
 )
+from acmgnn_tpu_torch.utils import profiling
 from acmgnn_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
 from acmgnn_tpu_torch.utils.logging import RunStats
+from acmgnn_tpu_torch.utils.profiling import span
 from acmgnn_tpu_torch.utils.resilience import retry_transient
 
 JOINT_CAPABLE = ("acmgcn", "acmgcnp", "acmgcnpp")
@@ -545,7 +547,8 @@ def _room_for_capture(dev) -> None:
     free, _ = torch.cuda.mem_get_info(dev)
     if free < torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(
             dev):
-        torch.cuda.empty_cache()
+        with span("runner.cache_release"):
+            torch.cuda.empty_cache()
 
 
 class Replay:
@@ -569,7 +572,14 @@ class Replay:
     runs the body eagerly again and captures anew (a graph whose replay
     failed is never replayed again).  A failed capture or replay raises;
     nothing falls back to eager.  ``release`` discards the device loop,
-    the graph and its private memory pool; so does dropping the object."""
+    the graph and its private memory pool; so does dropping the object.
+
+    With spans on (``utils/profiling.py``) a ``run`` records
+    ``runner.first_body`` (synchronized at its end), ``runner.capture``
+    (over ``runner.cache_release`` when the cache is emptied, and
+    ``runner.loop_build``) and ``runner.loop`` (on the card's clock: the
+    bodies after the eager first, through the host's read of ``k``), and
+    counts ``loop_bodies`` and, at a looped capture, ``body_nodes``."""
 
     def __init__(self, capture_on):
         self.capture_on = capture_on
@@ -606,27 +616,29 @@ class Replay:
         bodies = replays = 0
         capture_ms = setup_ms = None
         looped = self.side is not None and device_loop is not None
+
+        def halted():   # the host reads the flag (a device loop's K9 does)
+            return stop is not None and not looped and bool(stop)
+
         if self.side is not None:
             self.side.wait_stream(torch.cuda.current_stream(self.capture_on))
         try:
             with (torch.cuda.stream(self.side) if self.side is not None
                   else contextlib.nullcontext()):
-                while bodies < limit:
-                    if self.side is None or not self.warm:
+                if limit > 0 and not self.warm:
+                    with span("runner.first_body", sync=True):
                         body()
-                        self.warm = True
-                    else:
-                        if self.graph is None:
-                            t1 = time.perf_counter()
-                            _room_for_capture(self.capture_on)
-                            self.graph = _capture(body, keep_graph=looped)
-                            if looped:
-                                k, bound, _ = device_loop
-                                self.loop = DeviceLoop(self.graph.graph, k,
-                                                       bound, stop)
-                            capture_ms = 1e3 * (time.perf_counter() - t1)
-                        if setup_ms is None:
-                            setup_ms = 1e3 * (time.perf_counter() - t0)
+                    self.warm = True
+                    bodies = 1
+                more = bodies < limit and not (bodies and halted())
+                if more and self.side is not None:
+                    if self.graph is None:
+                        capture_ms = self._capture(body, looped, device_loop,
+                                                   stop)
+                    setup_ms = 1e3 * (time.perf_counter() - t0)
+                first = bodies
+                if more:
+                    with span("runner.loop", device=True):
                         if looped:
                             k, _, start = device_loop
                             self.loop.launch()
@@ -634,13 +646,17 @@ class Replay:
                             self.graph.ran(replays)
                             count_bodies(replays)
                             bodies += replays
-                            break
-                        self.graph.replay()
-                        replays += 1
-                    bodies += 1
-                    # the host reads the flag (a device loop's K9 does)
-                    if stop is not None and not looped and bool(stop):
-                        break
+                        else:
+                            while bodies < limit:
+                                if self.side is None:
+                                    body()
+                                else:
+                                    self.graph.replay()
+                                    replays += 1
+                                bodies += 1
+                                if halted():
+                                    break
+                    profiling.count("loop_bodies", bodies - first)
         finally:
             # raised or not: what the caller writes next (a retry rewrites
             # the parameters and moments in place) waits for every body
@@ -650,6 +666,26 @@ class Replay:
                     self.side)
         self.busy = False
         return bodies, replays, capture_ms, setup_ms
+
+    def _capture(self, body, looped: bool, device_loop, stop) -> float:
+        """The body captured (and, ``looped``, the device loop built around
+        it); returns the capture's host ms.  With spans on, counts the
+        captured body's kernel, memcpy and memset nodes (``body_nodes``)
+        after the timed part."""
+        t1 = time.perf_counter()
+        with span("runner.capture"):
+            _room_for_capture(self.capture_on)
+            self.graph = _capture(body, keep_graph=looped)
+            if looped:
+                with span("runner.loop_build"):
+                    k, bound, _ = device_loop
+                    self.loop = DeviceLoop(self.graph.graph, k, bound, stop)
+        capture_ms = 1e3 * (time.perf_counter() - t1)
+        if looped and profiling.spans_enabled():
+            profiling.count("body_nodes", sum(
+                t in ("kernel", "memcpy", "memset")
+                for t in node_types(self.graph.graph)))
+        return capture_ms
 
 
 def initial_params(cfg: TrainConfig, nfeat: int, nclass: int, *, seed: int,
@@ -877,16 +913,18 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         over the ranks first in one all-reduce of a flat buffer
         ``[gradients | shares]``: this rank's metric ``shares`` ride
         behind the gradients, and come back summed (None on one card)."""
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if group is not None:
-            flat = all_reduce_sum(torch.cat(
-                [p.grad.reshape(-1) for p in params] + [shares]), group)
-            *grads, shares = flat.split([p.numel() for p in params]
-                                        + [shares.numel()])
-            for p, g in zip(params, grads):
-                p.grad = g.view_as(p)
-        opt.step()
+        with span("body.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            if group is not None:
+                flat = all_reduce_sum(torch.cat(
+                    [p.grad.reshape(-1) for p in params] + [shares]), group)
+                *grads, shares = flat.split([p.numel() for p in params]
+                                            + [shares.numel()])
+                for p, g in zip(params, grads):
+                    p.grad = g.view_as(p)
+        with span("body.step"):
+            opt.step()
         return shares
 
     def packed_words(labels, masks, labels_onehot):
@@ -962,52 +1000,56 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
         nonlocal live
         t0 = time.perf_counter()
         key = (ops, x, labels, labels_onehot)
-        if live is not None and live.same(key):
-            if live.loop.busy:
-                live.cause = "a retry: the last call raised"
-            rewrite(live, masks, seed)
-        else:
-            cause = ("the first call" if live is None else
-                     "other ops, x or labels")
-            release()
-            live = start(body_of, key, masks, seed, cause)
-        lv = live
-        lv.opt.set_hparams(*((cfg.lr, cfg.weight_decay) if hparams is None
-                             else map(float, hparams)))
-        if init_params is not None:
-            model.load_state_dict(init_params)
-        if init_state is not None:
-            model.load_state_dict(init_state.variables)
-            set_optimizer_state(lv.opt, init_state.opt_state)
-            lv.state.copy_(init_state.loop)
-        limit = budget if epoch_limit is None else min(int(epoch_limit),
-                                                        budget)
-        done = 0 if init_state is None else init_state.bodies
-        if init_state is not None and bool(init_state.loop.stop):
-            limit = done
-        lv.limit.fill_(limit)
+        fresh = live is None or not live.same(key)
+        with span("runner.start" if fresh else "runner.rewrite"):
+            if fresh:
+                cause = ("the first call" if live is None else
+                         "other ops, x or labels")
+                release()
+                live = start(body_of, key, masks, seed, cause)
+            else:
+                if live.loop.busy:
+                    live.cause = "a retry: the last call raised"
+                rewrite(live, masks, seed)
+            lv = live
+            lv.opt.set_hparams(*((cfg.lr, cfg.weight_decay) if hparams is None
+                                 else map(float, hparams)))
+            if init_params is not None:
+                model.load_state_dict(init_params)
+            if init_state is not None:
+                model.load_state_dict(init_state.variables)
+                set_optimizer_state(lv.opt, init_state.opt_state)
+                lv.state.copy_(init_state.loop)
+            limit = budget if epoch_limit is None else min(int(epoch_limit),
+                                                            budget)
+            done = 0 if init_state is None else init_state.bodies
+            if init_state is not None and bool(init_state.loop.stop):
+                limit = done
+            lv.limit.fill_(limit)
         ran, replays, capture_ms, setup_ms = lv.loop.run(
             lv.body, max(limit - done, 0), lv.state.stop if es else None, t0,
             device_loop=(lv.state.k, lv.limit, done))
         if capture_ms is not None:
             captures.append(lv.cause)
-        lv.opt.zero_grad(set_to_none=True)   # frees the graph's gradients
-        bodies = done + ran
-        result = lv.state.result(joint, bodies)
-        if not return_state:
-            return result
-        opt_state = copy.deepcopy(lv.opt.state_dict())
-        runner = None
-        if epoch_limit is not None:   # a segment: what the next starts from
-            runner = RunnerState(
-                variables={k: v.detach().clone()
-                           for k, v in model.state_dict().items()},
-                opt_state=opt_state, loop=lv.state.clone())
-        return result, SplitState(
-            epoch=bodies, train_losses=lv.state.train_losses[:bodies].clone(),
-            val_hist=lv.state.val_hist[:result.epochs_run].clone(),
-            opt_state=opt_state, capture_ms=capture_ms, setup_ms=setup_ms,
-            replays=replays, runner=runner)
+        with span("runner.results"):
+            lv.opt.zero_grad(set_to_none=True)   # frees the graph's gradients
+            bodies = done + ran
+            result = lv.state.result(joint, bodies)
+            if not return_state:
+                return result
+            opt_state = copy.deepcopy(lv.opt.state_dict())
+            runner = None
+            if epoch_limit is not None:   # a segment: the next one's start
+                runner = RunnerState(
+                    variables={k: v.detach().clone()
+                               for k, v in model.state_dict().items()},
+                    opt_state=opt_state, loop=lv.state.clone())
+            return result, SplitState(
+                epoch=bodies,
+                train_losses=lv.state.train_losses[:bodies].clone(),
+                val_hist=lv.state.val_hist[:result.epochs_run].clone(),
+                opt_state=opt_state, capture_ms=capture_ms, setup_ms=setup_ms,
+                replays=replays, runner=runner)
 
     def run(ops, x, labels, masks, seed: int = 0,
             return_state: bool = False, labels_onehot=None, hparams=None,
@@ -1018,15 +1060,17 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
 
         def body_of(s, drop, opt, masks, packed, counts):
             def body():
-                logits = train_forward(model, x, ops, drop, remat=cfg.remat)
-                loss = loss_of(logits, labels, labels_onehot, masks[0],
-                               None if counts is None else counts[0])
+                with span("body.forward"):
+                    logits = train_forward(model, x, ops, drop,
+                                           remat=cfg.remat)
+                    loss = loss_of(logits, labels, labels_onehot, masks[0],
+                                   None if counts is None else counts[0])
                 # sharded: the train-loss share rides the gradients'
                 # all-reduce, the eval shares take a second one
                 summed = step(opt, loss, None if group is None
                               else loss.detach().reshape(1))
                 loss = loss.detach() if summed is None else summed[0]
-                with torch.no_grad():
+                with span("body.eval"), torch.no_grad():
                     logits = model(x, ops, training=False)
                     shares = shares_of(logits, labels, labels_onehot, masks,
                                        counts)
@@ -1043,9 +1087,10 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
                     s.k.add_(1)
             return body
 
-        return drive(body_of, epochs, ops, x, labels, masks, seed,
-                     return_state, labels_onehot, hparams, init_params,
-                     init_state, epoch_limit)
+        with span("runner.call"):
+            return drive(body_of, epochs, ops, x, labels, masks, seed,
+                         return_state, labels_onehot, hparams, init_params,
+                         init_state, epoch_limit)
 
     def run_joint(ops, x, labels, masks, seed: int = 0,
                   return_state: bool = False, labels_onehot=None,
@@ -1059,17 +1104,20 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
 
         def body_of(s, drop, opt, masks, packed, counts):
             def body():
-                logits_train, logits_eval = train_forward(
-                    model, x, ops, drop, paired_eval=True, remat=cfg.remat)
-                loss_share = loss_of(logits_train, labels, labels_onehot,
-                                     masks[0],
-                                     None if counts is None else counts[0])
-                with torch.no_grad():
-                    shares = shares_of(logits_eval, labels, labels_onehot,
-                                       masks, counts, loss_share)
+                with span("body.forward"):
+                    logits_train, logits_eval = train_forward(
+                        model, x, ops, drop, paired_eval=True,
+                        remat=cfg.remat)
+                    loss_share = loss_of(logits_train, labels, labels_onehot,
+                                         masks[0], None if counts is None
+                                         else counts[0])
+                    with torch.no_grad():
+                        shares = shares_of(logits_eval, labels,
+                                           labels_onehot, masks, counts,
+                                           loss_share)
                 # sharded: one all-reduce, the shares behind the gradients
                 shares = step(opt, loss_share, shares)
-                with torch.no_grad():
+                with span("body.eval"), torch.no_grad():
                     if shares is None:
                         loss = loss_share.detach()
                     else:
@@ -1088,9 +1136,10 @@ def make_split_runner(model: ACMGNN, cfg: TrainConfig, joint=None,
                     s.k.add_(1)
             return body
 
-        return drive(body_of, epochs + 1, ops, x, labels, masks, seed,
-                     return_state, labels_onehot, hparams, init_params,
-                     init_state, epoch_limit)
+        with span("runner.call"):
+            return drive(body_of, epochs + 1, ops, x, labels, masks, seed,
+                         return_state, labels_onehot, hparams, init_params,
+                         init_state, epoch_limit)
 
     runner = run_joint if joint else run
     runner.release, runner.captures = release, captures
@@ -1152,29 +1201,35 @@ def prepare_data(dataset: GraphData | str, cfg: TrainConfig, device=None):
     dev = resolve_device(device)
     if cfg.ell_block not in (0, 1):
         raise NotImplementedError("block-column ELL is a TPU layout")
-    data = maybe_reorder(load_graph(dataset, cfg), cfg)
-    features = data.features
-    if cfg.resolve_feature_normalize():
-        features = row_normalize_features(features)
-    ops = precompute_operators(
-        data.adj, normalization=cfg.normalization,
-        hops=cfg.hops if cfg.model_type in ("acmsgc", "sgc") else 1,
-        structure_info=cfg.structure_info, fmt=cfg.operator_format,
-        spmm_dtype=_DTYPES[cfg.spmm_dtype],
-    ).to(dev)
-    labels = _host_labels(data.labels)
-    nclass = data.num_classes
-    labels_onehot = _one_hot(labels, nclass)
-    x = _features_on(torch.from_numpy(
-        np.ascontiguousarray(features, np.float32)), cfg, dev)
-    y = torch.from_numpy(labels.astype(np.int64)).to(dev)
-    y1h = torch.from_numpy(labels_onehot).to(dev)
-    if cfg.resolve_hoist():
-        # Â X once, through the same gather as the model's (the eval
-        # forward's layer-1 aggregate; exact for training at dropout 0)
-        agg = spmm(ops.adj_low, x)
-        agg_dtype = cfg.resolve_hoist_agg_dtype(*x.shape)
-        ops.x_agg = agg if agg_dtype is None else agg.to(agg_dtype)
+    with span("prepare_data", sync=True):
+        with span("prepare.load"):
+            data = maybe_reorder(load_graph(dataset, cfg), cfg)
+        with span("prepare.operators"):
+            ops = precompute_operators(
+                data.adj, normalization=cfg.normalization,
+                hops=cfg.hops if cfg.model_type in ("acmsgc", "sgc") else 1,
+                structure_info=cfg.structure_info, fmt=cfg.operator_format,
+                spmm_dtype=_DTYPES[cfg.spmm_dtype],
+            ).to(dev)
+        with span("prepare.features"):
+            features = data.features
+            if cfg.resolve_feature_normalize():
+                features = row_normalize_features(features)
+            labels = _host_labels(data.labels)
+            nclass = data.num_classes
+            labels_onehot = _one_hot(labels, nclass)
+            x = _features_on(torch.from_numpy(
+                np.ascontiguousarray(features, np.float32)), cfg, dev)
+            y = torch.from_numpy(labels.astype(np.int64)).to(dev)
+            y1h = torch.from_numpy(labels_onehot).to(dev)
+        if cfg.resolve_hoist():
+            with span("prepare.hoist"):
+                # Â X once, through the same gather as the model's (the
+                # eval forward's layer-1 aggregate; exact for training at
+                # dropout 0)
+                agg = spmm(ops.adj_low, x)
+                agg_dtype = cfg.resolve_hoist_agg_dtype(*x.shape)
+                ops.x_agg = agg if agg_dtype is None else agg.to(agg_dtype)
     return data, ops, x, y, y1h, nclass
 
 
@@ -1397,25 +1452,28 @@ def run_experiment_sharded(dataset: GraphData | str, cfg: TrainConfig, *,
     steady_time = 0.0
     steady_epochs = 0
     for idx in range(cfg.num_splits):
-        masks = tuple(prep.place(m) for m in resolve_split(
-            prep.data, cfg, idx, masks_rng, labels_np, prep.nclass))
-        init = initial_params(cfg, nfeat, prep.nclass, seed=cfg.seed + idx,
-                              nnodes=nnodes)
-        args = (prep.ops, prep.x, prep.labels, masks)
-        kwargs = dict(seed=cfg.seed + idx, labels_onehot=prep.labels_onehot)
-        t_split = time.time()
-        if checkpointing:
-            res = _segmented_split(
-                runner, model, init, args, kwargs, budget, joint,
-                checkpoint_every, f"{checkpoint_dir}/split{idx}", resume,
-                prep.rank, dev, logger, agree)
-        else:
-            def run_once():
-                out = runner(*args, **kwargs, init_params=init)
-                _sync(dev)
-                return out
+        with span("split"):
+            with span("split.prepare"):
+                masks = tuple(prep.place(m) for m in resolve_split(
+                    prep.data, cfg, idx, masks_rng, labels_np, prep.nclass))
+                init = initial_params(cfg, nfeat, prep.nclass,
+                                      seed=cfg.seed + idx, nnodes=nnodes)
+            args = (prep.ops, prep.x, prep.labels, masks)
+            kwargs = dict(seed=cfg.seed + idx,
+                          labels_onehot=prep.labels_onehot)
+            t_split = time.time()
+            if checkpointing:
+                res = _segmented_split(
+                    runner, model, init, args, kwargs, budget, joint,
+                    checkpoint_every, f"{checkpoint_dir}/split{idx}", resume,
+                    prep.rank, dev, logger, agree)
+            else:
+                def run_once():
+                    out = runner(*args, **kwargs, init_params=init)
+                    _sync(dev)
+                    return out
 
-            res = retry_transient(run_once, logger=logger, agree=agree)()
+                res = retry_transient(run_once, logger=logger, agree=agree)()
         results.append(res)
         if idx > 0:   # split 0 pays the warm-up; excluded from the rate
             steady_time += time.time() - t_split
@@ -1558,23 +1616,28 @@ def run_experiment(dataset: GraphData | str, cfg: TrainConfig, *, splits=None,
     steady_time = 0.0
     steady_epochs = 0
     for idx in range(cfg.num_splits):
-        if splits is not None:
-            split = splits[idx]
-        else:
-            split = resolve_split(data, cfg, idx, rng, labels_np, nclass)
-        masks = tuple(torch.as_tensor(np.asarray(m)).to(dev) for m in split)
-        init = initial_params(cfg, nfeat, nclass, seed=cfg.seed + idx,
-                              nnodes=nnodes)
-        t_split = time.time()
+        with span("split"):
+            with span("split.prepare"):
+                if splits is not None:
+                    split = splits[idx]
+                else:
+                    split = resolve_split(data, cfg, idx, rng, labels_np,
+                                          nclass)
+                masks = tuple(torch.as_tensor(np.asarray(m)).to(dev)
+                              for m in split)
+                init = initial_params(cfg, nfeat, nclass,
+                                      seed=cfg.seed + idx, nnodes=nnodes)
+            t_split = time.time()
 
-        def run_once():
-            model.load_state_dict(init)
-            res = runner(model, ops, x, labels, masks, seed=cfg.seed + idx,
-                         labels_onehot=labels_onehot, hparams=hparams)
-            _sync(dev)
-            return res
+            def run_once():
+                model.load_state_dict(init)
+                res = runner(model, ops, x, labels, masks,
+                             seed=cfg.seed + idx,
+                             labels_onehot=labels_onehot, hparams=hparams)
+                _sync(dev)
+                return res
 
-        res = retry_transient(run_once, logger=logger)()
+            res = retry_transient(run_once, logger=logger)()
         results.append(res)
         if idx > 0:   # split 0 pays the warm-up; excluded from the rate
             steady_time += time.time() - t_split

@@ -35,6 +35,7 @@ from acmgnn_tpu_torch import cli
 from acmgnn_tpu_torch.data.registry import load_dataset
 from acmgnn_tpu_torch.models.convert import params_from_flax
 from acmgnn_tpu_torch.train import sweep, trainer
+from acmgnn_tpu_torch.utils import profiling
 from acmgnn_tpu_torch.utils.checkpoint import restore_checkpoint
 
 N, F, C = 48, 12, 3
@@ -417,6 +418,11 @@ def test_profile_dir_writes_a_trace(root, tmp_path):
     events = json.loads((prof / "trace.json").read_text())["traceEvents"]
     assert any("addmm" in e.get("name", "") or "mm" in e.get("name", "")
                for e in events)
+    # the program's spans are ranges in the trace, and off again after it
+    names = {e.get("name") for e in events}
+    assert {"prepare_data", "split", "split.prepare", "runner.call",
+            "runner.first_body", "runner.loop"} <= names
+    assert not profiling.spans_enabled()
     assert (tmp_path / "r.csv").read_text().startswith("dataset,model,")
 
 
