@@ -24,8 +24,10 @@ K3 (backward, with the parameter gradients summed over the rows),
 ``attention_mix_forward_plain`` and ``attention_mix_backward_plain`` are
 their plain PyTorch versions.  The channel projections ``X W`` follow
 ``gemm_dtype`` (``make_mm``): f32, or bf16 operands with an f32 result
-and JAX's backward (``bf16_matmul``); the attention's own products stay
-f32.
+and JAX's backward (``bf16_matmul``); each operand goes through every
+weight that reads it in one call (``make_project``), so a bf16 operand
+is rounded once a forward and widened once a backward
+(``bf16_project``).  The attention's own products stay f32.
 
 Also ``SAGEConv``, ``GCNIIConv`` and ``MLPBlock`` (acmgcnpp's skip MLP,
 with ``BatchNorm`` in flax's arithmetic).  Parameter names and
@@ -56,6 +58,7 @@ from acmgnn_tpu_torch.ops.spmm import (
     spmm_multi,
 )
 from acmgnn_tpu_torch.parallel.multihost import rank_rows, sum_over_ranks
+from acmgnn_tpu_torch.utils import profiling
 
 # Widest layer-1 input the hoist gathers directly (kept from the JAX
 # package, where a wider gather fell off the gather engine's full rate).
@@ -463,34 +466,59 @@ def _mm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-class _Bf16Matmul(torch.autograd.Function):
-    """JAX's ``dot(a.bf16, w.bf16, preferred_element_type=f32)``: the
-    operands are rounded to bf16, the product is not.  Its backward is
-    what ``jax.grad`` makes of it: the f32 cotangent times the other
-    operand's bf16 values as an f32 product, rounded to bf16 and cast
-    back to the input's dtype; the cotangent itself is not rounded."""
+class _Bf16Project(torch.autograd.Function):
+    """JAX's ``dot(a.bf16, w.bf16, preferred_element_type=f32)`` for each
+    weight ``w`` of ``ws``: the operands are rounded to bf16, the products
+    are not.  ``a`` is rounded once, and that one copy is saved, for every
+    weight.  Its backward is what ``jax.grad`` makes of each product: the
+    f32 cotangent times the other operand's bf16 values as an f32
+    product, rounded to bf16 and cast back to the input's dtype; the
+    cotangent itself is not rounded.  The saved copy is widened to f32
+    once for every weight's gradient.  ``a``'s gradient is formed at one
+    weight only (``bf16_project``)."""
 
     @staticmethod
-    def forward(ctx, a, w):
-        ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
-        ctx.save_for_backward(ab, wb)
-        ctx.dtypes = (a.dtype, w.dtype)
-        return _mm_f32_out(ab, wb)
+    def forward(ctx, a, *ws):
+        ab = a.to(torch.bfloat16)
+        wbs = [w.to(torch.bfloat16) for w in ws]
+        ctx.save_for_backward(ab, *wbs)
+        ctx.dtypes = (a.dtype, *(w.dtype for w in ws))
+        ctx.set_materialize_grads(False)
+        return tuple(_mm_f32_out(ab, wb) for wb in wbs)
 
     @staticmethod
-    def backward(ctx, g):
-        ab, wb = ctx.saved_tensors
-        da = dw = None
-        if ctx.needs_input_grad[0]:
+    def backward(ctx, *gs):
+        ab, *wbs = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        da = None
+        if need[0] and gs[0] is not None:
+            (g,), (wb,) = gs, wbs
             da = (g @ wb.float().T).to(torch.bfloat16).to(ctx.dtypes[0])
-        if ctx.needs_input_grad[1]:
-            dw = (ab.float().T @ g).to(torch.bfloat16).to(ctx.dtypes[1])
-        return da, dw
+        want = [n and g is not None for n, g in zip(need[1:], gs)]
+        af = ab.float() if any(want) else None
+        dws = [(af.T @ g).to(torch.bfloat16).to(dt) if w else None
+               for w, g, dt in zip(want, gs, ctx.dtypes[1:])]
+        return (da, *dws)
+
+
+def bf16_project(a: torch.Tensor, *ws: torch.Tensor) -> tuple:
+    """Differentiable ``a @ w`` for each weight of ``ws``, with bf16
+    operands and f32 results: a tuple, one product a weight.  ``a`` is
+    rounded to bf16 once for all of them (the counters
+    ``proj.roundings`` and ``proj.projections``), unless it needs a
+    gradient: then each weight takes its own rounding, so autograd sums
+    ``a``'s gradient from one term a weight, as it does for separate
+    products."""
+    calls = ([(w,) for w in ws] if len(ws) > 1 and a.requires_grad
+             and torch.is_grad_enabled() else [ws])
+    profiling.count("proj.roundings", len(calls))
+    profiling.count("proj.projections", len(ws))
+    return tuple(z for c in calls for z in _Bf16Project.apply(a, *c))
 
 
 def bf16_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Differentiable ``a @ w`` with bf16 operands and an f32 result."""
-    return _Bf16Matmul.apply(a, w)
+    return bf16_project(a, w)[0]
 
 
 def f32_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -507,6 +535,18 @@ def make_mm(gemm_dtype: Optional[str]):
     if gemm_dtype == "bfloat16":
         return bf16_matmul
     raise ValueError(f"unknown gemm_dtype {gemm_dtype!r}")
+
+
+def f32_project(a: torch.Tensor, *ws: torch.Tensor) -> tuple:
+    """``f32_matmul(a, w)`` for each weight of ``ws``, as a tuple."""
+    return tuple(f32_matmul(a, w) for w in ws)
+
+
+def make_project(gemm_dtype: Optional[str]):
+    """``make_mm``'s matmul over the weights that read one operand:
+    ``project(a, *ws)`` returns one product a weight."""
+    return bf16_project if make_mm(gemm_dtype) is bf16_matmul \
+        else f32_project
 
 
 # ---------------------------------------------------------------------------
@@ -693,10 +733,14 @@ class MLPBlock(nn.Module):
                 setattr(self, f"bn_{i}", BatchNorm(f_out))
             f_in = f_out
 
-    def forward(self, x, training: bool = False, drop=None, shard=None):
+    def forward(self, x, training: bool = False, drop=None, shard=None,
+                x_proj=None):
         """``drop``: the forward's ``ops.dropout.Dropout``, whose next
         sites the hidden layers take at this block's rate; None: no
-        dropout."""
+        dropout.  ``x_proj``: ``lin_0``'s product ``x @ lin_0.kernel``,
+        made by the caller; used only at ``num_layers == 1``."""
+        if self.num_layers == 1 and x_proj is not None:
+            return x_proj + self.lin_0.bias
         for i in range(self.num_layers - 1):
             x = torch.relu(getattr(self, f"lin_{i}")(x))
             x = getattr(self, f"bn_{i}")(x, training, shard)
@@ -720,6 +764,7 @@ class ACMConv(nn.Module):
                                                            "gcnII"):
             raise ValueError(f"no ACMConv of model type {model_type!r}")
         self.mm = make_mm(gemm_dtype)
+        self.project = make_project(gemm_dtype)
         self.model_type = model_type
         self.variant = variant
         self.out_features = out_features
@@ -798,15 +843,23 @@ class ACMConv(nn.Module):
                              1.0 if len(zs) == 4 else 3.0, self.relu)
 
     def forward(self, x, ops: Operators, x_eval=None, x_agg=None,
-                x_eval_agg=None):
+                x_eval_agg=None, also=None):
         """One layer; with ``x_eval`` (ACM family but acmsgc and
         acmgraphsage) also the paired eval branch, riding the same fused
         gather, returned as ``(out, out_eval)``.
 
         ``x_agg``/``x_eval_agg``: precomputed ``Â @ x`` for the input
-        hoist, valid only when the input is the array it came from."""
+        hoist, valid only when the input is the array it came from.
+
+        ``also`` (the types of ``x_eval``): weights of another module that
+        read this layer's input (acmgcnpp's ``mlpX.lin_0``), projected with
+        the layer's own weights that read it, so the input is rounded once
+        for all of them.  Their products follow the output, a tuple a
+        branch: ``(out, also_out)`` or ``(out, out_eval, also_out,
+        also_eval_out)``; the eval branch's come from detached weights."""
         mt = self.model_type
-        if x_eval is not None and mt not in PAIRED_TYPES:
+        if (x_eval is not None or also is not None) \
+                and mt not in PAIRED_TYPES:
             raise ValueError(f"paired forward unsupported for {mt!r}")
         mm = self.mm
         if mt == "mlp":
@@ -826,28 +879,28 @@ class ACMConv(nn.Module):
                               mm(x, self.weight_mlp)))
         if mt == "acmsgc":
             # the high-pass stays 1-hop under a k-hop low-pass
+            z_low, z_high, z_mlp = self.project(
+                x, self.weight_low, self.weight_high, self.weight_mlp)
             if ops.adj_hp_base is None:
-                h_low, h_high = spmm_dual(ops.adj_low,
-                                          mm(x, self.weight_low),
-                                          mm(x, self.weight_high))
+                h_low, h_high = spmm_dual(ops.adj_low, z_low, z_high)
             else:
-                h_low = spmm(ops.adj_low, mm(x, self.weight_low))
-                h_high = spmm_high(ops.adj_hp, mm(x, self.weight_high))
-            return self._mix((h_low, h_high, mm(x, self.weight_mlp)))
-        return self._acm_forward(x, ops, x_eval, x_agg, x_eval_agg)
+                h_low = spmm(ops.adj_low, z_low)
+                h_high = spmm_high(ops.adj_hp, z_high)
+            return self._mix((h_low, h_high, z_mlp))
+        return self._acm_forward(x, ops, x_eval, x_agg, x_eval_agg,
+                                 also)
 
-    def _acm_forward(self, x, ops, x_eval, x_agg, x_eval_agg):
+    def _acm_forward(self, x, ops, x_eval, x_agg, x_eval_agg, also):
         """acmgcn / acmgcnp / acmgcnpp / acmsnowball: every channel
-        aggregation of the call shares one fused gather."""
+        aggregation of the call shares one fused gather, and each operand
+        goes through every weight that reads it in one projection."""
         f_in = x.shape[-1]
-        mm = self.mm
         paired = x_eval is not None
         branches = [x, x_eval] if paired else [x]
         pre_aggs = [x_agg, x_eval_agg] if paired else [x_agg]
-        w_low, w_high, w_mlp = self.weight_low, self.weight_high, \
-            self.weight_mlp
-        ws = [(w_low, w_high, w_mlp),
-              (w_low.detach(), w_high.detach(), w_mlp.detach())]
+        wts = (self.weight_low, self.weight_high, self.weight_mlp,
+               *(also or ()))
+        ws = [wts, tuple(w.detach() for w in wts)]
         hoisted = [self.input_hoist and not self.variant
                    and (pre_aggs[b] is not None or f_in <= HOIST_MAX_COLS)
                    for b in range(len(branches))]
@@ -860,23 +913,28 @@ class ACMConv(nn.Module):
                              [False] * len(need))
             for b, y in zip(need, got):
                 pre_aggs[b] = y
+        # a branch that projects before the gather projects its mlp
+        # channel and ``also`` in the same call; a hoisted one projects
+        # when it mixes
         proj = [b for b in range(len(branches)) if not hoisted[b]]
-        proj_aggs = {}
+        proj_zs, extra = {}, [()] * len(branches)
         if proj:
             zs = []
             for b in proj:
-                wl, wh, _ = ws[b]
-                z_low, z_high = mm(branches[b], wl), mm(branches[b], wh)
+                wl, wh, wm, *wa = ws[b]
+                z_low, z_high, z_mlp, *extra[b] = self.project(
+                    branches[b], wl, wh, wm, *wa)
                 if self.variant:   # ACMII: propagate post-ReLU projections
                     z_low, z_high = torch.relu(z_low), torch.relu(z_high)
                 zs += [z_low, z_high]
+                proj_zs[b] = z_mlp
             n_train = sum(1 for b in proj if b == 0)
             grad_prefix = (2 * n_train if paired and n_train < len(proj)
                            else None)
             outs = spmm_multi(ops.adj_low, zs, [False, True] * len(proj),
                               grad_prefix=grad_prefix)
             for i, b in enumerate(proj):
-                proj_aggs[b] = (outs[2 * i], outs[2 * i + 1])
+                proj_zs[b] = (outs[2 * i], outs[2 * i + 1], proj_zs[b])
         struc = None
         if self.structure:
             if ops.adj_unnorm is None:
@@ -890,17 +948,20 @@ class ACMConv(nn.Module):
                          node_rows(ops.adj_unnorm, self.struc_low))
         results = []
         for b, xb in enumerate(branches):
-            wl, wh, wm = ws[b]
+            wl, wh, wm, *wa = ws[b]
             if hoisted[b]:
                 y = pre_aggs[b]
                 if f_in > HOIST_MAX_COLS:
-                    z_low = mm(y, wl)
-                    z_high = mm(xb, wh) - mm(y, wh)
+                    z_low, y_high = self.project(y, wl, wh)
+                    x_high, z_mlp, *extra[b] = self.project(xb, wh, wm, *wa)
+                    z_high = x_high - y_high
+                    del x_high, y_high   # as short-lived as before sharing
                 else:
-                    z_low, z_high = mm(y, wl), mm(xb - y, wh)
+                    z_low, z_high = self.mm(y, wl), self.mm(xb - y, wh)
+                    z_mlp, *extra[b] = self.project(xb, wm, *wa)
+                zs = [z_low, z_high, z_mlp]
             else:
-                z_low, z_high = proj_aggs[b]
-            zs = [z_low, z_high, mm(xb, wm)]
+                zs = list(proj_zs.pop(b))
             if struc is not None:
                 zs.append(struc)
             if b > 0:
@@ -908,4 +969,6 @@ class ACMConv(nn.Module):
                 # it (its columns of the fused gather get none either)
                 zs = [z.detach() for z in zs]
             results.append(self._mix(zs, detach=b > 0))
+        if also is not None:
+            return (*results, *map(tuple, extra))
         return tuple(results) if paired else results[0]

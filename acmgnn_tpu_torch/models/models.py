@@ -112,11 +112,6 @@ class ACMGNN(nn.Module):
         pre_dropped = mt in ACM_FAMILY
         if pre_dropped:
             x = drop(x)
-        if mt == "acmgcnpp":
-            xx = drop(torch.relu(self.mlpX(x, training, drop,
-                                           row_shard(ops.adj_low))))
-            if paired_eval:   # feeds metrics only
-                xx_eval = torch.relu(self.mlpX(x_eval, False)).detach()
         # ACM-family inputs were dropout'd: the precomputed aggregate is
         # valid only while dropout is a no-op (gcn/sgc/snowball feed raw X)
         agg0 = ops.x_agg if self.hoist_first else None
@@ -138,6 +133,9 @@ class ACMGNN(nn.Module):
         if mt == "graphsage":
             fea1 = drop(torch.relu(self.sage_0(x, ops)))
             return self.sage_1(fea1, ops)
+        if mt == "acmgcnpp":
+            return self._acmgcnpp(x, x_eval, ops, training, drop, train_agg,
+                                  agg0)
         if mt == "gcnII":
             h = torch.relu(self.fc_in(drop(x)))
             h0 = h
@@ -151,11 +149,39 @@ class ACMGNN(nn.Module):
                                          x_agg=train_agg, x_eval_agg=agg0)
             fea1 = drop(torch.relu(fea1))
             fea1_eval = torch.relu(fea1_eval)
-            if mt == "acmgcnpp":
-                fea1 = fea1 + xx
-                fea1_eval = fea1_eval + xx_eval
             return self.gcn_1(fea1, ops, x_eval=fea1_eval)
         fea1 = drop(torch.relu(self.gcn_0(x, ops, x_agg=train_agg)))
-        if mt == "acmgcnpp":
-            fea1 = fea1 + xx
         return self.gcn_1(fea1, ops)
+
+    def _acmgcnpp(self, x, x_eval, ops, training, drop, train_agg, agg0):
+        """acmgcnpp's two layers with ``dropout(relu(mlpX(x)))`` added to
+        layer 2's input (``x`` already dropout'd; ``x_eval``: the paired
+        eval branch's raw features, or None).  With one Linear
+        (``init_layers_X`` 1) ``mlpX`` reads layer 1's input alone: layer
+        1 projects it with its own weights (``ACMConv``'s ``also``), so a
+        bf16 operand is rounded once for all of them.  Layer 1 draws no
+        dropout, so the sites keep their order: ``mlpX``'s, then layer
+        1's output's."""
+        lin0 = (self.mlpX.lin_0.kernel,) if self.mlpX.num_layers == 1 \
+            else ()
+        # xp / xp_eval: lin_0's product as ``mlpX``'s ``x_proj``, or () at
+        # two Linears and more
+        if x_eval is None:
+            fea1, xp = self.gcn_0(x, ops, x_agg=train_agg, also=lin0)
+        else:
+            fea1, fea1_eval, xp, xp_eval = self.gcn_0(
+                x, ops, x_eval=x_eval, x_agg=train_agg, x_eval_agg=agg0,
+                also=lin0)
+        xx = drop(torch.relu(self.mlpX(
+            x, training, drop, row_shard(ops.adj_low), *xp)))
+        del xp   # lin_0's product lives no longer than mlpX's own would
+        fea1 = drop(torch.relu(fea1)) + xx
+        if x_eval is None:
+            return self.gcn_1(fea1, ops)
+        # feeds metrics only; BatchNorm's statistics as the train branch
+        # left them
+        xx_eval = torch.relu(self.mlpX(x_eval, False, None, None,
+                                       *xp_eval)).detach()
+        del xp_eval
+        fea1_eval = torch.relu(fea1_eval) + xx_eval
+        return self.gcn_1(fea1, ops, x_eval=fea1_eval)

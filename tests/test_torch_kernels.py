@@ -1765,3 +1765,27 @@ def test_bf16_gemm_card_matches_cpu_formula(cuda):
             tol = tol + 2.0 ** -7 * want.abs()
             assert torch.equal(got, got.bfloat16().float())
         assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+def test_bf16_project_card_equals_separate_products(cuda):
+    """``bf16_project`` on the card (one rounding of the operand, one
+    widening for every weight's gradient) against one ``bf16_matmul`` a
+    weight: products and weight gradients bit for bit, at a width above
+    ``HOIST_MAX_COLS`` as penn94's features have."""
+    rng = np.random.default_rng(10)
+    a = torch.from_numpy(rng.normal(size=(3000, 160)).astype(np.float32))
+    ws = [torch.from_numpy(rng.normal(size=(160, 64)).astype(np.float32))
+          for _ in range(4)]
+    gs = [torch.from_numpy(rng.normal(size=(3000, 64)).astype(np.float32))
+          .to(cuda) for _ in ws]
+    res = []
+    for shared in (True, False):
+        ta = a.to(cuda)
+        tws = [w.to(cuda).requires_grad_() for w in ws]
+        outs = (layers.bf16_project(ta, *tws) if shared
+                else [bf16_matmul(ta, w) for w in tws])
+        torch.autograd.backward(list(outs), gs)
+        res.append([*(o.detach() for o in outs), *(w.grad for w in tws)])
+    for got, want in zip(*res):
+        assert torch.equal(got, want)
