@@ -5,10 +5,11 @@ three steps, through the same call the window uses (split 0 in three
 segments of one step each), and keeps its trajectory: the parameters and
 Adam's moments after each step, each step's training loss and the
 validation loss after steps 1 and 2 (``program_trajectory``).  Once the
-window has closed and the program's state is freed, the plain reference
-follows that trajectory step by step (``reference.acm.follow``): from the
-program's state before step t it computes step t's loss, gradient and
-change, and the validation loss at the program's state after it.  It
+window has closed and the program's state is freed, the cell's plain
+reference follows that trajectory step by step (its ``follow``,
+``manifest.REFERENCE``): from the program's state before step t it
+computes step t's loss, gradient and change, and the validation loss at
+the program's state after it.  It
 starts from the same inputs as the program (the benchmark's), so step 1
 is checked from the start; it does not run three steps on its own,
 because a second sound order of the same arithmetic parts from it by up
@@ -91,7 +92,7 @@ LEAF = {"worst": _worst, "median": _median}
 
 
 def gaps(followed: dict, leaf: str = "worst") -> dict:
-    """The compared numbers of ``reference.acm.follow``'s output; ``leaf``
+    """The compared numbers of a reference's ``follow`` output; ``leaf``
     says which leaf's gap ``grad_gap`` and ``change_gap`` take at a step:
     the worst, or the median leaf's (a cell whose worst leaf is
     ill-conditioned, ``PERF.md``)."""

@@ -37,7 +37,6 @@ import time
 import torch
 
 from benchmark import check, harness, inputs, manifest
-from benchmark.reference import acm
 
 CONTROL = {"float32": "tf32", "bfloat16": "float8"}
 
@@ -56,7 +55,8 @@ def trainer(cell, seed: int, device, adj, lower=None, fault=None,
     """The reference's trainer of the run seeded ``seed`` (inputs made on
     ``device``, computed on ``on``), lowered to ``lower`` or with
     ``fault``."""
-    inp = inputs.Inputs(cell.config, cell.traffic, seed, device, adj)
+    inp = inputs.Inputs(cell.config, cell.traffic, seed, device, adj,
+                        cell.reference)
     masks = inp.masks(0)
     if fault == "half_batch":
         masks = half_batch(masks)
@@ -76,9 +76,9 @@ def second_order(cell, seed: int, device, adj) -> dict:
     if cell.config["model"]["gemm_dtype"] != "float32":
         raise ValueError("a second order is summed for f32 projections")
     ref, inp = trainer(cell, seed, device, adj)
-    traj = acm.train(ref, inp.params(0), check.STEPS)
+    traj = cell.reference.train(ref, inp.params(0), check.STEPS)
     ref.mm = split_mm
-    followed = acm.follow(ref, traj)
+    followed = cell.reference.follow(ref, traj)
     return {leaf: check.gaps(followed, leaf) for leaf in check.LEAF}
 
 
@@ -91,7 +91,7 @@ def in_the_programs_place(cell, seed: int, device, adj, on=None, **kw):
         kw = {k: v for k, v in kw.items() if k != "fault"}
     other, inp = trainer(cell, seed, device, adj, on=on, **kw)
     p0 = {k: v.to(other.x.device) for k, v in inp.params(0).items()}
-    traj = acm.train(other, p0, check.STEPS)
+    traj = cell.reference.train(other, p0, check.STEPS)
     if stale:    # each evaluation reads the parameters before its step
         traj["val_losses"] = [other.val_loss(p)
                               for p in traj["params"][:check.STEPS - 1]]
@@ -100,7 +100,7 @@ def in_the_programs_place(cell, seed: int, device, adj, on=None, **kw):
                     if k in ("params", "m", "v") else v)
                 for k, v in traj.items()}
     ref, _ = trainer(cell, seed, device, adj)
-    followed = acm.follow(ref, traj)
+    followed = cell.reference.follow(ref, traj)
     return (check.gaps(followed, cell.workload.get("leaf", "worst")),
             followed)
 

@@ -35,7 +35,6 @@ import time
 import torch
 
 from benchmark import check, inputs, manifest, trace
-from benchmark.reference import acm
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "acmgnn_tpu", "bench", "chip_smoke")
 
@@ -118,7 +117,7 @@ class Run:
             adj = inputs.graph(cell.config, cell.traffic, dev)
         phase("graph")
         self.inp = inputs.Inputs(cell.config, cell.traffic, self.seed, dev,
-                                 adj)
+                                 adj, cell.reference)
         data = GraphData(
             name=cell.name, adj=adj,
             features=self.inp.features().cpu().numpy(),
@@ -254,25 +253,25 @@ class Run:
             torch.cuda.empty_cache()
 
     def compare(self) -> dict:
-        """The reference step by step along the program's trajectory,
-        from the same inputs, and the compared numbers."""
-        self.followed = acm.follow(reference_trainer(self.cell, self.inp,
-                                                     self.adj),
-                                   self.trajectory)
+        """The cell's reference step by step along the program's
+        trajectory, from the same inputs, and the compared numbers."""
+        self.followed = self.cell.reference.follow(
+            reference_trainer(self.cell, self.inp, self.adj), self.trajectory)
         return check.gaps(self.followed,
                           self.cell.workload.get("leaf", "worst"))
 
 
 def reference_trainer(cell, inp, adj, lower=None, device=None,
-                      masks=None) -> acm.Trainer:
-    """The reference's trainer on split 0 of ``inp``'s inputs (made on
-    their device, computed on ``device``), lowered to ``lower``."""
+                      masks=None):
+    """The cell's reference's trainer on split 0 of ``inp``'s inputs (made
+    on their device, computed on ``device``), lowered to ``lower``."""
+    ref = cell.reference
     dev = inp.device if device is None else torch.device(device)
     model = cell.config["model"]
-    x = torch.from_numpy(acm.preprocess(inp.features().cpu().numpy(),
+    x = torch.from_numpy(ref.preprocess(inp.features().cpu().numpy(),
                                         model)).to(dev)
     masks = inp.masks(0) if masks is None else masks
-    return acm.Trainer(x, acm.Graph(adj, dev), inp.labels().to(dev),
+    return ref.Trainer(x, ref.Graph(adj, dev), inp.labels().to(dev),
                        tuple(m.to(dev) for m in masks), model,
                        inp.dropout_seed(0), lower)
 

@@ -10,8 +10,8 @@ parameters (``traffic/<name>.json``) and a configuration's data shape.
   (uniform over the classes) and, for split ``i`` (0 is set-up's warm-up
   split, 1, 2, ... the window's), its train/validation/test masks (a
   permutation cut at the traffic's ``masks`` fractions), its initial
-  parameters (one uniform draw, the published laws) and its dropout
-  seed.
+  parameters (the shapes and laws of the configuration's reference,
+  ``manifest.REFERENCE``, one draw) and its dropout seed.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ import scipy.sparse as sp
 import torch
 
 from benchmark import graphs
-from benchmark.reference import acm
 
 
 def derive(seed: int, *tags) -> int:
@@ -49,18 +48,21 @@ def graph(config: dict, traffic: dict, device) -> sp.csr_matrix:
 
 
 class Inputs:
-    """The inputs of the run seeded ``seed`` on ``device``."""
+    """The inputs of the run seeded ``seed`` on ``device``; the parameters'
+    shapes and draw are those of ``reference``, the configuration's plain
+    reference (``manifest.reference``)."""
 
     def __init__(self, config: dict, traffic: dict, seed: int, device,
-                 adj: sp.csr_matrix):
+                 adj: sp.csr_matrix, reference):
         data = config["data"]
         self.config, self.traffic, self.seed = config, traffic, seed
+        self.reference = reference
         self.device = torch.device(device)
         self.n, self.f, self.c = data["nodes"], data["features"], \
             data["classes"]
         self.adj = adj
-        self.shapes = acm.param_shapes(config["model"], self.f, self.c,
-                                       self.n)
+        self.shapes = reference.param_shapes(config["model"], self.f,
+                                             self.c, self.n)
 
     def features(self) -> torch.Tensor:
         """Normal, or its absolute value where the configuration's
@@ -94,9 +96,9 @@ class Inputs:
         return tuple(out)
 
     def params(self, split: int) -> dict:
-        return acm.init_params(self.shapes,
-                               generator(self.device, self.seed, "params",
-                                         split), self.device)
+        return self.reference.init_params(
+            self.shapes, generator(self.device, self.seed, "params", split),
+            self.device)
 
     def dropout_seed(self, split: int) -> int:
         return derive(self.seed, "dropout", split) % 2**32

@@ -2,26 +2,31 @@
 without a card)."""
 
 import copy
+from pathlib import Path
 
 import pytest
 import torch
 
 from benchmark import manifest
 
-# tiny shapes of each configuration for the CPU (widths kept where the
-# path depends on them: F > 128 takes penn94's projected training branch)
-TINY = {
-    "acmgcnp-twitch_gamers": dict(nodes=400, pairs=3000),
-    "acmgcnpp-penn94": dict(nodes=300, pairs=2000, features=200,
-                            top_expected_degree=40),
-}
+# Each configuration's tiny shape for the CPU is ``tiny/<config>.json``:
+# the keys of its ``data`` that change (widths kept where the path depends
+# on them: F > 128 takes penn94's projected training branch).  A test of a
+# configuration without one is skipped, by name.
 TINY_EPOCHS = 20
 
 
-def tiny_cell(name: str) -> manifest.Cell:
-    cell = manifest.Cell(name, manifest.manifest())
+def tiny_cell(name: str, bench: dict | None = None,
+              root: Path = manifest.ROOT) -> manifest.Cell:
+    cell = manifest.Cell(name, manifest.manifest() if bench is None
+                         else bench, root)
+    config = cell.entry["config"]
+    path = root / "tests" / "tiny" / f"{config}.json"
+    if not path.is_file():
+        pytest.skip(f"configuration {config} has no tiny CPU shape "
+                    f"(tests/tiny/{config}.json)")
     cell.config = copy.deepcopy(cell.config)
-    cell.config["data"].update(TINY[cell.entry["config"]])
+    cell.config["data"].update(manifest.load_json(path))
     cell.traffic = dict(cell.traffic, epochs=TINY_EPOCHS)
     return cell
 

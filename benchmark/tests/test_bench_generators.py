@@ -67,7 +67,8 @@ def test_inputs_repeat_for_a_seed_and_differ_across_seeds():
     big = 2**31 + 11
 
     def make(seed):
-        inp = inputs.Inputs(config, cell.traffic, seed, "cpu", adj)
+        inp = inputs.Inputs(config, cell.traffic, seed, "cpu", adj,
+                            cell.reference)
         return (inp.features(), inp.labels(), inp.masks(1), inp.params(1),
                 inp.dropout_seed(1))
 

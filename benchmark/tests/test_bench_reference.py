@@ -69,10 +69,11 @@ def test_following_a_trajectory_of_its_own_reads_nought():
     cell = tiny_cell(CELLS[1])
     from benchmark import inputs
     adj = inputs.graph(cell.config, cell.traffic, "cpu")
-    inp = inputs.Inputs(cell.config, cell.traffic, 5, "cpu", adj)
+    inp = inputs.Inputs(cell.config, cell.traffic, 5, "cpu", adj,
+                        cell.reference)
     tr = harness.reference_trainer(cell, inp, adj)
-    traj = acm.train(tr, inp.params(0), check.STEPS)
-    g = check.gaps(acm.follow(tr, traj))
+    traj = cell.reference.train(tr, inp.params(0), check.STEPS)
+    g = check.gaps(cell.reference.follow(tr, traj))
     assert g["loss_gap"] == 0.0 and g["val_loss_gap"] == 0.0
     assert g["grad_gap"] < 1e-5 and g["change_gap"] < 1e-5
 
